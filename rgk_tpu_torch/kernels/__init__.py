@@ -1,0 +1,93 @@
+"""Build the port's CUDA kernels at first use and load them.
+
+`load()` compiles every `csrc/*.cu` of the package with `nvcc` into one
+shared library with a plain C interface, under `rgk_tpu_torch/build/`,
+and loads it with ctypes.  The library is named by a hash of the
+sources, the flags and the compiler, so an edited source rebuilds and
+an unchanged one loads from the cache.  A failed build raises with
+nvcc's output.  Nothing is built or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import subprocess
+import time
+from functools import lru_cache
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
+                           "port's kernels are built with nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> str:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(_nvcc().encode())
+    return os.path.join(BUILD_DIR, f"librgk_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> dict:
+    """Compile the library if it is not cached.  Returns the path, the
+    build seconds (0.0 when cached) and nvcc's output (ptxas resource
+    usage), which is also kept beside the library as a .log."""
+    path = library_path()
+    log_path = path[:-3] + ".log"
+    if os.path.exists(path):
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        return {"path": path, "seconds": 0.0, "log": log}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, path)
+    with open(log_path, "w") as f:
+        f.write(log)
+    return {"path": path, "seconds": seconds, "log": log}
+
+
+@lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """The built library, with the argument types of its entry points."""
+    lib = ctypes.CDLL(build()["path"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rgk_flat_intersect.argtypes = [p, i, p, p, p, p, p, i, p, p, p, p,
+                                       i, p]
+    lib.rgk_flat_intersect.restype = i
+    return lib

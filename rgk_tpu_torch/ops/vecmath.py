@@ -1,0 +1,69 @@
+"""Batched 3-vector math for wavefronts of rays (port of
+rgk_tpu/ops/vecmath.py).
+
+All functions take tensors shaped ``[..., 3]``.  The reference's
+`take` / `take_rows` gather wrappers are TPU workarounds (optimization
+barriers and one-hot matmuls) and have no counterpart: the port
+indexes tensors directly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-20
+
+
+def dot(a, b, keepdim: bool = False):
+    return torch.sum(a * b, dim=-1, keepdim=keepdim)
+
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def length(v, keepdim: bool = False):
+    return torch.sqrt(torch.clamp(dot(v, v, keepdim=keepdim), min=EPS))
+
+
+def normalize(v):
+    return v / length(v, keepdim=True)
+
+
+def safe_normalize(v, fallback=None):
+    """Normalize; lanes with ~zero length get `fallback` (default +Z)."""
+    l2 = dot(v, v, keepdim=True)
+    ok = l2 > 1e-24
+    inv = torch.where(ok, 1.0 / torch.sqrt(torch.clamp(l2, min=1e-24)), 0.0)
+    out = v * inv
+    if fallback is None:
+        fallback = torch.zeros_like(v)
+        fallback[..., 2] = 1.0
+    return torch.where(ok, out, fallback)
+
+
+def reflect_z(v):
+    """Mirror reflection about the local +Z axis: (x,y,z) -> (-x,-y,z)."""
+    return v * v.new_tensor([-1.0, -1.0, 1.0])
+
+
+def build_onb(n):
+    """Branchless orthonormal basis (t, b) around unit normal `n`
+    (Duff et al. 2017), as in the reference."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    sign = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    t = torch.stack([1.0 + sign * nx * nx * a, sign * b, -sign * nx], dim=-1)
+    bt = torch.stack([b, sign + ny * ny * a, -ny], dim=-1)
+    return t, bt
+
+
+def to_local(n, t, b, v):
+    """World -> local shading frame (+Z = n)."""
+    return torch.stack([dot(v, t), dot(v, b), dot(v, n)], dim=-1)
+
+
+def to_global(n, t, b, v):
+    """Local shading frame -> world."""
+    return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n

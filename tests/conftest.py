@@ -41,6 +41,8 @@ DEFAULT_TEST_TIMEOUT = 300
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "timeout(seconds): per-test wall-clock limit")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
 
 
 @pytest.hookimpl(hookwrapper=True)
