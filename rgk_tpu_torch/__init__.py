@@ -9,9 +9,18 @@ JSON helpers, primitives, transforms, utils, the progress monitor) are
 imported from there as they are, since `rgk_tpu/__init__.py` imports
 nothing.
 
-Slice 1 (this package today): unidirectional renders (`reverse == 0`)
-of JSON scenes of at most 4096 triangles, every ray-triangle query
-through the flat-sweep kernel (`ops/flat_intersect.py`).
+What renders today: unidirectional renders (`reverse == 0`) of JSON
+scenes of any size.  Up to 4096 triangles every ray-triangle query goes
+through the flat-sweep kernel K1 (`ops/flat_intersect.py`); above that
+the commit builds a BVH and a cluster tree (`scene/bvh.py`,
+`scene/clusters.py`) and every query goes through the cluster kernel K2
+(`ops/cluster_intersect.py`).  On the CPU the kernels' plain versions
+run, and BVH scenes walk `ops/intersect.intersect_bvh`, the reference's
+own non-TPU route.
+
+Still raising NotImplementedError: `reverse > 0` (BDPT),
+`tint-thinglass`, line-based `.rtc` configs, and `RGK_BINNED=any|all`
+(the binned kernels K3/K4).
 
 Public entry points:
     rgk_tpu_torch.scene.config.load_config / build_scene

@@ -2,10 +2,12 @@
 
 `load()` compiles every `csrc/*.cu` of the package with `nvcc` into one
 shared library with a plain C interface, under `rgk_tpu_torch/build/`,
-and loads it with ctypes.  The library is named by a hash of the
-sources, the flags and the compiler, so an edited source rebuilds and
-an unchanged one loads from the cache.  A failed build raises with
-nvcc's output.  Nothing is built or loaded at import time.
+and loads it with ctypes.  Each source compiles to an object in its own
+nvcc process, all started together, and one more nvcc links them.  The
+library is named by a hash of the sources, the flags and the compiler,
+so an edited source rebuilds and an unchanged one loads from the cache.
+A failed build raises with nvcc's output.  Nothing is built or loaded
+at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def _nvcc() -> str:
@@ -49,7 +52,7 @@ def library_path() -> str:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     h.update(_nvcc().encode())
     return os.path.join(BUILD_DIR, f"librgk_kernels_{h.hexdigest()[:16]}.so")
 
@@ -68,14 +71,35 @@ def build() -> dict:
         return {"path": path, "seconds": 0.0, "log": log}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    link = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} -> {proc.returncode}")
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(link)} -> {proc.returncode}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed) + "\n"
+                           + log)
     os.replace(tmp, path)
     with open(log_path, "w") as f:
         f.write(log)
@@ -90,4 +114,7 @@ def load() -> ctypes.CDLL:
     lib.rgk_flat_intersect.argtypes = [p, i, p, p, p, p, p, i, p, p, p, p,
                                        i, p]
     lib.rgk_flat_intersect.restype = i
+    lib.rgk_cluster_intersect.argtypes = [p, p, p, i, i, p, i, p, p, p, p,
+                                          p, p, p, i, p, p, p, p, i, p]
+    lib.rgk_cluster_intersect.restype = i
     return lib

@@ -4,13 +4,19 @@ The committed scene is a NamedTuple of tensors on one device; static
 facts live in `SceneMeta`.  Fields and layouts are the reference's, so
 a scene built here equals one built by `rgk_tpu` field by field.
 
+Scenes above 4096 triangles also carry `bvh` (the leaf-4 skip-link
+BVH that `ops/intersect.intersect_bvh` walks on the CPU) and `clusters`
+(the chunk tree the cluster kernel K2 walks on the card); flat scenes
+carry the reference's one-node placeholders.  The chunk size is the
+Python int `ClusterArrays.chunk_halves`; the reference's `half_meta`,
+whose shape carries it under jit, is kept so the arrays compare one to
+one.
+
 Left out of the port, and ignored by `scene_from_numpy`:
 * `pack_mp` — the TPU flat kernel's sublane-padded pack; the CUDA
   flat sweep reads `tri_pack` [M, 13] directly;
-* `bvh`, `clusters` — the BVH / cluster-kernel structures of scenes
-  above 4096 triangles, which this slice does not render;
 * `glass_pack`, `glass_ids` — the thin-glass subset, read only by the
-  `tint-thinglass` extension, which this slice does not render.
+  `tint-thinglass` extension, which the port does not render yet.
 """
 
 from __future__ import annotations
@@ -81,6 +87,33 @@ class LightTable(NamedTuple):
     total_areal_power: torch.Tensor  # f32 []
 
 
+class BVHArrays(NamedTuple):
+    """Flattened 2-wide BVH (scene/bvh.py), one row per node in DFS
+    pre-order."""
+    node_min: torch.Tensor   # f32 [NN,3]
+    node_max: torch.Tensor   # f32 [NN,3]
+    node_meta: torch.Tensor  # int32 [NN,3] = (first, count, skip)
+    prim_idx: torch.Tensor   # int32 [M] leaf slot -> triangle id
+
+
+class ClusterArrays(NamedTuple):
+    """Two-level chunk structure (scene/clusters.py) read by the cluster
+    kernel K2 (ops/cluster_intersect.py): u16 fixed-point node boxes,
+    one leaf bit per node, eight per-octant link tables and the
+    coefficient-major chunk pack."""
+    boxes_q: torch.Tensor    # int32 [3*NC] quantized node AABBs
+    leaf_bits: torch.Tensor  # int32 [ceil(NC/32)] leaf flags, 32 a word
+    # int32 [8*ns, 128], ns = ceil(NC/128) rounded up to 8: octant o's
+    # table is rows o*ns .. (o+1)*ns, node n at flat index n of it,
+    # packed (hit << 16) | miss as unsigned 16-bit fields.
+    links: torch.Tensor
+    pack: torch.Tensor       # f32 [T*16, 128] coefficient-major tiles
+    scene_lo: torch.Tensor   # f32 [3] quantization frame origin
+    scene_step: torch.Tensor  # f32 [3] quantization step per axis
+    half_meta: torch.Tensor  # int32 [chunk_halves] (the reference's shape)
+    chunk_halves: int        # chunk size in 64-triangle halves
+
+
 class SceneArrays(NamedTuple):
     vertices: torch.Tensor    # f32 [V,3]
     normals: torch.Tensor     # f32 [V,3]
@@ -98,6 +131,8 @@ class SceneArrays(NamedTuple):
     materials: MaterialTable
     textures: TextureAtlas
     lights: LightTable
+    bvh: BVHArrays
+    clusters: ClusterArrays
     sky_color: torch.Tensor      # f32 [3]
     sky_intensity: torch.Tensor  # f32 []
     sky_rotate: torch.Tensor     # f32 [] (degrees)
@@ -117,6 +152,7 @@ class SceneMeta:
     n_areal_tris: int
     has_textures: bool
     has_thinglass: bool
+    has_bvh: bool = False
     has_mix: bool = True
     has_ltc: bool = True
     has_envmap: bool = True
@@ -139,19 +175,29 @@ def _convert(cls, tree, device):
     return cls(**{f: _tensor(getattr(tree, f), device) for f in cls._fields})
 
 
+def _convert_clusters(tree, device) -> ClusterArrays:
+    fields = {f: _tensor(getattr(tree, f), device)
+              for f in ClusterArrays._fields if f != "chunk_halves"}
+    return ClusterArrays(**fields,
+                         chunk_halves=int(np.shape(tree.half_meta)[0]))
+
+
 def scene_from_numpy(tree, device) -> SceneArrays:
     """Carry a scene committed by `rgk_tpu` over to the port.
 
     `tree` is an `rgk_tpu.scene.arrays.SceneArrays` whose leaves the
     caller turned into numpy arrays.  Every field of the port's
-    `SceneArrays` is copied with its dtype; the reference's `pack_mp`,
-    `bvh`, `clusters`, `glass_pack` and `glass_ids` are ignored (see
-    the module docstring)."""
+    `SceneArrays` is copied with its dtype, `bvh` and `clusters`
+    included (the chunk size read from the shape of `half_meta`); the
+    reference's `pack_mp`, `glass_pack` and `glass_ids` are ignored
+    (see the module docstring)."""
     nested = {"materials": MaterialTable, "textures": TextureAtlas,
-              "lights": LightTable}
+              "lights": LightTable, "bvh": BVHArrays}
     fields = {}
     for f in SceneArrays._fields:
-        if f in nested:
+        if f == "clusters":
+            fields[f] = _convert_clusters(tree.clusters, device)
+        elif f in nested:
             fields[f] = _convert(nested[f], getattr(tree, f), device)
         else:
             fields[f] = _tensor(getattr(tree, f), device)

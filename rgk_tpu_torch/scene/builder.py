@@ -5,14 +5,16 @@ host, then `commit(device=...)` freezes them into the port's
 `SceneArrays` on one device.  The numpy build is the reference's,
 line for line, so the committed arrays equal `rgk_tpu`'s exactly.
 
-Only flat scenes commit: above `FLAT_MAX_TRIANGLES` the reference
-builds a BVH and a cluster tree for its cluster kernel, which is not
-ported yet, and `commit` raises instead of sweeping flat.
+Above `FLAT_MAX_TRIANGLES` the commit also builds the leaf-4 BVH
+(scene/bvh.py) and, on its triangle order, the chunk tree of the
+cluster kernel (scene/clusters.py), and sets `SceneMeta.has_bvh`.
+`SceneBuilder.timings` keeps the host seconds of the last commit.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -25,6 +27,8 @@ from rgk_tpu.utils import log as out
 from rgk_tpu.utils.lru import LRU
 
 from ..ops.ltc import load_tables_np
+from .bvh import build_bvh, builder_name, placeholder_bvh
+from .clusters import build_clusters, empty_clusters
 from .arrays import (
     BSDF_DIFFUSE,
     BSDF_LTC_BECKMANN,
@@ -154,6 +158,10 @@ class SceneBuilder:
         self.sky_intensity = 1.0
         self.sky_rotate = 0.0
         self.sky_tex = -1
+        # Host seconds by stage of the last build ("load" is filled in
+        # by config.build_scene), and the SAH builder that ran.
+        self.timings: Dict[str, float] = {}
+        self.sah_builder: Optional[str] = None
 
     # ---------------- materials & textures ----------------
 
@@ -269,16 +277,10 @@ class SceneBuilder:
         """Freeze to `SceneArrays` on `device` + `SceneMeta`.
 
         Computes the dynamic epsilon (1e-5 x bbox diameter), the
-        per-triangle normals and Badouel rows, and the light tables.
-        Raises NotImplementedError above FLAT_MAX_TRIANGLES."""
+        per-triangle normals and Badouel rows, the light tables and,
+        above FLAT_MAX_TRIANGLES, the BVH and cluster structures."""
         if self._tri_count == 0:
             raise ConfigError("cannot commit an empty scene")
-        if self._tri_count > FLAT_MAX_TRIANGLES:
-            raise NotImplementedError(
-                f"scene has {self._tri_count} triangles; the flat sweep "
-                f"serves at most {FLAT_MAX_TRIANGLES}, and larger scenes "
-                "need the cluster-BVH kernel K2 "
-                "(rgk_tpu/ops/pallas_cluster.py), which is not ported yet")
 
         vertices = np.concatenate(self.vertices, axis=0)
         normals = np.concatenate(self.normals, axis=0)
@@ -304,6 +306,24 @@ class SceneBuilder:
             build_tri_pack(vertices, tri_vidx), tri_mat,
             np.asarray([m.is_thinglass for m in self.materials], bool))
 
+        has_bvh = self._tri_count > FLAT_MAX_TRIANGLES
+        if has_bvh:
+            t0 = time.perf_counter()
+            bvh = build_bvh(vertices, tri_vidx, leaf_size=4, device=device)
+            t1 = time.perf_counter()
+            # One SAH sweep feeds both structures: the chunk tree chops
+            # the BVH's own triangle order.
+            clusters = build_clusters(vertices, tri_vidx, tri_pack,
+                                      order=bvh.prim_idx.cpu().numpy(),
+                                      device=device)
+            self.timings.update(sah=t1 - t0,
+                                clusters=time.perf_counter() - t1)
+            self.sah_builder = builder_name()
+        else:
+            bvh = placeholder_bvh(self._tri_count, device)
+            clusters = empty_clusters(device)
+
+        t0 = time.perf_counter()
         arrays = SceneArrays(
             vertices=f32(vertices, device), normals=f32(normals, device),
             tangents=f32(tangents, device), uvs=f32(uvs, device),
@@ -320,6 +340,8 @@ class SceneBuilder:
             materials=self._pack_materials(device),
             textures=self._pack_textures(device),
             lights=self._pack_lights(vertices, normals, tri_vidx, device),
+            bvh=bvh,
+            clusters=clusters,
             sky_color=f32(self.sky_color, device),
             sky_intensity=f32(self.sky_intensity, device),
             sky_rotate=f32(self.sky_rotate, device),
@@ -328,6 +350,7 @@ class SceneBuilder:
             world_min=f32(wmin - epsilon, device),
             world_max=f32(wmax + epsilon, device),
         )
+        self.timings["upload"] = time.perf_counter() - t0
         meta = SceneMeta(
             n_triangles=int(self._tri_count),
             n_materials=len(self.materials),
@@ -336,6 +359,7 @@ class SceneBuilder:
             if float(arrays.lights.total_areal_power) > 0 else 0,
             has_textures=len(self.textures) > 0,
             has_thinglass=any(m.is_thinglass for m in self.materials),
+            has_bvh=has_bvh,
             has_mix=any(m.bxdf == BSDF_MIX for m in self.materials),
             has_ltc=any(m.bxdf in (
                 BSDF_LTC_BECKMANN, BSDF_LTC_GGX,
@@ -348,6 +372,9 @@ class SceneBuilder:
                    f"{self._tri_count} triangles, {len(self.textures)} "
                    f"textures, {len(self.point_lights)} pointlights and "
                    f"{len(self.areal_groups)} areal lights to the scene.")
+        out.log(3, f"Host build seconds ({self.sah_builder or 'no'} SAH "
+                   "builder): " + ", ".join(
+                       f"{k} {v:.3f}" for k, v in self.timings.items()))
         return arrays, meta
 
     def _pack_materials(self, device) -> MaterialTable:

@@ -10,6 +10,7 @@ ported yet and raise.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -410,6 +411,8 @@ def load_config(path: str) -> Config:
 def build_scene(config: Config, device):
     """config -> (SceneArrays on `device`, SceneMeta, SceneBuilder)."""
     builder = SceneBuilder()
+    t0 = time.perf_counter()
     config.install(builder)
+    builder.timings["load"] = time.perf_counter() - t0
     arrays, meta = builder.commit(device=device)
     return arrays, meta, builder

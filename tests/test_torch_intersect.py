@@ -196,6 +196,7 @@ def test_intersector_and_visibility():
 
     class Meta:
         n_triangles = 1
+        has_bvh = False
 
     isect = make_intersector(Meta)
     a = torch.tensor([[0.0, 0.0, 2.0], [0.0, 0.0, 2.0]])

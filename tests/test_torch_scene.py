@@ -1,9 +1,10 @@
 """Port parity: the host scene build and the camera of rgk_tpu_torch
 against rgk_tpu's.
 
-Tolerance: none for the committed arrays (every field equal in value
-and dtype to scene_from_numpy of the rgk_tpu build); camera rays
-rtol 1e-6 / atol 1e-6 (float32 ops in another library).
+Tolerance: none for the committed arrays (every field equal bit for
+bit and in dtype to scene_from_numpy of the rgk_tpu build, BVH and
+cluster arrays included); camera rays rtol 1e-6 / atol 1e-6 (float32
+ops in another library).
 """
 
 import jax.numpy as jnp
@@ -19,18 +20,8 @@ from rgk_tpu_torch.scene.arrays import SceneArrays, scene_from_numpy
 from rgk_tpu_torch.scene.camera import pixel_rays
 
 META_FIELDS = ("n_triangles", "n_materials", "n_point_lights",
-               "n_areal_tris", "has_textures", "has_thinglass", "has_mix",
-               "has_ltc", "has_envmap", "material_names")
-
-
-def _assert_same(a, b, name=""):
-    if isinstance(a, tuple):
-        for f in a._fields:
-            _assert_same(getattr(a, f), getattr(b, f), f"{name}.{f}")
-        return
-    assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
-    assert a.shape == b.shape, (name, a.shape, b.shape)
-    assert torch.equal(a, b), name
+               "n_areal_tris", "has_bvh", "has_textures", "has_thinglass",
+               "has_mix", "has_ltc", "has_envmap", "material_names")
 
 
 def _renderer_style(tmp_path):
@@ -63,25 +54,29 @@ def _renderer_style(tmp_path):
 def _scene_paths(tmp_path, which):
     if which == "box":
         return [scenes.write_config(tmp_path, scenes.box_config())]
-    if which == "box_sphere":
-        cfg = scenes.add_sphere(tmp_path, scenes.box_config(), n_tris=600)
+    if which in ("box_sphere", "box_sphere_bvh"):
+        n_tris = 600 if which == "box_sphere" else 5000
+        cfg = scenes.add_sphere(tmp_path, scenes.box_config(), n_tris=n_tris)
         return [scenes.write_config(tmp_path, cfg)]
     if which == "zoo":
         return [scenes.write_config(tmp_path, scenes.zoo_config(tmp_path))]
     return _renderer_style(tmp_path)
 
 
-@pytest.mark.parametrize("which", ["box", "box_sphere", "renderer", "zoo"])
+@pytest.mark.parametrize("which", ["box", "box_sphere", "renderer", "zoo",
+                                   "box_sphere_bvh"])
 def test_build_matches_reference(tmp_path, which):
     for path in _scene_paths(tmp_path, which):
         tree, _, jmeta, _ = scenes.jax_build(path)
         arrays, meta, _ = scenes.port_build(path)
         assert isinstance(arrays, SceneArrays)
-        _assert_same(arrays, scene_from_numpy(tree, "cpu"))
+        scenes.assert_same(arrays, scene_from_numpy(tree, "cpu"))
         for f in META_FIELDS:
             assert getattr(meta, f) == getattr(jmeta, f), f
         if which == "box_sphere":
-            assert meta.n_triangles > 600
+            assert meta.n_triangles > 600 and not meta.has_bvh
+        if which == "box_sphere_bvh":
+            assert meta.n_triangles > 4096 and meta.has_bvh
 
 
 @pytest.mark.parametrize("thin_lens", [False, True])

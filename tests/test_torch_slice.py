@@ -12,6 +12,7 @@ Tolerances:
   run): bitwise.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -28,6 +29,7 @@ from rgk_tpu.io.exr import read_exr
 from rgk_tpu_torch.driver import cli
 from rgk_tpu_torch.driver.render import RenderDriver
 from rgk_tpu_torch.integrator import path as tpath
+from rgk_tpu_torch.ops.intersect import make_intersector
 from rgk_tpu_torch.parity import image_parity
 from rgk_tpu_torch.scene import config as tconfig
 
@@ -39,12 +41,28 @@ def _box(tmp_path, res=16, ms=4, **overrides):
                                scenes.box_config(res=res, ms=ms, **overrides))
 
 
+def _bvh_box(tmp_path, res=16, ms=4):
+    """The box plus a 5000-triangle sphere: above the flat-sweep size."""
+    cfg = scenes.add_sphere(tmp_path, scenes.box_config(res=res, ms=ms),
+                            n_tris=5000)
+    return scenes.write_config(tmp_path, cfg, "box_bvh.json")
+
+
 def test_trace_matches_reference(tmp_path):
     """Box at 16x16, 4 spp, depth 4: per-lane radiance and ray count."""
-    path = _box(tmp_path)
+    _assert_trace_matches(_box(tmp_path), has_bvh=False)
+
+
+def test_trace_matches_reference_bvh(tmp_path):
+    """The same on the BVH scene: both sides walk their intersect_bvh."""
+    _assert_trace_matches(_bvh_box(tmp_path), has_bvh=True)
+
+
+def _assert_trace_matches(path, has_bvh):
     _, jarrays, jmeta, jcfg = scenes.jax_build(path)
     tarrays, tmeta, tcfg = scenes.port_build(path)
     assert jcfg.settings.recursion_max == 4
+    assert tmeta.has_bvh == jmeta.has_bvh == has_bvh
 
     n = 16 * 16
     pix = np.arange(n)
@@ -82,6 +100,54 @@ def test_cli_image_matches_reference(tmp_path):
     assert img.shape == ref.shape == (32, 32, 3)
     stats = image_parity(img, ref)
     assert stats["ok"], stats
+
+
+def test_cli_colonnade_matches_reference(tmp_path):
+    """The 33,960-triangle colonnade (textured floor, LTC columns and
+    orbs, emissive panels, sun and sky) at 32x18, 2 spp, depth 2, through
+    both CLIs on the CPU."""
+    path = scenes.colonnade(tmp_path, 20000, **{"output-width": 32,
+                                                "output-height": 18,
+                                                "multisample": 2})
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    assert jcli.main([path, "--cpu", "--devices", "1", "-q", "-D",
+                      str(ref_dir)]) == 0
+    assert cli.main([path, "--cpu", "-q", "-D", str(port_dir)]) == 0
+    ref = read_exr(os.path.join(str(ref_dir), "colonnade.exr"))
+    img = read_exr(os.path.join(str(port_dir), "colonnade.exr"))
+    assert img.shape == ref.shape == (18, 32, 3)
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    stats = image_parity(img, ref)
+    assert stats["ok"], stats
+
+
+def test_smoke_colonnade_is_the_generators(tmp_path):
+    """chip_smoke.py composes the colonnade without PIL: the same OBJ
+    files and config as tools/make_bigscene.generate, and a stone
+    texture that loads to the same linear texels as the PNG."""
+    import importlib.util
+
+    from rgk_tpu.io.texture_io import load_texture
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    a, b = tmp_path / "smoke", tmp_path / "gen"
+    path, n_tris = smoke.write_colonnade(str(a), 20000)
+    ref = scenes.tool("make_bigscene").generate(str(b), 20000)
+    assert n_tris == 33960
+    for name in ("ground.obj", "columns.obj", "spheres.obj", "panels.obj"):
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+    with open(path) as f:
+        cfg = json.load(f)
+    with open(ref) as f:
+        cfg_ref = json.load(f)
+    assert cfg["materials"][0].pop("diffuse-texture") == "stone.exr"
+    assert cfg_ref["materials"][0].pop("diffuse-texture") == "stone.png"
+    assert cfg == cfg_ref
+    np.testing.assert_array_equal(load_texture(str(a / "stone.exr")),
+                                  load_texture(str(b / "stone.png")))
 
 
 def test_image_parity_bounds():
@@ -132,18 +198,27 @@ def test_resume_matches_straight_run(tmp_path):
         assert int(d["rays"]) == rays_resumed > 0
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise(tmp_path, monkeypatch):
     # Bidirectional rendering.
     path = _box(tmp_path, reverse=2)
     arrays, meta, cfg = scenes.port_build(path)
     with pytest.raises(NotImplementedError, match="reverse"):
         RenderDriver(cfg.settings, arrays, meta, cfg.get_camera())
 
-    # Above the flat-sweep size: the cluster kernel K2.
-    big = scenes.add_sphere(tmp_path, scenes.box_config(), n_tris=5000)
-    cfg = tconfig.load_config(scenes.write_config(tmp_path, big, "big.json"))
-    with pytest.raises(NotImplementedError, match="K2"):
-        tconfig.build_scene(cfg, "cpu")
+    # Above the flat-sweep size the scene commits with a BVH; only the
+    # binned pipeline (kernels K3 and K4) is not ported.
+    cfg = tconfig.load_config(_bvh_box(tmp_path))
+    arrays, meta, _ = tconfig.build_scene(cfg, "cpu")
+    assert meta.has_bvh and meta.n_triangles > 4096
+    monkeypatch.setenv("RGK_BINNED", "any")
+    with pytest.raises(NotImplementedError, match="K3"):
+        RenderDriver(cfg.settings, arrays, meta, cfg.get_camera()
+                     ).render_frame()
+    monkeypatch.setenv("RGK_BINNED", "all")
+    with pytest.raises(NotImplementedError, match="K4"):
+        make_intersector(meta)
+    monkeypatch.setenv("RGK_BINNED", "off")
+    assert make_intersector(meta) is not None
 
     # The tint-thinglass extension.
     tinted = scenes.box_config(thinglass=["mirror"])
@@ -163,12 +238,16 @@ def test_cli_needs_cuda_or_cpu_flag(tmp_path, monkeypatch):
 
 
 def test_port_render_imports_no_jax(tmp_path):
-    """A process that imports the port and renders keeps JAX out."""
+    """A process that imports the port and renders a flat and a BVH
+    scene keeps JAX out."""
     path = _box(tmp_path, res=8, ms=1)
+    bvh_path = _bvh_box(tmp_path, res=4, ms=1)
+    bvh_dir = str(tmp_path / "bvh")
     code = (
         "import sys\n"
         "from rgk_tpu_torch.driver.cli import main\n"
         f"main([{path!r}, '--cpu', '-q', '-D', {str(tmp_path)!r}])\n"
+        f"main([{bvh_path!r}, '--cpu', '-q', '-D', {bvh_dir!r}])\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "print(repr(bad))\n"
@@ -181,3 +260,4 @@ def test_port_render_imports_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
     assert os.path.exists(tmp_path / "bdpt_box.exr")
+    assert os.path.exists(tmp_path / "bvh" / "bdpt_box.exr")

@@ -2,10 +2,13 @@
 
 Each builds a JSON config under a test's tmp_path: the BDPT box of
 tools/bdpt_scene.py at reverse 0, the box plus a sphere OBJ from
-tools/make_bigscene.py, and a "zoo" with every BxDF type, textures, a
-bump map, an envmap sky, sized point lights, thin glass and a thin
-lens.  `jax_build` and `port_build` commit one config through rgk_tpu
-and rgk_tpu_torch.
+tools/make_bigscene.py, the procedural colonnade of that tool, and a
+"zoo" with every BxDF type, textures, a bump map, an envmap sky, sized
+point lights, thin glass and a thin lens.  `jax_build` and `port_build`
+commit one config through rgk_tpu and rgk_tpu_torch.  `soup` and
+`rays` make the random triangle soups and rays of
+tests/test_intersect.py; `assert_same` compares two committed trees
+bit for bit.
 """
 
 import importlib.util
@@ -14,6 +17,7 @@ import os
 
 import jax
 import numpy as np
+import torch
 
 from rgk_tpu.scene import config as jconfig
 from rgk_tpu_torch.scene import config as tconfig
@@ -51,6 +55,52 @@ def add_sphere(tmp_path, cfg, n_tris=600, material="white"):
                    faces)
     cfg["scene"].append({"file": "sphere.obj", "material": material})
     return cfg
+
+
+def colonnade(tmp_path, n_tris=20000, **overrides):
+    """tools/make_bigscene.generate's colonnade (20000 -> 33,960
+    triangles) with config overrides; returns the config path."""
+    path = tool("make_bigscene").generate(str(tmp_path), n_tris)
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg.update(overrides)
+    return write_config(tmp_path, cfg, "colonnade_small.json")
+
+
+def soup(n_tris, seed, spread=10.0):
+    """-> (vertices f32 [3n, 3], tri_vidx i32 [n, 3]) of a random soup."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-spread, spread, (n_tris, 3))
+    offsets = rng.normal(0, 0.6, (n_tris, 3, 3))
+    verts = (centers[:, None, :] + offsets).reshape(-1, 3).astype(np.float32)
+    return verts, np.arange(3 * n_tris, dtype=np.int32).reshape(-1, 3)
+
+
+def rays(n, seed, spread=12.0):
+    """-> (ro, rd) f32 [n, 3], origins in a cube, unit directions."""
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return ro, rd
+
+
+def assert_same(a, b, name=""):
+    """Trees of tensors equal in dtype, shape and bits (float tensors
+    are compared as int32 bit patterns: the cluster pack carries ids,
+    -1 among them, as NaN-patterned floats); other leaves by ==."""
+    if isinstance(a, tuple):
+        for f in a._fields:
+            assert_same(getattr(a, f), getattr(b, f), f"{name}.{f}")
+        return
+    if not isinstance(a, torch.Tensor):
+        assert a == b, (name, a, b)
+        return
+    assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
+    assert a.shape == b.shape, (name, a.shape, b.shape)
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b), name
 
 
 def _png(path, w, h, seed):
