@@ -3,20 +3,13 @@
 // Replaces the TPU kernel rgk_tpu/ops/pallas_cluster.py:_make_kernel (K2):
 // the closest hit, or any hit, of each ray against a scene above 4096
 // triangles, through the two-level chunk structure of
-// rgk_tpu_torch/scene/clusters.py, read as it is:
-//   boxes   u16 fixed-point node AABBs, 3 words a node:
-//           w0 = qmin_x<<16 | qmin_y, w1 = qmin_z<<16 | qmax_x,
-//           w2 = qmax_y<<16 | qmax_z; world = q * step + lo
+// rgk_tpu_torch/scene/clusters.py, read as it is (layouts in
+// cluster_common.cuh), plus:
 //   bits    leaf flag of node n = (bits[n>>5] >> (n&31)) & 1
 //   links   eight per-octant tables, `link_stride` words apart;
 //           word n = hit<<16 | miss (unsigned fields): hit = near child
 //           (inner) or chunk id (leaf), miss = the octant-DFS successor,
 //           n_nodes ending the walk
-//   pack    coefficient-major [T*16, 128] f32: slot s, coefficient j at
-//           pack[((s>>7)*16 + j)*128 + (s&127)]; j = 0..11 Badouel
-//           (n.xyz, d, b0, bv.xyz, g0, gv.xyz), 13 = the triangle id as
-//           an int32 bit pattern (-1 pad); thin-glass and padding rows
-//           are folded to n = 0, d = 1, so t = -inf fails t > t_min.
 //
 // It computes K2's function, not its block schedule.  One thread owns one
 // ray (the front end sorted them by the coherence key, so a warp's rays
@@ -28,7 +21,8 @@
 //   a hit inner node goes to its near child, a hit leaf sweeps chunk c's
 //   64*chunk_halves rows (slots c*csz .. c*csz+csz-1, both leaf layouts)
 //   and then, like a missed node, goes to the miss link.
-// The sweep is the reference's shared-hit-point Badouel test; the winner
+// The sweep is the reference's shared-hit-point Badouel test (the slab
+// and row tests are cluster_common.cuh's, shared with K3 and K4); the winner
 // is explicit (min t, then min id), so the result does not depend on the
 // order in which chunks are met.  Any hit stops the thread at its first
 // accepted hit and returns the witness tri 0.  A lane whose interval is
@@ -53,15 +47,13 @@
 
 #include <cuda_runtime.h>
 
+#include "cluster_common.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;      // rays per block, one per thread
-constexpr float kBig = 3.4e38f;  // "no hit" t
+using rgk::kBig;
 
-__device__ __forceinline__ float inv_dir(float c) {
-  const float tiny = c >= 0.f ? 1e-20f : -1e-20f;
-  return 1.f / (fabsf(c) > 1e-20f ? c : tiny);
-}
+constexpr int kBlock = 128;      // rays per block, one per thread
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kBlock)
@@ -78,22 +70,12 @@ cluster_walk(const uint32_t* __restrict__ boxes,
              int* __restrict__ nodes_out, int* __restrict__ leaves_out) {
   const int ray = blockIdx.x * kBlock + threadIdx.x;
   if (ray >= r) return;
-  const float ox = ro[3 * ray + 0], oy = ro[3 * ray + 1],
-              oz = ro[3 * ray + 2];
-  const float dx = rd[3 * ray + 0], dy = rd[3 * ray + 1],
-              dz = rd[3 * ray + 2];
+  const rgk::Ray rr = rgk::load_ray(ro, rd, ray);
   const float tmin = t_min[ray], tmax = t_max[ray];
   const int excl = exclude[ray];
-
-  const float stx = step[0], sty = step[1], stz = step[2];
-  const float rqx = (ox - lo[0]) / stx;
-  const float rqy = (oy - lo[1]) / sty;
-  const float rqz = (oz - lo[2]) / stz;
-  const float ivx = stx * inv_dir(dx);
-  const float ivy = sty * inv_dir(dy);
-  const float ivz = stz * inv_dir(dz);
-  const int oct = (dx < 0.f) | ((dy < 0.f) << 1) | ((dz < 0.f) << 2);
-  const uint32_t* lk = links + static_cast<long long>(oct) * link_stride;
+  const rgk::SlabFrame f = rgk::slab_frame(rr, lo, step);
+  const uint32_t* lk =
+      links + static_cast<long long>(rgk::octant(rr)) * link_stride;
 
   float best_t = kBig;
   int best_i = -1;
@@ -102,24 +84,12 @@ cluster_walk(const uint32_t* __restrict__ boxes,
   // A lane with an empty interval (a masked shadow ray) cannot hit.
   uint32_t n = tmax > tmin ? 0u : static_cast<uint32_t>(n_nodes);
   while (n < static_cast<uint32_t>(n_nodes)) {
-    const uint32_t w0 = __ldg(boxes + 3 * n);
-    const uint32_t w1 = __ldg(boxes + 3 * n + 1);
-    const uint32_t w2 = __ldg(boxes + 3 * n + 2);
-    const float t0x = (static_cast<float>(w0 >> 16) - rqx) * ivx;
-    const float t1x = (static_cast<float>(w1 & 0xFFFFu) - rqx) * ivx;
-    const float t0y = (static_cast<float>(w0 & 0xFFFFu) - rqy) * ivy;
-    const float t1y = (static_cast<float>(w2 >> 16) - rqy) * ivy;
-    const float t0z = (static_cast<float>(w1 >> 16) - rqz) * ivz;
-    const float t1z = (static_cast<float>(w2 & 0xFFFFu) - rqz) * ivz;
-    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fminf(t0z, t1z));
-    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fmaxf(t0z, t1z));
-    const float tcap = fminf(best_t, tmax);
-    const bool hit = tf >= tn && tf >= tmin && tn <= tcap;
+    float tn, tf;
+    rgk::slab(boxes, n, f, &tn, &tf);
+    const bool hit = rgk::slab_hit(tn, tf, tmin, fminf(best_t, tmax));
     ++n_vis;
     const uint32_t w = __ldg(lk + n);
-    const bool leaf = (__ldg(bits + (n >> 5)) >> (n & 31)) & 1u;
+    const bool leaf = rgk::is_leaf(bits, n);
     if (hit && !leaf) {
       n = w >> 16;
       continue;
@@ -128,31 +98,15 @@ cluster_walk(const uint32_t* __restrict__ boxes,
       ++n_swept;
       const long long s0 = static_cast<long long>(w >> 16) * csz;
       for (long long s = s0; s < s0 + csz; ++s) {
-        const float* q = pack + (s >> 7) * (16 * 128) + (s & 127);
-        const float nx = __ldg(q), ny = __ldg(q + 128),
-                    nz = __ldg(q + 2 * 128), d = __ldg(q + 3 * 128);
-        const float rddn = dx * nx + dy * ny + dz * nz;
-        const float rodn = ox * nx + oy * ny + oz * nz + d;
-        const float t = -rodn / rddn;
-        if (!(t > tmin && t < tmax)) continue;  // rejects -inf and NaN
-        const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
-        const float beta = __ldg(q + 4 * 128) + px * __ldg(q + 5 * 128) +
-                           py * __ldg(q + 6 * 128) + pz * __ldg(q + 7 * 128);
-        const float gamma = __ldg(q + 8 * 128) + px * __ldg(q + 9 * 128) +
-                            py * __ldg(q + 10 * 128) +
-                            pz * __ldg(q + 11 * 128);
-        if (!(beta >= 0.f && gamma >= 0.f && beta + gamma <= 1.f)) continue;
-        const int pid = __float_as_int(__ldg(q + 13 * 128));
-        if (pid == excl) continue;
+        float t;
+        int pid;
+        if (!rgk::row_hit(pack, s, rr, tmin, tmax, excl, &t, &pid)) continue;
         if (kAnyHit) {
           best_t = t;
           found = true;
           break;
         }
-        if (t < best_t || (t == best_t && pid < best_i)) {
-          best_t = t;
-          best_i = pid;
-        }
+        rgk::keep_min(t, pid, &best_t, &best_i);
       }
       if (kAnyHit && found) break;
     }

@@ -21,11 +21,11 @@ import numpy as np
 import torch
 
 from rgk_tpu.driver.monitor import FrameMonitor
-from rgk_tpu.io.exr import AccumulationImage
 from rgk_tpu.utils import log as out
 from rgk_tpu.utils.format import LowPass, format_int_thousands, format_time
 
 from ..integrator.path import check_supported, trace_wavefront_queued
+from ..io import AccumulationImage
 
 
 @dataclass

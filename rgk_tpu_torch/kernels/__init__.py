@@ -4,8 +4,9 @@
 shared library with a plain C interface, under `rgk_tpu_torch/build/`,
 and loads it with ctypes.  Each source compiles to an object in its own
 nvcc process, all started together, and one more nvcc links them.  The
-library is named by a hash of the sources, the flags and the compiler,
-so an edited source rebuilds and an unchanged one loads from the cache.
+library is named by a hash of the sources and the headers they include
+(`csrc/*.cuh`), the flags and the compiler, so an edited source or
+header rebuilds and an unchanged tree loads from the cache.
 A failed build raises with nvcc's output.  Nothing is built or loaded
 at import time.
 """
@@ -45,10 +46,15 @@ def _sources():
     return srcs
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path() -> str:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -117,4 +123,31 @@ def load() -> ctypes.CDLL:
     lib.rgk_cluster_intersect.argtypes = [p, p, p, i, i, p, i, p, p, p, p,
                                           p, p, p, i, p, p, p, p, i, p]
     lib.rgk_cluster_intersect.restype = i
+    lib.rgk_binned_walk.argtypes = [p, p, p, i, i, p, p, p, p, p, p, i, i,
+                                    p, p, p, p, p]
+    lib.rgk_binned_walk.restype = i
+    lib.rgk_binned_sweep.argtypes = [p, p, ctypes.c_longlong, i, p, i, i, p,
+                                     p, p, p, p, p, p, p]
+    lib.rgk_binned_sweep.restype = i
+    lib.rgk_cuda_error_string.argtypes = [i]
+    lib.rgk_cuda_error_string.restype = ctypes.c_char_p
+    lib.rgk_device_smem_optin.argtypes = [i]
+    lib.rgk_probe_smem.argtypes = [p, p, i, p]
+    lib.rgk_probe_unpack.argtypes = [p, p, p, p]
+    lib.rgk_probe_row_copy.argtypes = [p, i, i, p, p]
+    lib.rgk_probe_sync.argtypes = [i, p, p, i, ctypes.c_float, p, p, p]
+    lib.rgk_probe_fetch.argtypes = [p, i, i, i, ctypes.c_float, p, p]
+    for fn in (lib.rgk_device_smem_optin, lib.rgk_probe_smem,
+               lib.rgk_probe_unpack, lib.rgk_probe_row_copy,
+               lib.rgk_probe_sync, lib.rgk_probe_fetch):
+        fn.restype = i
     return lib
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raises unless an entry point returned 0 (cudaSuccess), naming
+    the CUDA error."""
+    if rc != 0:
+        msg = load().rgk_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc} "
+                           f"({msg})")

@@ -128,7 +128,9 @@ def hit_record(tri_pack, ro, rd, t, idx):
 
 # ------------------------------------------------------------- the wrapper
 
-def _check(cl, ro, rd, t_min, t_max, exclude):
+def _check(cl, ro, rd, t_min, t_max, exclude=None):
+    """Raises unless the tables and the rays are what the kernels take
+    (`exclude` None: a wrapper that takes none)."""
     dev = ro.device
     r = ro.shape[0]
     for name, x, dtype, shape in (
@@ -143,6 +145,8 @@ def _check(cl, ro, rd, t_min, t_max, exclude):
             ("t_min", t_min, torch.float32, (r,)),
             ("t_max", t_max, torch.float32, (r,)),
             ("exclude", exclude, torch.int32, (r,))):
+        if x is None and name == "exclude":
+            continue
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rays on {dev}")
         if x.dtype != dtype:
@@ -206,9 +210,7 @@ def _launch(cl, ro, rd, t_min, t_max, exclude, any_hit, stats):
                 nodes.data_ptr() if stats else None,
                 leaves.data_ptr() if stats else None,
                 int(any_hit), stream)
-        if rc != 0:
-            raise RuntimeError(f"cluster_intersect kernel launch failed: "
-                               f"cudaError {rc}")
+        kernels.check_launch(rc, "cluster_intersect")
         launches["any" if any_hit else "closest"] += 1
     return (t, tri, nodes, leaves) if stats else (t, tri)
 
@@ -229,9 +231,15 @@ def _unpack_tables(cl):
     bits = cl.leaf_bits.to(torch.int64)[nid >> 5]
     leaf = ((bits >> (nid & 31)) & 1) > 0
     links = (cl.links.view(8, -1)[:, :n].to(torch.int64) & 0xFFFFFFFF)
-    tiles = cl.pack.shape[0] // 16
-    tri_major = cl.pack.view(tiles, 16, 128).transpose(1, 2).reshape(-1, 16)
-    return qbox, leaf, (links >> 16) & 0xFFFF, links & 0xFFFF, tri_major
+    return (qbox, leaf, (links >> 16) & 0xFFFF, links & 0xFFFF,
+            tri_major(cl.pack))
+
+
+def tri_major(pack):
+    """The coefficient-major pack [T*16, 128] viewed slot-major [T*128,
+    16]: row s = the 16 coefficients of slot s."""
+    tiles = pack.shape[0] // 16
+    return pack.view(tiles, 16, 128).transpose(1, 2).reshape(-1, 16)
 
 
 def _inv(c):
@@ -280,7 +288,7 @@ def cluster_plain(cl, ro, rd, t_min, t_max, exclude, any_hit: bool = False,
     lanes leave the live set; lanes with an empty interval (t_max <=
     t_min) cannot hit and never enter it."""
     r, dev = ro.shape[0], ro.device
-    qbox, leaf, hit_link, miss_link, tri_major = _unpack_tables(cl)
+    qbox, leaf, hit_link, miss_link, slot_rows = _unpack_tables(cl)
     n_nodes = leaf.shape[0]
     csz = cl.chunk_halves * HALF
     slot = torch.arange(csz, device=dev)
@@ -326,7 +334,7 @@ def cluster_plain(cl, ro, rd, t_min, t_max, exclude, any_hit: bool = False,
             step_l = max(1, PLAIN_SWEEP_ELEMS // csz)
             for s in range(0, sweep.numel(), step_l):
                 sl = sweep[s:s + step_l]
-                rows = tri_major[chunk[s:s + step_l, None] * csz + slot]
+                rows = slot_rows[chunk[s:s + step_l, None] * csz + slot]
                 bt, bi = _sweep(rows, ro_l[sl], rd_l[sl], tmin[sl],
                                 tmax[sl], excl[sl], best_t[sl], best_i[sl],
                                 any_hit)

@@ -89,9 +89,7 @@ def _launch(tri_pack, ro, rd, t_min, t_max, exclude, any_hit):
             t_min.data_ptr(), t_max.data_ptr(), exclude.data_ptr(), r,
             t.data_ptr(), tri.data_ptr(), bb.data_ptr(), bc.data_ptr(),
             int(any_hit), stream)
-    if rc != 0:
-        raise RuntimeError(f"flat_intersect kernel launch failed: "
-                           f"cudaError {rc}")
+    kernels.check_launch(rc, "flat_intersect")
     launches["any" if any_hit else "closest"] += 1
     return t, tri, bb, bc
 

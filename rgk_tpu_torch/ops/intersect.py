@@ -7,8 +7,10 @@ extension and shadow ray:
   the CUDA kernel K1 for a CUDA tensor, its plain version for a CPU
   tensor;
 * BVH scenes (`meta.has_bvh`): on a CUDA tensor the cluster kernel K2
-  through its front end (`ops/cluster_intersect.py`); on a CPU tensor
-  `intersect_bvh`, the reference's own non-TPU route.
+  through its front end (`ops/cluster_intersect.py`), or the binned
+  pipeline K3 + K4 (`ops/binned_intersect.py`) as `RGK_BINNED` asks; on
+  a CPU tensor `intersect_bvh`, the reference's own non-TPU route,
+  whatever `RGK_BINNED` says.
 Hit records are (t, tri, bary_b, bary_c); the barycentric weight of
 vertex A is 1 - b - c.
 """
@@ -21,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from . import vecmath as vm
+from .binned_intersect import intersect_clusters_binned
 from .cluster_intersect import intersect_clusters
 from .flat_intersect import intersect_flat
 
@@ -153,23 +156,21 @@ def intersect_bvh(scene, ro, rd, t_min, t_max, exclude=None,
 def make_intersector(meta):
     """The intersection routine for a committed scene (module doc).
 
-    `RGK_BINNED` = "any" or "all" asks for the reference's binned
-    pipeline (kernels K3 and K4), which is not ported: that raises
-    rather than running K2 in its place."""
+    `RGK_BINNED`, read at every call as the reference does: "any" sends
+    any-hit queries on a CUDA tensor through the binned pipeline and
+    closest-hit queries through K2; "all" sends both through the binned
+    pipeline; any other value (default "off") is K2 only."""
     if meta.has_bvh:
-        mode = os.environ.get("RGK_BINNED", "off")
-        if mode in ("any", "all"):
-            raise NotImplementedError(
-                f"RGK_BINNED={mode}: the binned pipeline (kernels K3 and "
-                "K4, rgk_tpu/ops/pallas_binned.py) is not ported yet")
-
         def tree(scene, ro, rd, t_min, t_max, exclude=None,
                  any_hit: bool = False) -> Hit:
             if ro.device.type == "cpu":
                 return intersect_bvh(scene, ro, rd, t_min, t_max,
                                      exclude=exclude, any_hit=any_hit)
+            mode = os.environ.get("RGK_BINNED", "off")
+            binned = mode == "all" or (mode == "any" and any_hit)
+            fn = intersect_clusters_binned if binned else intersect_clusters
             r, dev = ro.shape[0], ro.device
-            return Hit(*intersect_clusters(
+            return Hit(*fn(
                 scene.clusters, scene.tri_pack, ro.contiguous(),
                 rd.contiguous(), _lanes(t_min, r, torch.float32, dev),
                 _lanes(t_max, r, torch.float32, dev),

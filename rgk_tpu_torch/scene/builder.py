@@ -20,12 +20,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from rgk_tpu.io.texture_io import load_texture
 from rgk_tpu.scene import transforms as xf
 from rgk_tpu.scene.json_utils import ConfigError
 from rgk_tpu.utils import log as out
 from rgk_tpu.utils.lru import LRU
 
+from ..io import load_texture
 from ..ops.ltc import load_tables_np
 from .bvh import build_bvh, builder_name, placeholder_bvh
 from .clusters import build_clusters, empty_clusters

@@ -16,12 +16,12 @@ from typing import List, Optional
 
 import numpy as np
 
-from rgk_tpu.io.obj import load_obj
 from rgk_tpu.scene import primitives as prims
 from rgk_tpu.scene import transforms as xf
 from rgk_tpu.scene.json_utils import ConfigError, Node, loads_tolerant
 from rgk_tpu.utils import log as out
 
+from ..io import load_obj
 from .arrays import (
     BSDF_DIELECTRIC,
     BSDF_DIFFUSE,

@@ -29,9 +29,8 @@ from rgk_tpu.io.exr import read_exr
 from rgk_tpu_torch.driver import cli
 from rgk_tpu_torch.driver.render import RenderDriver
 from rgk_tpu_torch.integrator import path as tpath
-from rgk_tpu_torch.ops.intersect import make_intersector
+from rgk_tpu_torch.ops import intersect as isect
 from rgk_tpu_torch.parity import image_parity
-from rgk_tpu_torch.scene import config as tconfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,28 +58,47 @@ def test_trace_matches_reference_bvh(tmp_path):
 
 
 def _assert_trace_matches(path, has_bvh):
-    _, jarrays, jmeta, jcfg = scenes.jax_build(path)
-    tarrays, tmeta, tcfg = scenes.port_build(path)
-    assert jcfg.settings.recursion_max == 4
-    assert tmeta.has_bvh == jmeta.has_bvh == has_bvh
+    """Box at 16x16, 4 spp, depth 4 through both tracers; returns the
+    port's (radiance, ray count)."""
+    ref = _reference_trace(path, has_bvh)
+    port = _port_trace(path, has_bvh)
+    _assert_close(port, ref)
+    return port
 
-    n = 16 * 16
-    pix = np.arange(n)
-    px = (pix % 16).astype(np.int32)
-    py = (pix // 16).astype(np.int32)
+
+def _trace_args(has_bvh, meta, cfg):
+    assert cfg.settings.recursion_max == 4
+    assert meta.has_bvh == has_bvh
+    pix = np.arange(16 * 16)
+    return ((pix % 16).astype(np.int32), (pix // 16).astype(np.int32))
+
+
+def _reference_trace(path, has_bvh):
+    _, jarrays, jmeta, jcfg = scenes.jax_build(path)
+    px, py = _trace_args(has_bvh, jmeta, jcfg)
     jrad, jrays = jpath.trace_wavefront_queued(
         jarrays, jmeta, jcfg.settings, jcfg.get_camera(), jnp.asarray(px),
         jnp.asarray(py), 0, 4, 42, sampler_mode=1)
+    return np.asarray(jrad), int(jrays)
+
+
+def _port_trace(path, has_bvh):
+    tarrays, tmeta, tcfg = scenes.port_build(path)
+    px, py = _trace_args(has_bvh, tmeta, tcfg)
     trad, trays = tpath.trace_wavefront_queued(
         tarrays, tmeta, tcfg.settings, tcfg.get_camera(),
         torch.from_numpy(px), torch.from_numpy(py), 0, 4, 42,
         sampler_mode=1)
     assert trays.dtype == torch.int64
-    jrad = np.asarray(jrad)
-    trad = trad.numpy()
+    return trad, trays
+
+
+def _assert_close(port, ref):
+    trad, trays = port[0].numpy(), int(port[1])
+    jrad, jrays = ref
     close = np.isclose(trad, jrad, rtol=1e-4, atol=1e-5).all(axis=-1)
     assert close.mean() >= 0.99, close.mean()
-    assert abs(int(trays) - int(jrays)) <= 0.005 * int(jrays)
+    assert abs(trays - jrays) <= 0.005 * jrays
     assert jrad.mean() > 0.0
 
 
@@ -198,27 +216,12 @@ def test_resume_matches_straight_run(tmp_path):
         assert int(d["rays"]) == rays_resumed > 0
 
 
-def test_unported_paths_raise(tmp_path, monkeypatch):
+def test_unported_paths_raise(tmp_path):
     # Bidirectional rendering.
     path = _box(tmp_path, reverse=2)
     arrays, meta, cfg = scenes.port_build(path)
     with pytest.raises(NotImplementedError, match="reverse"):
         RenderDriver(cfg.settings, arrays, meta, cfg.get_camera())
-
-    # Above the flat-sweep size the scene commits with a BVH; only the
-    # binned pipeline (kernels K3 and K4) is not ported.
-    cfg = tconfig.load_config(_bvh_box(tmp_path))
-    arrays, meta, _ = tconfig.build_scene(cfg, "cpu")
-    assert meta.has_bvh and meta.n_triangles > 4096
-    monkeypatch.setenv("RGK_BINNED", "any")
-    with pytest.raises(NotImplementedError, match="K3"):
-        RenderDriver(cfg.settings, arrays, meta, cfg.get_camera()
-                     ).render_frame()
-    monkeypatch.setenv("RGK_BINNED", "all")
-    with pytest.raises(NotImplementedError, match="K4"):
-        make_intersector(meta)
-    monkeypatch.setenv("RGK_BINNED", "off")
-    assert make_intersector(meta) is not None
 
     # The tint-thinglass extension.
     tinted = scenes.box_config(thinglass=["mirror"])
@@ -230,6 +233,57 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
         RenderDriver(cfg.settings, arrays, meta, cfg.get_camera())
 
 
+def _tree_through(front_end, calls):
+    """An `intersect_bvh` stand-in that sends the CPU's BVH queries
+    through a cluster front end (its kernels' plain versions), counting
+    them in `calls`."""
+    def tree(scene, ro, rd, t_min, t_max, exclude=None, any_hit=False):
+        calls.append(any_hit)
+        r, dev = ro.shape[0], ro.device
+        return isect.Hit(*front_end(
+            scene.clusters, scene.tri_pack, ro.contiguous(), rd.contiguous(),
+            isect._lanes(t_min, r, torch.float32, dev),
+            isect._lanes(t_max, r, torch.float32, dev),
+            isect._lanes(-1 if exclude is None else exclude, r, torch.int32,
+                         dev), any_hit=any_hit))
+    return tree
+
+
+def test_trace_through_binned_pipeline(tmp_path, monkeypatch):
+    """The BVH box traced with every query through the binned front end
+    (walk_plain, sweep_plain, pass 2 through cluster_plain) equals the
+    trace through the K2 front end bit for bit, and matches rgk_tpu."""
+    path = _bvh_box(tmp_path)
+    traces, calls = {}, []
+    for name, fn in (("k2", isect.intersect_clusters),
+                     ("binned", isect.intersect_clusters_binned)):
+        monkeypatch.setattr(isect, "intersect_bvh", _tree_through(fn, calls))
+        traces[name] = _port_trace(path, has_bvh=True)
+    assert True in calls and False in calls  # both kinds of query
+    assert torch.equal(traces["binned"][0], traces["k2"][0])
+    assert int(traces["binned"][1]) == int(traces["k2"][1])
+    _assert_close(traces["binned"], _reference_trace(path, has_bvh=True))
+
+
+def test_cpu_render_ignores_rgk_binned(tmp_path, monkeypatch):
+    """On the CPU a BVH scene walks intersect_bvh whatever RGK_BINNED
+    says, as the reference does off the TPU: `all` renders the same
+    image as `off`, bit for bit, and never reaches the binned front
+    end."""
+    path = _bvh_box(tmp_path)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the CPU reached the binned front end")
+
+    monkeypatch.setattr(isect, "intersect_clusters_binned", refuse)
+    images = {}
+    for mode in ("off", "all"):
+        monkeypatch.setenv("RGK_BINNED", mode)
+        images[mode] = _port_render(path, tmp_path / mode)
+    np.testing.assert_array_equal(images["all"], images["off"])
+    assert images["off"].mean() > 0.0
+
+
 def test_cli_needs_cuda_or_cpu_flag(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--cpu"):
@@ -237,16 +291,35 @@ def test_cli_needs_cuda_or_cpu_flag(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "bdpt_box.exr")
 
 
+def test_smoke_imports_only_the_port():
+    """chip_smoke.py takes everything of this repo from rgk_tpu_torch
+    (and tools/' scene generators), nothing from the JAX package."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    assert "rgk_tpu_torch.io" in names
+    bad = sorted(n for n in names if n.split(".")[0] in ("rgk_tpu", "jax"))
+    assert bad == []
+
+
 def test_port_render_imports_no_jax(tmp_path):
     """A process that imports the port and renders a flat and a BVH
-    scene keeps JAX out."""
+    scene, the latter under RGK_BINNED=all, keeps JAX out."""
     path = _box(tmp_path, res=8, ms=1)
     bvh_path = _bvh_box(tmp_path, res=4, ms=1)
     bvh_dir = str(tmp_path / "bvh")
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "from rgk_tpu_torch.driver.cli import main\n"
         f"main([{path!r}, '--cpu', '-q', '-D', {str(tmp_path)!r}])\n"
+        "os.environ['RGK_BINNED'] = 'all'\n"
         f"main([{bvh_path!r}, '--cpu', '-q', '-D', {bvh_dir!r}])\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
