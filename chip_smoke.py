@@ -1,9 +1,18 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent OLD/rgk_tpu_torch/csrc
+    python3 chip_smoke.py --profile
 
-Run from the root of a checkout.  It drives rgk_tpu_torch, never JAX,
-through twelve phases and exits non-zero at the first that fails:
+Run from the root of a checkout.  With --parent (an earlier version's
+kernel sources, unpacked for example by `git archive <commit>
+rgk_tpu_torch/csrc`), phases 3-5 and 7 also time that version's K1 and
+K2 in turns with this tree's (earlier, new, new, earlier).  With
+--profile, phases 5 and 7 render their scene once more under
+torch.profiler and print the round's device time per kernel and the
+device's busy share.  It drives
+rgk_tpu_torch, never JAX, through twelve phases and exits non-zero at
+the first that fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
 2. build: compiles the port's CUDA kernels from `rgk_tpu_torch/csrc`,
@@ -55,9 +64,10 @@ The colonnade is composed from tools/make_bigscene's functions with its
 budget split; its stone texture is written as the linear EXR that the
 texture loader makes of the generator's PNG, so no PIL is needed.
 
-Kernel tolerances: triangle ids equal on >= 99.99% of rays (nvcc
-contracts multiply-adds to FMA, the plain versions do not, which can
-flip a hit exactly on an edge); t within rtol 3e-4 / atol 1e-6 where
+Kernel tolerances: triangle ids equal on >= 99.99% of rays (K1 rounds
+each operation as its plain version does and agrees on every ray; in
+K2-K4 nvcc contracts multiply-adds to FMA, the plain versions do not,
+which can flip a hit exactly on an edge); t within rtol 3e-4 / atol 1e-6 where
 closest-hit ids agree; any-hit validity equal on >= 99.99% of rays;
 lanes with an empty interval never hit; K4's any-hit t within rtol on
 >= 99.99% of the hits whose plane distance is well conditioned
@@ -66,15 +76,27 @@ K3's lists, counts and skipmin equal the plain walk's on >= 99.99% of
 lanes; the binned front end's ids equal K2's on >= 99.999% of rays (they
 share the slab and row tests).
 
+Every kernel time is printed beside its bound: the larger of its FP32
+operations at the card's peak and its bytes at the memory rate, counted
+from the timed query's own inputs (K2 from its per-ray counters, K4
+from its listed pairs), and the share bound / time; K1 and K2 times
+also beside the card's SM clock, power and temperature.  Phase 7 prints
+the SAH builder that ran (and fails on the numpy fallback) and the SIMD
+efficiency of K2's replayed queries: per 32 consecutive sorted rays,
+the mean over the maximum of the nodes and of the chunks they visit,
+averaged over warps.
+
 Prints one line per phase with its wall seconds, then a JSON line of
 the kernels (launch counts from the renders, for K3/K4 the sum of the
-two binned renders, for the probes their tool runs), and last
+two binned renders, for the probes their tool runs; ms, plain_ms,
+bound_ms, bound_by, share, library_ms null, parent_ms), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
 result.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import json
@@ -124,6 +146,18 @@ BINNED_AGREE = 0.99999
 BINNED_KS = (8, 2)     # the default cap, and one that overflows
 PLAIN_STRIDE = 4       # the plain K3/K4 run on every 4th sorted ray
 T_RTOL, T_ATOL = 3e-4, 1e-6
+WARP = 32
+# Bounds: the larger of the operations at the card's FP32 peak and the
+# bytes (each input read once, each output written once) at its memory
+# rate (H100 SXM, NVIDIA's data sheet).
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+ROW_FLOPS = 31       # rd.n 5, ro.n + d 6, t 1, hit point 6, beta 6, gamma 6,
+#                      sum 1: the least work that decides a row (the
+#                      hit-point test of K1's prefilter, K2 and K4)
+SLAB_FLOPS = 22      # 6 subtractions, 6 multiplies, 10 min/max
+RAY_BYTES = 36       # ro, rd, t_min, t_max, exclude
+PARENT = None        # --parent: the earlier kernels' library, timed in turns
+PROFILE = False      # --profile: one more round of phases 5 and 7, profiled
 TIMED_RUNS = 20
 PLAIN_RUNS = 3
 K1_SOUP = (4000, 1 << 20)            # triangles, rays
@@ -249,6 +283,164 @@ def compare_k2(args, any_hit, tri_pack):
     return k, stats, err
 
 
+def simd_efficiency(counts, warp=WARP):
+    """Per-ray work counts in sorted order -> the mean over warps (each
+    `warp` consecutive rays, the last one ragged, warps with no work
+    left out) of mean / max: the share of a warp's lane-steps that do
+    work when every lane runs as long as its warp's longest."""
+    c = counts.double()
+    pad = (-c.numel()) % warp
+    lanes = torch.cat([torch.ones_like(c), c.new_zeros(pad)]).view(-1, warp)
+    c = torch.cat([c, c.new_zeros(pad)]).view(-1, warp)
+    top = c.amax(dim=1)
+    busy = top > 0
+    if not bool(busy.any()):
+        return 1.0
+    mean = c.sum(dim=1) / lanes.sum(dim=1)
+    return (mean[busy] / top[busy]).mean().item()
+
+
+def bound(flops, nbytes):
+    """-> (bound ms, "operations" or "bytes"): the least time the card
+    could take for `flops` FP32 operations moving `nbytes`."""
+    f, b = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (f, "operations") if f >= b else (b, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+@contextlib.contextmanager
+def library(lib):
+    """The wrappers launch `lib`'s kernels inside the block."""
+    saved = kernels.load
+    kernels.load = lambda: lib
+    try:
+        yield
+    finally:
+        kernels.load = saved
+
+
+def ab_ms(fn, runs=TIMED_RUNS):
+    """-> (parent ms or None, new ms): median CUDA-event ms of `fn`
+    through the parent's library and this tree's, in turns parent, new,
+    new, parent, each the mean of its two medians; without --parent the
+    new one only."""
+    if PARENT is None:
+        return None, median_ms(fn, runs)
+    got = {True: [], False: []}
+    for is_parent in (True, False, False, True):
+        with library(PARENT) if is_parent else contextlib.nullcontext():
+            got[is_parent].append(median_ms(fn, runs))
+    return statistics.mean(got[True]), statistics.mean(got[False])
+
+
+def fmt_ab(parent, new, bound_ms):
+    """`parent X new Y ms, bound Z (share S)` for a line of a phase."""
+    head = "" if parent is None else f"parent {parent:.3f} / "
+    return (f"{head}kernel {new:.3f} ms, bound {bound_ms:.4f} ms (share "
+            f"{bound_ms / new:.3f})")
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
+                 bound_ms, bound_by, parent_ms=None):
+    """One kernel of the kernels line.  No single PyTorch call computes
+    any of these functions, so library_ms is null for every one."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": bound_ms / ms,
+            "library_ms": None, "parent_ms": parent_ms}
+
+
+def k1_bound(args, any_hit):
+    """Bound of one K1 query: every live ray (t_max > t_min) tests every
+    row for a closest hit; an any-hit ray needs the rows up to its first
+    accepted one (all M where it has none)."""
+    pack, ro, rd, t_min, t_max, exclude = args
+    m = pack.shape[0]
+    live = t_max > t_min
+    if any_hit:
+        tests = int(first_rows(*args)[live].sum())
+    else:
+        tests = int(live.sum()) * m
+    return bound(tests * ROW_FLOPS,
+                 nbytes(pack) + ro.shape[0] * (RAY_BYTES + 16))
+
+
+def first_rows(pack, ro, rd, t_min, t_max, exclude, chunk=1 << 14):
+    """Per ray, the rows a sweep in row order tests up to and including
+    its first accepted one (M where none is accepted): K1's function as
+    flat_plain writes it, kept as a [r, M] plane per chunk of rays."""
+    m = pack.shape[0]
+    out = torch.full((ro.shape[0],), m, dtype=torch.int64, device=ro.device)
+    if m == 0:
+        return out
+    (nx, ny, nz, d, b0, bvx, bvy, bvz, g0, gvx, gvy, gvz,
+     glass) = pack.unbind(1)
+    ids = torch.arange(m, device=ro.device)
+    for s in range(0, ro.shape[0], chunk):
+        e = min(ro.shape[0], s + chunk)
+        ox, oy, oz = (c[:, None] for c in ro[s:e].unbind(1))
+        dx, dy, dz = (c[:, None] for c in rd[s:e].unbind(1))
+        rddn = dx * nx + dy * ny + dz * nz
+        safe = rddn.abs() > 1e-9
+        t = -(ox * nx + oy * ny + oz * nz + d) / torch.where(safe, rddn, 1.0)
+        beta = (b0 + ox * bvx + oy * bvy + oz * bvz
+                + t * (dx * bvx + dy * bvy + dz * bvz))
+        gamma = (g0 + ox * gvx + oy * gvy + oz * gvz
+                 + t * (dx * gvx + dy * gvy + dz * gvz))
+        ok = (safe & (beta >= 0) & (gamma >= 0) & (beta + gamma <= 1)
+              & (t > t_min[s:e, None]) & (t < t_max[s:e, None])
+              & ~(glass > 0.5) & (ids != exclude[s:e, None]))
+        first = torch.where(ok, ids, m).amin(dim=1)
+        out[s:e] = torch.where(first < m, first + 1, m)
+    return out
+
+
+def k2_bound(cl, r, nodes, leaves):
+    """Bound of one K2 query from its per-ray counters: a slab test per
+    node, a row test per slot of each swept chunk (an any-hit sweep that
+    stops inside a chunk is counted whole); bytes: the rays, the outputs
+    and the chunk tree's tables."""
+    csz = cl.chunk_halves * tclusters.HALF
+    flops = (int(nodes.sum()) * SLAB_FLOPS
+             + int(leaves.sum()) * csz * ROW_FLOPS)
+    return bound(flops, r * (RAY_BYTES + 8) + nbytes(
+        cl.boxes_q, cl.leaf_bits, cl.links, cl.pack))
+
+
+def k3_bound(cl, r, K, nodes):
+    """Bound of one K3 query: a slab test per node; bytes: the rays, the
+    [R, K] lists, counts and skipmin, the tables of the walk."""
+    return bound(int(nodes.sum()) * SLAB_FLOPS,
+                 r * (RAY_BYTES - 4 + 4 * K + 8)
+                 + nbytes(cl.boxes_q, cl.leaf_bits, cl.links))
+
+
+def k4_bound(cl, r, cid):
+    """Bound of one K4 query: a row test per slot of each listed pair's
+    chunk; bytes: the pairs in and out, the rays, the listed chunks."""
+    csz = cl.chunk_halves * tclusters.HALF
+    listed = cid[cid != bi.SENT]
+    chunks = int(torch.unique(listed).numel())
+    return bound(int(listed.numel()) * csz * ROW_FLOPS,
+                 cid.numel() * 16 + r * RAY_BYTES + chunks * csz * 16 * 4)
+
+
+def clocks():
+    """The card's SM clock, its maximum, power draw and temperature just
+    after a timing (nvidia-smi), to read the times beside it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and \
+        smi.stdout.strip() else "not read"
+    return f"card: {line} (SM clock, max, power, C)"
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to test", file=sys.stderr)
@@ -263,16 +455,28 @@ def phase_device():
           f"devices {torch.cuda.device_count()}")
 
 
-def phase_build():
-    t0 = time.perf_counter()
-    info = kernels.build()
-    kernels.load()
-    secs = time.perf_counter() - t0
-    print(f"[2/12 build] {os.path.relpath(info['path'], ROOT)} "
-          f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"    ptxas: {line.strip()}")
+def phase_build(parent_csrc=None):
+    """Builds this tree's kernels and, with --parent, the earlier
+    version's from `parent_csrc` (the same entry points), which the
+    later phases time in turns with this tree's."""
+    global PARENT
+    for who, csrc in (("", None), ("parent ", parent_csrc)):
+        if who and csrc is None:
+            continue
+        t0 = time.perf_counter()
+        if who:
+            info = kernels._build_from(csrc)
+            lib = kernels._open(info["path"])
+        else:
+            info, lib = kernels.build(), kernels.load()
+        secs = time.perf_counter() - t0
+        print(f"[2/12 build] {who}{os.path.relpath(info['path'], ROOT)} "
+              f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"    {who}ptxas: {line.strip()}")
+        if who:
+            PARENT = lib
 
 
 def random_soup(n_tris, seed, glass_every=97):
@@ -322,16 +526,19 @@ def phase_k1(dev):
           "an excluded triangle id was returned")
 
     _, agree3, _ = compare(window, any_hit=True)
-    ms = {m: median_ms(lambda: fi.intersect_flat(*window, any_hit=m))
-          for m in (False, True)}
-    plain = {m: median_ms(lambda: fi.flat_plain(*window, any_hit=m))
-             for m in (False, True)}
+    times = []
+    for m in (False, True):
+        parent, new = ab_ms(lambda: fi.intersect_flat(*window, any_hit=m))
+        plain = median_ms(lambda: fi.flat_plain(*window, any_hit=m),
+                          runs=PLAIN_RUNS, warmup=False)
+        times.append(f"{'any' if m else 'closest'} "
+                     f"{fmt_ab(parent, new, k1_bound(window, m)[0])}, "
+                     f"plain {plain:.3f}")
     print(f"[3/12 K1 {n_tris} tris x {n_rays} rays] closest agree "
           f"{agree1:.6f} (excl pass {agree2:.6f}) max|err| "
           f"{max(err1, err2):.3g}; any-hit agree {agree3:.6f}; median ms "
-          f"closest kernel {ms[False]:.3f} plain {plain[False]:.3f}, any "
-          f"kernel {ms[True]:.3f} plain {plain[True]:.3f} "
-          f"({time.perf_counter() - t_phase:.1f} s)")
+          + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs); "
+          f"{clocks()} ({time.perf_counter() - t_phase:.1f} s)")
 
 
 def phase_k2(dev):
@@ -371,12 +578,15 @@ def phase_k2(dev):
         k2, s2, err2 = compare_k2(args[:5] + [excl], False, tri_pack)
         check(not bool(((k2[1] == excl) & (excl >= 0)).any()),
               "an excluded triangle id was returned")
-        _, s3, _ = compare_k2(args, True, tri_pack)
-        ms = {m: median_ms(lambda: ci.traverse(*args, any_hit=m))
-              for m in (False, True)}
-        plain = {m: median_ms(lambda: ci.cluster_plain(*args, any_hit=m),
+        k3, s3, _ = compare_k2(args, True, tri_pack)
+        times = []
+        for m, kk in ((False, k), (True, k3)):
+            parent, new = ab_ms(lambda: ci.traverse(*args, any_hit=m))
+            plain = median_ms(lambda: ci.cluster_plain(*args, any_hit=m),
                               runs=PLAIN_RUNS, warmup=False)
-                 for m in (False, True)}
+            b = k2_bound(cl, n_rays, kk[2], kk[3])[0]
+            times.append(f"{'any' if m else 'closest'} "
+                         f"{fmt_ab(parent, new, b)}, plain {plain:.3f}")
         tpc = max(1, halves // 2)
         print(f"[4/12 K2 {n_tris} tris x {n_rays} rays, {layout}: "
               f"chunk_halves {halves}, tpc {tpc}, "
@@ -390,9 +600,7 @@ def phase_k2(dev):
               f"/{s3['counters_equal']:.6f}; nodes/ray closest "
               f"{s1['nodes_mean']:.1f} (max {s1['nodes_max']}), leaves "
               f"{s1['leaves_mean']:.2f} (max {s1['leaves_max']}); median ms "
-              f"closest kernel {ms[False]:.3f} plain {plain[False]:.3f}, any "
-              f"kernel {ms[True]:.3f} plain {plain[True]:.3f} "
-              f"(plain over {PLAIN_RUNS} runs)")
+              + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs)")
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return trees
 
@@ -526,6 +734,46 @@ class FirstCalls:
         setattr(self.module, self.name, self._orig)
 
 
+def profiled_round(cfg_path, out_dir, module, name, kernel):
+    """With --profile: one more CLI render of `cfg_path` under
+    torch.profiler (card activity only), the round timed from the first
+    call of `module.name` to the EXR on the host clock.  Prints the
+    device ms of every kernel event, of those whose name holds `kernel`
+    (per variant), and the busy share, kernel ms over the round (the
+    tracing slows the host, so the share reads low)."""
+    if not PROFILE:
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with FirstCalls(module, name) as first, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        render(cfg_path, out_dir)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    round_ms = (t1 - first.first_t) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    total = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    mine = {}
+    for e in kern:
+        if kernel in e.name:
+            # The any-hit variant, demangled or not.
+            key = "any" if ("<true>" in e.name or "ILb1E" in e.name) \
+                else "closest"
+            n, ms = mine.get(key, (0, 0.0))
+            mine[key] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    if not kern:
+        print("    profiled round: the profiler recorded no kernel; busy "
+              "share not measured")
+        return
+    print(f"    profiled round (torch.profiler): round {round_ms:.3f} ms, "
+          f"{len(kern)} kernels {total:.3f} ms, busy {total / round_ms:.4f}; "
+          + ", ".join(f"{kernel} {k} {n} launches {ms:.3f} ms"
+                      for k, (n, ms) in sorted(mine.items())))
+
+
 def phase_render(d):
     t_phase = time.perf_counter()
     res, ms = FLAT_RES, FLAT_MS
@@ -554,16 +802,21 @@ def phase_render(d):
     for any_hit in (False, True):
         args = first.args[any_hit]
         _, agree, err = compare(args, any_hit)
-        kms = median_ms(lambda: fi.intersect_flat(*args, any_hit=any_hit))
-        pms = median_ms(lambda: fi.flat_plain(*args, any_hit=any_hit))
+        parent, kms = ab_ms(
+            lambda: fi.intersect_flat(*args, any_hit=any_hit))
+        pms = median_ms(lambda: fi.flat_plain(*args, any_hit=any_hit),
+                        runs=PLAIN_RUNS, warmup=False)
+        bms, by = k1_bound(args, any_hit)
         mode = "any" if any_hit else "closest"
         print(f"    K1 {mode} at the render's shapes ({args[1].shape[0]} "
               f"rays x {n_tris} tris): agree {agree:.6f} max|err| "
-              f"{err:.3g}, median ms kernel {kms:.3f} plain {pms:.3f}")
-        entries.append({"name": f"flat_intersect_{mode}", "route": "cuda",
-                        "source": K1_SOURCE, "replaces": K1_REPLACES,
-                        "launches": launches[mode], "max_abs_err": err,
-                        "ms": kms, "plain_ms": pms})
+              f"{err:.3g}, median ms {fmt_ab(parent, kms, bms)} by {by}, "
+              f"plain {pms:.3f} (over {PLAIN_RUNS} runs); {clocks()}")
+        entries.append(kernel_entry(
+            f"flat_intersect_{mode}", K1_SOURCE, K1_REPLACES,
+            launches[mode], err, kms, pms, bms, by, parent))
+    profiled_round(path, os.path.join(d, "render_prof"), isect,
+                   "intersect_flat", "flat_sweep")
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return entries
 
@@ -644,10 +897,15 @@ def phase_colonnade(d):
     entries = []
     for any_hit in (False, True):
         args = first.args[any_hit]
-        _, st, err = compare_k2(args, any_hit, arrays.tri_pack)
-        kms = median_ms(lambda: ci.traverse(*args, any_hit=any_hit))
+        kout, st, err = compare_k2(args, any_hit, arrays.tri_pack)
+        print(f"    K2 {'any' if any_hit else 'closest'} SIMD efficiency "
+              f"(mean/max per {WARP} sorted rays, averaged over warps): "
+              f"leaves {simd_efficiency(kout[3]):.4f}, nodes "
+              f"{simd_efficiency(kout[2]):.4f}")
+        parent, kms = ab_ms(lambda: ci.traverse(*args, any_hit=any_hit))
         pms = median_ms(lambda: ci.cluster_plain(*args, any_hit=any_hit),
                         runs=PLAIN_RUNS, warmup=False)
+        bms, by = k2_bound(args[0], args[1].shape[0], kout[2], kout[3])
         mode = "any" if any_hit else "closest"
         live = int((args[4] > args[3]).sum())
         print(f"    K2 {mode} at the render's shapes ({args[1].shape[0]} "
@@ -658,14 +916,15 @@ def phase_colonnade(d):
               f"{st['hit_rate']:.4f}; per ray nodes {st['nodes_mean']:.1f} "
               f"(max {st['nodes_max']}), leaves {st['leaves_mean']:.2f} (max "
               f"{st['leaves_max']}), counters equal {st['counters_equal']:.6f};"
-              f" median ms kernel {kms:.3f} plain {pms:.3f} (plain over "
-              f"{PLAIN_RUNS} runs)")
+              f" median ms {fmt_ab(parent, kms, bms)} by {by}, plain "
+              f"{pms:.3f} (plain over {PLAIN_RUNS} runs); {clocks()}")
         # The kernel's own output: in-kernel t (closest), validity (any).
-        entries.append({"name": f"cluster_intersect_{mode}", "route": "cuda",
-                        "source": K2_SOURCE, "replaces": K2_REPLACES,
-                        "launches": launches[mode],
-                        "max_abs_err": err if any_hit else st["raw_t_err"],
-                        "ms": kms, "plain_ms": pms})
+        entries.append(kernel_entry(
+            f"cluster_intersect_{mode}", K2_SOURCE, K2_REPLACES,
+            launches[mode], err if any_hit else st["raw_t_err"], kms, pms,
+            bms, by, parent))
+    profiled_round(path, os.path.join(d, "colonnade_prof"), ci, "traverse",
+                   "cluster_walk")
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return entries, path, img
 
@@ -948,6 +1207,10 @@ def phase_binned_colonnade(d, path, k2_img):
                   lambda: bi.sweep_plain(cl, cid, ray_of, *srt),
                   runs=PLAIN_RUNS, warmup=False)}
         live = int((srt[3] > srt[2]).sum())
+        r = srt[0].shape[0]
+        b3 = k3_bound(cl, r, bi.DEFAULT_K,
+                      bi.walk(cl, *srt[:4], stats=True)[3])
+        b4 = k4_bound(cl, r, cid)
         print(f"    first {'any' if any_hit else 'closest'}-hit binned query "
               f"({srt[0].shape[0]} rays, {live} live, "
               f"{int(cid.ne(bi.SENT).sum())} listed pairs, lanes "
@@ -956,17 +1219,17 @@ def phase_binned_colonnade(d, path, k2_img):
               f"agree {a4:.6f}, t within rtol {t4:.6f}, {c4:.6f} of the "
               f"{s4:.6f} well-conditioned (max|t err| {e4:.3g}); median ms "
               + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-              + f" (plain over {PLAIN_RUNS} runs)")
+              + f" (plain over {PLAIN_RUNS} runs); bound K3 {b3[0]:.4f} ms "
+              f"by {b3[1]} (share {b3[0] / ms['K3']:.3f}), K4 {b4[0]:.4f} "
+              f"ms by {b4[1]} (share {b4[0] / ms['K4']:.3f})")
         if mode == "all":
             entries = [
-                {"name": "binned_walk", "route": "cuda", "source": K3_SOURCE,
-                 "replaces": K3_REPLACES, "launches": total["walk"],
-                 "max_abs_err": e3, "ms": ms["K3"],
-                 "plain_ms": ms["K3 plain"]},
-                {"name": "binned_sweep", "route": "cuda",
-                 "source": K4_SOURCE, "replaces": K4_REPLACES,
-                 "launches": total["sweep"], "max_abs_err": e4,
-                 "ms": ms["K4"], "plain_ms": ms["K4 plain"]}]
+                kernel_entry("binned_walk", K3_SOURCE, K3_REPLACES,
+                             total["walk"], e3, ms["K3"], ms["K3 plain"],
+                             *b3),
+                kernel_entry("binned_sweep", K4_SOURCE, K4_REPLACES,
+                             total["sweep"], e4, ms["K4"], ms["K4 plain"],
+                             *b4)]
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return entries
 
@@ -1011,40 +1274,62 @@ def phase_probes(dev):
     px, ptab, tile, tiles = p2.inputs(dev)
     n = p2.DEFAULT_ITERS
     thr = p2.thresh("f", n)
+    # Bounds: the inputs and the output moved once; for P2, one operation
+    # per thread and loop iteration (a lower bound of the loop's work).
+    out = p1.THREADS * 4
     cases = (
         ("probe_smem", P1_REPLACES, "smem",
-         lambda: p1.smem(x, 48 * 1024), lambda: p1.smem_plain(x, 0)),
+         lambda: p1.smem(x, 48 * 1024), lambda: p1.smem_plain(x, 0),
+         bound(0, nbytes(x) + out)),
         ("probe_unpack", P1_REPLACES, "unpack",
-         lambda: p1.unpack(w, xu), lambda: p1.unpack_plain(w, xu)),
+         lambda: p1.unpack(w, xu), lambda: p1.unpack_plain(w, xu),
+         bound(0, nbytes(w, xu) + out)),
         ("probe_row_copy", P1_REPLACES, "row_copy",
-         lambda: p1.row_copy(table), lambda: p1.row_copy_plain(table, p1.ROW)),
+         lambda: p1.row_copy(table), lambda: p1.row_copy_plain(table, p1.ROW),
+         bound(0, nbytes(table) + out)),
         ("probe_sync_f", P2_REPLACES, "sync",
          lambda: p2.sync("f", px, ptab, n, thr)[0],
-         lambda: p2.sync_plain("f", px, ptab, n, thr)[0]),
+         lambda: p2.sync_plain("f", px, ptab, n, thr)[0],
+         bound(p2.n_iterations("f", n) * p2.THREADS,
+               nbytes(px, ptab) + 2 * out)),
         ("probe_fetch_depth4", P2_REPLACES, "fetch",
          lambda: p2.fetch(tiles, 4, n, 0.0),
-         lambda: p2.fetch_plain(tiles, 4, n, 0.0)))
+         lambda: p2.fetch_plain(tiles, 4, n, 0.0),
+         bound(n * p2.THREADS, nbytes(tiles) + out)))
     entries = []
-    for name, replaces, key, kernel, plain in cases:
+    for name, replaces, key, kernel, plain, (bms, by) in cases:
         k = kernel()
         torch.cuda.synchronize()
         err = float((k.double() - plain().double()).abs().max())
         check(err == 0.0, f"{name} differs from its plain version by {err}")
         kms, pms = median_ms(kernel), median_ms(plain)
         print(f"    {name}: kernel {kms:.3f} ms, plain {pms:.3f} ms, "
-              f"equal")
-        entries.append({"name": name, "route": "cuda", "source": PROBE_SOURCE,
-                        "replaces": replaces, "launches": counts[key],
-                        "max_abs_err": err, "ms": kms, "plain_ms": pms})
+              f"equal; bound {bms:.5f} ms by {by}")
+        entries.append(kernel_entry(name, PROBE_SOURCE, replaces,
+                                    counts[key], err, kms, pms, bms, by))
     print(f"    launches in the tools' runs {counts} "
           f"({time.perf_counter() - t_phase:.1f} s)")
     return entries
 
 
-def main():
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="CSRC", help="an earlier version's "
+                    "csrc/ directory: its K1 and K2 are timed in turns with "
+                    "this tree's in phases 3-5 and 7")
+    ap.add_argument("--profile", action="store_true", help="phases 5 and 7 "
+                    "render once more under torch.profiler and print the "
+                    "round's kernel time and the device's busy share")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    global PROFILE
+    args = parse_args(argv)
+    PROFILE = args.profile
     t_all = time.perf_counter()
     phase_device()
-    phase_build()
+    phase_build(args.parent)
     dev = torch.device("cuda")
     phase_k1(dev)
     trees = phase_k2(dev)

@@ -96,31 +96,91 @@ __device__ __forceinline__ bool is_leaf(const uint32_t* __restrict__ bits,
   return (__ldg(bits + (n >> 5)) >> (n & 31)) & 1u;
 }
 
+// Where pack slot s's coefficient 0 lies; coefficient j is j*128 further.
+__device__ __forceinline__ const float* slot(const float* __restrict__ pack,
+                                             long long s) {
+  return pack + (s >> 7) * (16 * 128) + (s & 127);
+}
+
+// The plane stage of the row test: t of the ray against the row's plane,
+// and whether it lies in (tmin, tmax).  Every compare is written so that
+// NaN and -inf fail.
+__device__ __forceinline__ bool row_plane(float nx, float ny, float nz,
+                                          float d, const Ray& r, float tmin,
+                                          float tmax, float* t) {
+  const float rddn = r.dx * nx + r.dy * ny + r.dz * nz;
+  const float rodn = r.ox * nx + r.oy * ny + r.oz * nz + d;
+  *t = -rodn / rddn;
+  return *t > tmin && *t < tmax;
+}
+
+// The barycentric stage, at the shared hit point ro + t rd.
+__device__ __forceinline__ bool row_inside(float t, const Ray& r, float b0,
+                                           float bx, float by, float bz,
+                                           float g0, float gx, float gy,
+                                           float gz) {
+  const float px = r.ox + t * r.dx, py = r.oy + t * r.dy,
+              pz = r.oz + t * r.dz;
+  const float beta = b0 + px * bx + py * by + pz * bz;
+  const float gamma = g0 + px * gx + py * gy + pz * gz;
+  return beta >= 0.f && gamma >= 0.f && beta + gamma <= 1.f;
+}
+
 // Shared-hit-point Badouel test of pack slot s: true, with t and the
 // triangle id, when the ray hits it inside (tmin, tmax) and it is not
-// `excl`.  Every compare is written so that NaN and -inf fail.
+// `excl`.  The barycentric coefficients are loaded only for a row whose t
+// is in the window.
 __device__ __forceinline__ bool row_hit(const float* __restrict__ pack,
                                         long long s, const Ray& r,
                                         float tmin, float tmax, int excl,
                                         float* t_out, int* pid_out) {
-  const float* q = pack + (s >> 7) * (16 * 128) + (s & 127);
-  const float nx = __ldg(q), ny = __ldg(q + 128), nz = __ldg(q + 2 * 128),
-              d = __ldg(q + 3 * 128);
-  const float rddn = r.dx * nx + r.dy * ny + r.dz * nz;
-  const float rodn = r.ox * nx + r.oy * ny + r.oz * nz + d;
-  const float t = -rodn / rddn;
-  if (!(t > tmin && t < tmax)) return false;  // rejects -inf and NaN
-  const float px = r.ox + t * r.dx, py = r.oy + t * r.dy,
-              pz = r.oz + t * r.dz;
-  const float beta = __ldg(q + 4 * 128) + px * __ldg(q + 5 * 128) +
-                     py * __ldg(q + 6 * 128) + pz * __ldg(q + 7 * 128);
-  const float gamma = __ldg(q + 8 * 128) + px * __ldg(q + 9 * 128) +
-                      py * __ldg(q + 10 * 128) + pz * __ldg(q + 11 * 128);
-  if (!(beta >= 0.f && gamma >= 0.f && beta + gamma <= 1.f)) return false;
+  const float* q = slot(pack, s);
+  float t;
+  if (!row_plane(__ldg(q), __ldg(q + 128), __ldg(q + 2 * 128),
+                 __ldg(q + 3 * 128), r, tmin, tmax, &t))
+    return false;
+  if (!row_inside(t, r, __ldg(q + 4 * 128), __ldg(q + 5 * 128),
+                  __ldg(q + 6 * 128), __ldg(q + 7 * 128), __ldg(q + 8 * 128),
+                  __ldg(q + 9 * 128), __ldg(q + 10 * 128),
+                  __ldg(q + 11 * 128)))
+    return false;
   const int pid = __float_as_int(__ldg(q + 13 * 128));
   if (pid == excl) return false;
   *t_out = t;
   *pid_out = pid;
+  return true;
+}
+
+// A pack slot's coefficients and id in registers, for a kernel that tests
+// one row against several rays.
+struct Row {
+  float c[12];
+  int pid;
+};
+
+__device__ __forceinline__ Row load_row(const float* __restrict__ pack,
+                                        long long s) {
+  const float* q = slot(pack, s);
+  Row w;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) w.c[j] = __ldg(q + j * 128);
+  w.pid = __float_as_int(__ldg(q + 13 * 128));
+  return w;
+}
+
+// row_hit on a loaded row: the same stages, so the same t and decision.
+__device__ __forceinline__ bool row_hit(const Row& w, const Ray& r,
+                                        float tmin, float tmax, int excl,
+                                        float* t_out, int* pid_out) {
+  float t;
+  if (!row_plane(w.c[0], w.c[1], w.c[2], w.c[3], r, tmin, tmax, &t))
+    return false;
+  if (!row_inside(t, r, w.c[4], w.c[5], w.c[6], w.c[7], w.c[8], w.c[9],
+                  w.c[10], w.c[11]))
+    return false;
+  if (w.pid == excl) return false;
+  *t_out = t;
+  *pid_out = w.pid;
   return true;
 }
 

@@ -15,11 +15,10 @@ import sys
 
 import torch
 
-from rgk_tpu.utils import log as out
-from rgk_tpu.utils.format import format_time
-
 from ..ops.sampler import MODE_NAMES
 from ..scene.config import build_scene, load_config
+from ..utils import log as out
+from ..utils.format import format_time
 from .render import RenderDriver
 
 ANIMATION_FRAMES = 250  # the reference's orbit: 250 frames @ 50 fps

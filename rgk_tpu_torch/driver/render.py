@@ -20,12 +20,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rgk_tpu.driver.monitor import FrameMonitor
-from rgk_tpu.utils import log as out
-from rgk_tpu.utils.format import LowPass, format_int_thousands, format_time
-
 from ..integrator.path import check_supported, trace_wavefront_queued
 from ..io import AccumulationImage
+from ..utils import log as out
+from ..utils.format import LowPass, format_int_thousands, format_time
+from .monitor import FrameMonitor
 
 
 @dataclass

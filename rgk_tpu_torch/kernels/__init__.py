@@ -39,22 +39,26 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _sources():
-    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _sources(csrc):
+    srcs = sorted(glob.glob(os.path.join(csrc, "*.cu")))
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
+        raise RuntimeError(f"no CUDA sources under {csrc}")
     return srcs
 
 
-def _headers():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+def _headers(csrc):
+    return sorted(glob.glob(os.path.join(csrc, "*.cuh")))
 
 
 def library_path() -> str:
     """Where the library for the current sources, headers and flags
     lives."""
+    return _library_path(CSRC)
+
+
+def _library_path(csrc):
     h = hashlib.sha256()
-    for src in _sources() + _headers():
+    for src in _sources(csrc) + _headers(csrc):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -67,7 +71,13 @@ def build() -> dict:
     """Compile the library if it is not cached.  Returns the path, the
     build seconds (0.0 when cached) and nvcc's output (ptxas resource
     usage), which is also kept beside the library as a .log."""
-    path = library_path()
+    return _build_from(CSRC)
+
+
+def _build_from(csrc):
+    """`build()` for the sources under another directory with the same
+    entry points (an earlier version's, to time the two in one process)."""
+    path = _library_path(csrc)
     log_path = path[:-3] + ".log"
     if os.path.exists(path):
         log = ""
@@ -80,7 +90,7 @@ def build() -> dict:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     objs, procs = [], []
-    for src in _sources():
+    for src in _sources(csrc):
         obj = f"{tmp}.{os.path.basename(src)}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
         objs.append(obj)
@@ -115,7 +125,13 @@ def build() -> dict:
 @lru_cache(maxsize=1)
 def load() -> ctypes.CDLL:
     """The built library, with the argument types of its entry points."""
-    lib = ctypes.CDLL(build()["path"])
+    return _open(build()["path"])
+
+
+def _open(path):
+    """The library at `path`, with the argument types of its entry
+    points."""
+    lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rgk_flat_intersect.argtypes = [p, i, p, p, p, p, p, i, p, p, p, p,
                                        i, p]

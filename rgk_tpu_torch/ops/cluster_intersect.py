@@ -174,7 +174,12 @@ def _check(cl, ro, rd, t_min, t_max, exclude=None):
 def traverse(cl, ro, rd, t_min, t_max, exclude, any_hit: bool = False,
              stats: bool = False):
     """-> (t f32 [R], tri i32 [R]) [+ (nodes i32 [R], leaves i32 [R])
-    with stats].  All tensors contiguous on one device (module doc)."""
+    with stats].  All tensors contiguous on one device (module doc).
+
+    The kernel's persistent warps take rays from one counter per device,
+    reset on the current stream before each launch: two launches on one
+    device must not overlap, so a caller that uses several streams orders
+    them (every caller in the port uses the current stream)."""
     _check(cl, ro, rd, t_min, t_max, exclude)
     if ro.device.type == "cpu":
         return cluster_plain(cl, ro, rd, t_min, t_max, exclude, any_hit,

@@ -1,9 +1,9 @@
 """Linearly Transformed Cosines: table fetch, PDF eval, sampling
 (port of rgk_tpu/ops/ltc.py).
 
-Reads the reference's 64x64 fitted tables from
-`rgk_tpu/data/ltc_tables.npz` where they lie, with numpy.  All vectors
-are in the local shading frame (+Z normal).
+Reads the 64x64 fitted tables from the port's own byte copy of the
+reference's `rgk_tpu/data/ltc_tables.npz`, `rgk_tpu_torch/data/`, with
+numpy.  All vectors are in the local shading frame (+Z normal).
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
-import rgk_tpu
 import torch
 
 from . import vecmath as vm
@@ -33,8 +32,8 @@ class LTCTables(NamedTuple):
 
 @lru_cache(maxsize=1)
 def load_tables_np() -> np.ndarray:
-    path = os.path.join(os.path.dirname(rgk_tpu.__file__), "data",
-                        "ltc_tables.npz")
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "data", "ltc_tables.npz")
     d = np.load(path)
     m = np.stack([d["beckmann_m"], d["ggx_m"]]).astype(np.float32)
     amp = np.stack([d["beckmann_amp"], d["ggx_amp"]]).astype(np.float32)

@@ -20,15 +20,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from rgk_tpu.scene import transforms as xf
-from rgk_tpu.scene.json_utils import ConfigError
-from rgk_tpu.utils import log as out
-from rgk_tpu.utils.lru import LRU
-
 from ..io import load_texture
 from ..ops.ltc import load_tables_np
+from ..utils import log as out
+from ..utils.lru import LRU
+from . import transforms as xf
 from .bvh import build_bvh, builder_name, placeholder_bvh
 from .clusters import build_clusters, empty_clusters
+from .json_utils import ConfigError
 from .arrays import (
     BSDF_DIFFUSE,
     BSDF_LTC_BECKMANN,

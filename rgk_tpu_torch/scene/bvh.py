@@ -12,8 +12,9 @@ depth-first with skip links, so the traversal (ops/intersect.py
       skip:  next node in DFS order once this subtree is done or culled;
              the root's rightmost path ends at skip == n_nodes.
 
-The native C++ builder of the reference (`rgk_tpu.native.bvh_native`,
-numpy + ctypes only, compiled with `c++` at first use) runs when it
+The port's copy of the reference's native C++ builder
+(`rgk_tpu_torch/native/bvh_native.py`, numpy + ctypes only, compiled
+with `c++` at first use into `rgk_tpu_torch/build/`) runs when it
 loads; `_build_numpy` is the same algorithm, line for line the
 reference's, and the fallback.  Which one ran is logged at level 3:
 the numpy build takes minutes at a million triangles.
@@ -23,8 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from rgk_tpu.utils import log as out
-
+from ..utils import log as out
 from .arrays import BVHArrays, f32, i32
 
 N_BINS = 16
@@ -147,9 +147,9 @@ def _build_numpy(centroids, prim_min, prim_max, leaf_size):
 
 
 def native_builder():
-    """The reference's C++ binned-SAH builder, or None when its library
-    cannot be built or loaded here."""
-    from rgk_tpu.native import bvh_native
+    """The port's copy of the reference's C++ binned-SAH builder, or None
+    when its library cannot be built or loaded here."""
+    from ..native import bvh_native
 
     return bvh_native.build_binned_sah if bvh_native._load() else None
 

@@ -27,8 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from rgk_tpu.utils import log as out
-
+from ..utils import log as out
 from .arrays import ClusterArrays, f32, i32
 from .bvh import prim_bounds, sah_build
 

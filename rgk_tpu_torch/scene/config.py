@@ -16,12 +16,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from rgk_tpu.scene import primitives as prims
-from rgk_tpu.scene import transforms as xf
-from rgk_tpu.scene.json_utils import ConfigError, Node, loads_tolerant
-from rgk_tpu.utils import log as out
-
 from ..io import load_obj
+from ..utils import log as out
+from . import primitives as prims
+from . import transforms as xf
 from .arrays import (
     BSDF_DIELECTRIC,
     BSDF_DIFFUSE,
@@ -36,6 +34,7 @@ from .arrays import (
 )
 from .builder import MaterialSpec, SceneBuilder, phong_exponent_to_roughness
 from .camera import Camera, make_camera
+from .json_utils import ConfigError, Node, loads_tolerant
 
 
 @dataclass

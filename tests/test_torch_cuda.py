@@ -7,9 +7,11 @@ runs where JAX is not installed (tests/conftest.py imports JAX, hence
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-Tolerance: triangle ids equal on >= 99.99% of rays (nvcc contracts
-multiply-adds to FMA, the plain versions do not, which can flip a hit
-exactly on an edge); t within rtol 3e-4 / atol 1e-6 where ids agree
+Tolerance: K1 equals flat_plain bit for bit (it rounds each operation
+as the plain version does); elsewhere triangle ids equal on >= 99.99% of
+rays (nvcc contracts multiply-adds to FMA, the plain versions do not,
+which can flip a hit exactly on an edge); t within rtol 3e-4 / atol 1e-6
+where ids agree
 (for K2 the reported t, recomputed from the winner's row; its in-kernel
 t on >= 99.99% of the hits, since grazing hits cancel in rd.n); any-hit
 validity equal on >= 99.99% of rays.  Whole images: the bounds of
@@ -28,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from rgk_tpu.io.exr import read_exr
 from rgk_tpu_torch.driver import cli
+from rgk_tpu_torch.io import read_exr
 from rgk_tpu_torch.ops import binned_intersect as bi
 from rgk_tpu_torch.ops import cluster_intersect as ci
 from rgk_tpu_torch.ops import flat_intersect as fi
@@ -108,6 +110,120 @@ def test_kernel_matches_plain(cuda_device, n_tris, n_rays):
         assert bool((k[1] == -1).all())
 
 
+@pytest.mark.parametrize("n_tris,n_rays", [(1, 777), (4096, 3001),
+                                           (3 * 128 + 5, 3 * 512 + 1),
+                                           (300, 511)])
+def test_kernel_edges(cuda_device, n_tris, n_rays):
+    """The shapes K1's blocking must cover: M = 1, M = 4096 (the flat
+    limit), M not a multiple of the 128-row tile, R not a multiple of the
+    512 rays of a block (4 a thread), R below one block; closest hit, an
+    exclude pass, any hit; thin-glass rows (every 7th) never hit."""
+    args = _inputs(n_tris, n_rays, seed=n_tris + 7, dev=cuda_device)
+    for any_hit in (False, True):
+        _check_against_plain(args, any_hit)
+    k = _check_against_plain(args, any_hit=False)
+    assert not bool((k[1][k[1] >= 0] % 7 == 0).any())
+    excl = k[1].contiguous()
+    k2 = _check_against_plain(args[:5] + [excl], any_hit=False)
+    assert not bool(((k2[1] == excl) & (excl >= 0)).any())
+
+
+def _stack(n_tris, n_rays, dev, facing):
+    """n_tris large triangles stacked at z = 1 + 0.01 i, every 7th thin
+    glass, and rays from z = 0 inside their footprint, toward them
+    (facing) or away."""
+    z = 1.0 + 0.01 * np.arange(n_tris, dtype=np.float32)
+    verts = np.stack([np.stack([np.full(n_tris, x), np.full(n_tris, y), z],
+                               axis=1)
+                      for x, y in ((-8, -8), (8, -8), (0, 8))], axis=1)
+    pack = np.zeros((n_tris, 13), np.float32)
+    pack[:, :12] = build_tri_pack(verts.reshape(-1, 3).astype(np.float32),
+                                  np.arange(3 * n_tris).reshape(-1, 3))
+    pack[::7, 12] = 1.0
+    rng = np.random.default_rng(n_rays)
+    ro = np.zeros((n_rays, 3), np.float32)
+    ro[:, :2] = rng.uniform(-1, 1, (n_rays, 2))
+    rd = np.zeros((n_rays, 3), np.float32)
+    rd[:, 2] = 1.0 if facing else -1.0
+    rd[:, :2] = rng.uniform(-0.02, 0.02, (n_rays, 2))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return [torch.from_numpy(x).to(dev) for x in (
+        pack, ro, rd, np.zeros(n_rays, np.float32),
+        np.full(n_rays, 1e4, np.float32), np.full(n_rays, -1, np.int32))]
+
+
+@pytest.mark.parametrize("n_tris", [2, 200, 4096])
+def test_kernel_all_or_no_rays_hit(cuda_device, n_tris):
+    """Every ray hits every row of the stack, or none: the closest hit is
+    row 1 (row 0 is thin glass), then row 2 with row 1 excluded; any hit
+    leaves every warp at its first tile, or sweeps every row."""
+    args = _stack(n_tris, 2 * 512 + 33, cuda_device, facing=True)
+    k = _check_against_plain(args, any_hit=False)
+    assert bool((k[1] == 1).all())
+    k2 = _check_against_plain(args[:5] + [k[1].contiguous()], any_hit=False)
+    assert bool((k2[1] == 2).all()) if n_tris > 2 else bool(
+        (k2[1] == -1).all())
+    assert bool((_check_against_plain(args, any_hit=True)[1] == 0).all())
+    away = _stack(n_tris, 2 * 512 + 33, cuda_device, facing=False)
+    for any_hit in (False, True):
+        assert bool((_check_against_plain(away, any_hit)[1] == -1).all())
+
+
+def _far_sphere(center, radius, cam_dist, n_rays, seed, dev):
+    """A closed sphere of 4096 small triangles at `center`, and rays from
+    `cam_dist` away aimed at points of random triangles near their edges
+    and corners: large coordinates and a far camera put many hits within
+    rounding of an edge, where the prefilter's slack must cover the
+    rounding of both its form and the exact test's."""
+    mb = _module("_make_bigscene", os.path.join(TOOLS, "make_bigscene.py"))
+    verts, _, faces = mb.make_sphere(4100, *center, radius)
+    verts = np.asarray(verts, np.float32)
+    faces = np.asarray(faces, np.int32)
+    pack = np.zeros((faces.shape[0], 13), np.float32)
+    pack[:, :12] = build_tri_pack(verts, faces)
+    rng = np.random.default_rng(seed)
+    corners = verts[faces[rng.integers(0, faces.shape[0], n_rays)]]
+    target = (corners * rng.dirichlet([0.3] * 3, n_rays)[:, :, None]).sum(1)
+    away = rng.normal(size=(n_rays, 3))
+    away /= np.linalg.norm(away, axis=1, keepdims=True)
+    ro = (np.asarray(center) + cam_dist * away).astype(np.float32)
+    rd = target - ro
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (
+        pack, ro, rd, np.zeros(n_rays, np.float32),
+        np.full(n_rays, 1e4, np.float32), np.full(n_rays, -1, np.int32))]
+
+
+@pytest.mark.parametrize("scene", ["soup", "far", "tiny"])
+def test_kernel_equals_plain_bit_for_bit(cuda_device, scene):
+    """K1 computes flat_plain's function in its order and roundings, on a
+    random soup and where the prefilter's slack must grow with the
+    magnitudes: a sphere of radius 1 at coordinates in the hundreds seen
+    from 200 units, and one of radius 0.05 seen from 150.  Closest hit
+    (t, id, barycentrics), an exclude pass over its winners and any-hit
+    ids equal the plain version's on every ray."""
+    if scene == "soup":
+        args = _inputs(3 * 128 + 5, 1 << 16, seed=11, dev=cuda_device)
+    elif scene == "far":
+        args = _far_sphere((300.0, -200.0, 500.0), 1.0, 200.0, 1 << 16, 12,
+                           cuda_device)
+    else:
+        args = _far_sphere((0.0, 0.0, 0.0), 0.05, 150.0, 1 << 16, 13,
+                           cuda_device)
+    k = fi.intersect_flat(*args)
+    assert (k[1] >= 0).double().mean().item() > (0.05 if scene == "soup"
+                                                 else 0.9)
+    excl = [*args[:5], k[1].contiguous()]
+    for a in (args, excl):
+        k = fi.intersect_flat(*a)
+        p = fi.flat_plain(*a)
+        for name, x, y in zip(("t", "tri", "bary_b", "bary_c"), k, p):
+            diff = int((x != y).sum())
+            assert diff == 0, f"{name} differs from flat_plain on {diff} rays"
+    assert torch.equal(fi.intersect_flat(*args, any_hit=True)[1],
+                       fi.flat_plain(*args, any_hit=True)[1])
+
+
 def test_slice_render_on_card_matches_cpu(cuda_device, tmp_path):
     mod = _module("_bdpt_scene", os.path.join(TOOLS, "bdpt_scene.py"))
     path = tmp_path / "box.json"
@@ -184,6 +300,36 @@ def test_cluster_kernel_matches_plain(cuda_device, monkeypatch, cap, halves):
     k2 = check(args[:4] + [excl_s], any_hit=False)
     assert not bool(((k2[1] == excl_s) & (excl_s >= 0)).any())
     check(args, any_hit=True)
+
+
+@pytest.mark.parametrize("cap,halves", [(None, 1), (16, 8)])
+@pytest.mark.parametrize("n", [1, 31, 33, 4097, 200_003])
+def test_cluster_kernel_edges(cuda_device, monkeypatch, cap, halves, n):
+    """K2's persistent warps on ray counts that are not whole groups of
+    32, below one group, and far above one wave of resident warps, on
+    both layouts, with empty intervals; two launches in a row (the group
+    counter starts again); ids, any-hit validity and the counters equal
+    cluster_plain's."""
+    if cap is not None:
+        monkeypatch.setattr(tclusters, "CHUNK_CAP", cap)
+    verts, tris, pack = _soup(8000, seed=6)
+    cl = tclusters.build_clusters(verts, tris, pack, device=cuda_device)
+    assert cl.chunk_halves == halves
+    _, ro, rd, t_min, t_max, excl = _inputs(0, n, seed=n, dev=cuda_device)
+    t_max = torch.where(torch.arange(n, device=cuda_device) % 5 == 2, 0.0,
+                        t_max)
+    _, *args = ci.sort_rays(cl, ro, rd, t_min, t_max, excl)
+    for any_hit in (False, True, False):
+        k = ci.traverse(cl, *args, any_hit=any_hit, stats=True)
+        torch.cuda.synchronize()
+        p = ci.cluster_plain(cl, *args, any_hit=any_hit, stats=True)
+        same = (k[1] >= 0) == (p[1] >= 0) if any_hit else k[1] == p[1]
+        assert same.double().mean().item() >= (0.9999 if n > 1e4 else 1.0)
+        assert ((k[2] == p[2]) & (k[3] == p[3])).double().mean() >= (
+            0.999 if n > 1e4 else 1.0)
+        empty = ~(args[3] > args[2])
+        assert not bool((k[1][empty] >= 0).any())
+        assert bool((k[2][empty] == 0).all() and (k[3][empty] == 0).all())
 
 
 def test_colonnade_on_card_matches_cpu(cuda_device, tmp_path):

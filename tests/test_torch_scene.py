@@ -14,10 +14,10 @@ import torch
 
 import torch_port_scenes as scenes
 from rgk_tpu.scene.camera import pixel_rays as j_pixel_rays
-from rgk_tpu.scene.json_utils import ConfigError
 from rgk_tpu_torch.scene import config as tconfig
 from rgk_tpu_torch.scene.arrays import SceneArrays, scene_from_numpy
 from rgk_tpu_torch.scene.camera import pixel_rays
+from rgk_tpu_torch.scene.json_utils import ConfigError
 
 META_FIELDS = ("n_triangles", "n_materials", "n_point_lights",
                "n_areal_tris", "has_bvh", "has_textures", "has_thinglass",

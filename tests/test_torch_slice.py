@@ -25,10 +25,10 @@ import torch
 import torch_port_scenes as scenes
 from rgk_tpu.driver import cli as jcli
 from rgk_tpu.integrator import path as jpath
-from rgk_tpu.io.exr import read_exr
 from rgk_tpu_torch.driver import cli
 from rgk_tpu_torch.driver.render import RenderDriver
 from rgk_tpu_torch.integrator import path as tpath
+from rgk_tpu_torch.io import load_texture, read_exr
 from rgk_tpu_torch.ops import intersect as isect
 from rgk_tpu_torch.parity import image_parity
 
@@ -144,8 +144,6 @@ def test_smoke_colonnade_is_the_generators(tmp_path):
     files and config as tools/make_bigscene.generate, and a stone
     texture that loads to the same linear texels as the PNG."""
     import importlib.util
-
-    from rgk_tpu.io.texture_io import load_texture
 
     spec = importlib.util.spec_from_file_location(
         "_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -293,25 +291,59 @@ def test_cli_needs_cuda_or_cpu_flag(tmp_path, monkeypatch):
 
 def test_smoke_imports_only_the_port():
     """chip_smoke.py takes everything of this repo from rgk_tpu_torch
-    (and tools/' scene generators), nothing from the JAX package."""
+    (and tools/' scene generators), nothing from the JAX package: neither
+    the smoke nor any module of the port that it reaches through its
+    imports names rgk_tpu, jax or jaxlib."""
     import ast
 
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
-        tree = ast.parse(f.read())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            names.add(node.module)
+    refused = ("rgk_tpu", "jax", "jaxlib")
+
+    def source(name):
+        """-> (file, is a package) of a module of this repo, or None."""
+        base = os.path.join(REPO, *name.split("."))
+        if os.path.exists(base + ".py"):
+            return base + ".py", False
+        init = os.path.join(base, "__init__.py")
+        return (init, True) if os.path.exists(init) else None
+
+    def imports(name, path, is_pkg):
+        """Absolute names a module imports (`from a import b` gives a and
+        a.b, which may be a submodule)."""
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        here = name.split(".")[:None if is_pkg else -1]
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                mod = node.module
+                if node.level:
+                    parts = here[:len(here) - node.level + 1]
+                    mod = ".".join(parts + ([mod] if mod else []))
+                yield mod
+                yield from (f"{mod}.{a.name}" for a in node.names)
+
+    names, seen, todo = set(), set(), ["chip_smoke"]
+    while todo:
+        name = todo.pop()
+        found = source(name)
+        if found is None or name in seen:
+            continue
+        seen.add(name)
+        for mod in imports(name, *found):
+            names.add(mod)
+            if mod.split(".")[0] == "rgk_tpu_torch":
+                todo.append(mod)
     assert "rgk_tpu_torch.io" in names
-    bad = sorted(n for n in names if n.split(".")[0] in ("rgk_tpu", "jax"))
+    assert len([n for n in seen if n.startswith("rgk_tpu_torch")]) >= 30
+    bad = sorted(n for n in names if n.split(".")[0] in refused)
     assert bad == []
 
 
 def test_port_render_imports_no_jax(tmp_path):
     """A process that imports the port and renders a flat and a BVH
-    scene, the latter under RGK_BINNED=all, keeps JAX out."""
+    scene, the latter under RGK_BINNED=all, keeps JAX and the JAX
+    package rgk_tpu out."""
     path = _box(tmp_path, res=8, ms=1)
     bvh_path = _bvh_box(tmp_path, res=4, ms=1)
     bvh_dir = str(tmp_path / "bvh")
@@ -322,7 +354,7 @@ def test_port_render_imports_no_jax(tmp_path):
         "os.environ['RGK_BINNED'] = 'all'\n"
         f"main([{bvh_path!r}, '--cpu', '-q', '-D', {bvh_dir!r}])\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "             if m.split('.')[0] in ('rgk_tpu', 'jax', 'jaxlib'))\n"
         "print(repr(bad))\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ)
