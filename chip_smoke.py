@@ -7,10 +7,13 @@
 Run from the root of a checkout.  With --parent (an earlier version's
 kernel sources, unpacked for example by `git archive <commit>
 rgk_tpu_torch/csrc`), phases 3-5 and 7 also time that version's K1 and
-K2 in turns with this tree's (earlier, new, new, earlier).  With
---profile, phases 5 and 7 render their scene once more under
-torch.profiler and print the round's device time per kernel and the
-device's busy share.  It drives
+K2, and phases 9 and 10 its K3 and K4, in turns with this tree's
+(earlier, new, new, earlier), and holds this tree's K3 and K4 bit-equal
+to that version's on the same inputs.  With --profile, phases 5 and 7 render
+their scene once more under torch.profiler, and phase 10 the colonnade
+once more with RGK_BINNED=all, and print the round's device time per
+kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
+busy share.  It drives
 rgk_tpu_torch, never JAX, through twelve phases and exits non-zero at
 the first that fails:
 
@@ -52,7 +55,9 @@ the first that fails:
    K3/K4 launches counted (K1 none, K2 as the mode implies), round wall
    time, rays/s, the stream time of K3, K4, pass 2 and the glue, the
    first binned query replayed against the plain versions and against
-   K2, and each image against phase 7's K2 image;
+   K2, with K3's node SIMD efficiency and the same-chunk runs of K4's
+   sorted pairs (phase 9 prints both too), and each image against phase
+   7's K2 image;
 11. the small colonnade of phase 8 rendered on the card with
    RGK_BINNED=all, against phase 8's CPU image;
 12. the probes P1 (shared memory per block, the u16 unpack, the cp.async
@@ -89,7 +94,8 @@ averaged over warps.
 Prints one line per phase with its wall seconds, then a JSON line of
 the kernels (launch counts from the renders, for K3/K4 the sum of the
 two binned renders, for the probes their tool runs; ms, plain_ms,
-bound_ms, bound_by, share, library_ms null, parent_ms), and last
+bound_ms, bound_by, share, library_ms null, parent_ms for K1-K4 with
+--parent), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
 result.
 """
@@ -298,6 +304,34 @@ def simd_efficiency(counts, warp=WARP):
         return 1.0
     mean = c.sum(dim=1) / lanes.sum(dim=1)
     return (mean[busy] / top[busy]).mean().item()
+
+
+def pair_runs(cid, warp=WARP):
+    """Sorted pair keys -> the same-chunk runs K4 sweeps: listed pairs,
+    distinct chunks, pairs per chunk (median, p90, max), and the share of
+    groups of `warp` consecutive listed pairs (the last one ragged) that
+    span more than one chunk."""
+    listed = cid[cid != bi.SENT]
+    n = listed.numel()
+    if n == 0:
+        return {"pairs": 0, "chunks": 0, "median": 0.0, "p90": 0.0,
+                "max": 0, "mixed_warps": 0.0}
+    _, counts = torch.unique_consecutive(listed, return_counts=True)
+    c = counts.double()
+    q = torch.quantile(c, torch.tensor([0.5, 0.9], dtype=c.dtype,
+                                       device=c.device)).tolist()
+    last = torch.clamp(torch.arange(warp - 1, n + warp - 1, warp,
+                                    device=cid.device), max=n - 1)
+    mixed = (listed[last] != listed[::warp]).double().mean().item()
+    return {"pairs": n, "chunks": int(counts.numel()), "median": q[0],
+            "p90": q[1], "max": int(counts.max()), "mixed_warps": mixed}
+
+
+def fmt_runs(st):
+    return (f"{st['pairs']} listed pairs in {st['chunks']} chunks, pairs "
+            f"per chunk median {st['median']:.1f} p90 {st['p90']:.1f} max "
+            f"{st['max']}, {WARP}-pair groups spanning more than one chunk "
+            f"{st['mixed_warps']:.4f}")
 
 
 def bound(flops, nbytes):
@@ -734,20 +768,22 @@ class FirstCalls:
         setattr(self.module, self.name, self._orig)
 
 
-def profiled_round(cfg_path, out_dir, module, name, kernel):
-    """With --profile: one more CLI render of `cfg_path` under
-    torch.profiler (card activity only), the round timed from the first
-    call of `module.name` to the EXR on the host clock.  Prints the
-    device ms of every kernel event, of those whose name holds `kernel`
-    (per variant), and the busy share, kernel ms over the round (the
-    tracing slows the host, so the share reads low)."""
+def profiled_round(cfg_path, out_dir, module, name, kernels_, binned=None):
+    """With --profile: one more CLI render of `cfg_path` (with
+    RGK_BINNED=`binned` when given) under torch.profiler (card activity
+    only), the round timed from the first call of `module.name` to the
+    EXR on the host clock.  Prints the device ms of every kernel event,
+    of those whose name holds each of `kernels_` (K1 and K2 per variant),
+    and the busy share, kernel ms over the round (the tracing slows the
+    host, so the share reads low)."""
     if not PROFILE:
         return
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with FirstCalls(module, name) as first, profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
+    with binned_mode(binned) if binned else contextlib.nullcontext(), \
+            FirstCalls(module, name) as first, profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
         render(cfg_path, out_dir)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -758,19 +794,24 @@ def profiled_round(cfg_path, out_dir, module, name, kernel):
     total = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     mine = {}
     for e in kern:
-        if kernel in e.name:
-            # The any-hit variant, demangled or not.
-            key = "any" if ("<true>" in e.name or "ILb1E" in e.name) \
-                else "closest"
+        for kernel in kernels_:
+            if kernel not in e.name:
+                continue
+            key = kernel
+            if kernel in ("flat_sweep", "cluster_walk"):
+                # The any-hit variant, demangled or not.
+                key += (" any" if ("<true>" in e.name or "ILb1E" in e.name)
+                        else " closest")
             n, ms = mine.get(key, (0, 0.0))
             mine[key] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     if not kern:
         print("    profiled round: the profiler recorded no kernel; busy "
               "share not measured")
         return
-    print(f"    profiled round (torch.profiler): round {round_ms:.3f} ms, "
+    print(f"    profiled round{f' (RGK_BINNED={binned})' if binned else ''}"
+          f" (torch.profiler): round {round_ms:.3f} ms, "
           f"{len(kern)} kernels {total:.3f} ms, busy {total / round_ms:.4f}; "
-          + ", ".join(f"{kernel} {k} {n} launches {ms:.3f} ms"
+          + ", ".join(f"{k} {n} launches {ms:.3f} ms"
                       for k, (n, ms) in sorted(mine.items())))
 
 
@@ -816,7 +857,7 @@ def phase_render(d):
             f"flat_intersect_{mode}", K1_SOURCE, K1_REPLACES,
             launches[mode], err, kms, pms, bms, by, parent))
     profiled_round(path, os.path.join(d, "render_prof"), isect,
-                   "intersect_flat", "flat_sweep")
+                   "intersect_flat", ("flat_sweep",))
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return entries
 
@@ -924,7 +965,7 @@ def phase_colonnade(d):
             launches[mode], err if any_hit else st["raw_t_err"], kms, pms,
             bms, by, parent))
     profiled_round(path, os.path.join(d, "colonnade_prof"), ci, "traverse",
-                   "cluster_walk")
+                   ("cluster_walk",))
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return entries, path, img
 
@@ -1035,6 +1076,26 @@ def compare_k4(cl, tri_pack, srt, cid, ray_of, any_hit):
     return agree, t_ok, t_cond, share_cond, err
 
 
+def same_as_parent(cl, srt, K, cid, ray_of, k3, k4):
+    """With --parent: the share of lanes whose K3 list, count and
+    skipmin, and of pairs whose K4 id and t, are bit-equal to the parent
+    kernels' on the same inputs (both take the same node and row
+    decisions, so the check is that they are 1); else None."""
+    if PARENT is None:
+        return None
+    with library(PARENT):
+        p3 = bi.walk(cl, *srt[:4], K)
+        p4 = bi.sweep_pairs(cl, cid, ray_of, *srt)
+    s3 = ((k3[0] == p3[0]).all(dim=1) & (k3[1] == p3[1])
+          & (k3[2].view(torch.int32) == p3[2].view(torch.int32)))
+    s4 = (k4[1] == p4[1]) & (k4[0].view(torch.int32) == p4[0].view(
+        torch.int32))
+    out = (s3.double().mean().item(), s4.double().mean().item())
+    check(out == (1.0, 1.0), f"K3/K4 not bit-equal to the parent's: "
+          f"lanes {out[0]:.7f}, pairs {out[1]:.7f}")
+    return out
+
+
 def compare_front(args, any_hit, K=bi.DEFAULT_K):
     """The binned front end against K2's on one unsorted query (cl,
     tri_pack, ro, rd, t_min, t_max, exclude).  -> (K2's outputs, share
@@ -1083,13 +1144,18 @@ def phase_binned_soup(dev, trees):
             if K == bi.DEFAULT_K:
                 cid, ray_of = pairs_of(bi.walk(cl, *srt[:4], K)[0], K)
                 scid, sray = pairs_of(k3[0], K)
+                full = bi.walk(cl, *srt[:4], K)
+                eq = same_as_parent(cl, srt, K, cid, ray_of, full,
+                                    bi.sweep_pairs(cl, cid, ray_of, *srt))
+                nodes = bi.walk(cl, *srt[:4], K, stats=True)[3]
+                p3, n3 = ab_ms(lambda: bi.walk(cl, *srt[:4], K))
+                p4, n4 = ab_ms(lambda: bi.sweep_pairs(cl, cid, ray_of, *srt))
                 ms = {
-                    "K3": median_ms(lambda: bi.walk(cl, *srt[:4], K)),
+                    "K3 parent": p3, "K3": n3,
                     "K3 plain": median_ms(
                         lambda: bi.walk_plain(cl, *sub[:4], K),
                         runs=PLAIN_RUNS, warmup=False),
-                    "K4": median_ms(
-                        lambda: bi.sweep_pairs(cl, cid, ray_of, *srt)),
+                    "K4 parent": p4, "K4": n4,
                     "K4 plain": median_ms(
                         lambda: bi.sweep_plain(cl, scid, sray, *sub),
                         runs=PLAIN_RUNS, warmup=False),
@@ -1099,9 +1165,14 @@ def phase_binned_soup(dev, trees):
                     "K2 front end": median_ms(
                         lambda: ci.intersect_clusters(*args), runs=5)}
                 line += ("; median ms " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in ms.items())
-                    + f" (plain on every {PLAIN_STRIDE}th sorted ray, "
-                    f"{int(cid.ne(bi.SENT).sum())} listed pairs in all)")
+                    f"{k} {v:.3f}" for k, v in ms.items() if v is not None)
+                    + f" (plain on every {PLAIN_STRIDE}th sorted ray); K3 "
+                    f"node SIMD efficiency {simd_efficiency(nodes):.4f}, "
+                    f"nodes per ray mean {nodes.double().mean():.2f} max "
+                    f"{int(nodes.max())}; K4 runs: {fmt_runs(pair_runs(cid))}")
+                if eq is not None:
+                    line += (f"; bit-equal to the parent's: K3 lanes "
+                             f"{eq[0]:.7f}, K4 pairs {eq[1]:.7f}")
             print(line)
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
 
@@ -1199,17 +1270,21 @@ def phase_binned_colonnade(d, path, k2_img):
         cid, ray_of = pairs_of(k3[0], bi.DEFAULT_K)
         a4, t4, c4, s4, e4 = compare_k4(cl, args[1], srt, cid, ray_of,
                                         any_hit)
-        ms = {"K3": median_ms(lambda: bi.walk(cl, *srt[:4])),
+        p3, n3 = ab_ms(lambda: bi.walk(cl, *srt[:4]))
+        p4, n4 = ab_ms(lambda: bi.sweep_pairs(cl, cid, ray_of, *srt))
+        ms = {"K3 parent": p3, "K3": n3,
               "K3 plain": median_ms(lambda: bi.walk_plain(cl, *srt[:4]),
                                     runs=PLAIN_RUNS, warmup=False),
-              "K4": median_ms(lambda: bi.sweep_pairs(cl, cid, ray_of, *srt)),
+              "K4 parent": p4, "K4": n4,
               "K4 plain": median_ms(
                   lambda: bi.sweep_plain(cl, cid, ray_of, *srt),
                   runs=PLAIN_RUNS, warmup=False)}
         live = int((srt[3] > srt[2]).sum())
         r = srt[0].shape[0]
-        b3 = k3_bound(cl, r, bi.DEFAULT_K,
-                      bi.walk(cl, *srt[:4], stats=True)[3])
+        nodes = bi.walk(cl, *srt[:4], stats=True)[3]
+        eq = same_as_parent(cl, srt, bi.DEFAULT_K, cid, ray_of, k3,
+                            bi.sweep_pairs(cl, cid, ray_of, *srt))
+        b3 = k3_bound(cl, r, bi.DEFAULT_K, nodes)
         b4 = k4_bound(cl, r, cid)
         print(f"    first {'any' if any_hit else 'closest'}-hit binned query "
               f"({srt[0].shape[0]} rays, {live} live, "
@@ -1218,18 +1293,29 @@ def phase_binned_colonnade(d, path, k2_img):
               f"front end vs K2 {af:.7f}; K3 lists agree {a3:.6f}; K4 ids "
               f"agree {a4:.6f}, t within rtol {t4:.6f}, {c4:.6f} of the "
               f"{s4:.6f} well-conditioned (max|t err| {e4:.3g}); median ms "
-              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()
+                          if v is not None)
               + f" (plain over {PLAIN_RUNS} runs); bound K3 {b3[0]:.4f} ms "
               f"by {b3[1]} (share {b3[0] / ms['K3']:.3f}), K4 {b4[0]:.4f} "
-              f"ms by {b4[1]} (share {b4[0] / ms['K4']:.3f})")
+              f"ms by {b4[1]} (share {b4[0] / ms['K4']:.3f}); {clocks()}")
+        print(f"    K3 node SIMD efficiency (mean/max per {WARP} sorted "
+              f"rays) {simd_efficiency(nodes):.4f}, nodes per ray mean "
+              f"{nodes.double().mean():.2f} max {int(nodes.max())}; K4 "
+              f"runs: {fmt_runs(pair_runs(cid))}" + (
+                  "" if eq is None else f"; bit-equal to the parent's: K3 "
+                  f"lanes {eq[0]:.7f}, K4 pairs {eq[1]:.7f}"))
         if mode == "all":
             entries = [
                 kernel_entry("binned_walk", K3_SOURCE, K3_REPLACES,
                              total["walk"], e3, ms["K3"], ms["K3 plain"],
-                             *b3),
+                             *b3, p3),
                 kernel_entry("binned_sweep", K4_SOURCE, K4_REPLACES,
                              total["sweep"], e4, ms["K4"], ms["K4 plain"],
-                             *b4)]
+                             *b4, p4)]
+            profiled_round(path, os.path.join(d, "colonnade_all_prof"), isect,
+                           "intersect_clusters_binned",
+                           ("binned_walk", "binned_sweep", "cluster_walk"),
+                           binned="all")
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return entries
 
@@ -1315,11 +1401,12 @@ def phase_probes(dev):
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="CSRC", help="an earlier version's "
-                    "csrc/ directory: its K1 and K2 are timed in turns with "
-                    "this tree's in phases 3-5 and 7")
-    ap.add_argument("--profile", action="store_true", help="phases 5 and 7 "
-                    "render once more under torch.profiler and print the "
-                    "round's kernel time and the device's busy share")
+                    "csrc/ directory: its K1-K4 are timed in turns with "
+                    "this tree's in phases 3-5, 7, 9 and 10")
+    ap.add_argument("--profile", action="store_true", help="phases 5, 7 and "
+                    "10 (RGK_BINNED=all) render once more under "
+                    "torch.profiler and print the round's kernel time and "
+                    "the device's busy share")
     return ap.parse_args(argv)
 
 

@@ -12,12 +12,8 @@
 // The front end (ops/binned_intersect.py) sweeps the listed chunks with K4
 // and hands the window (skipmin, best t] to K2.
 //
-// It computes K3's function, not its block schedule.  The TPU kernel is
-// built around that chip: a block-majority octant, 24-node frontier
-// batches voted in power-of-two bits, a 4096-word scalar-memory stack and
-// link paging.  None of it carries over.  One thread owns one sorted ray
-// and walks K2's stackless path through its own octant's links, with the
-// slab test of cluster_common.cuh, so its node decisions are K2's:
+// Each ray walks K2's stackless path through its own octant's links, with
+// the slab test of cluster_common.cuh, so its node decisions are K2's:
 //   tcap = min(t_max, skipmin) once cnt >= K, else t_max; the best hit t
 //   is never used, since nothing is swept here;
 //   a hit inner node goes to its near child; a hit leaf appends its chunk
@@ -27,15 +23,27 @@
 // (skipmin, best t] covers everything the cap dropped.  Without overflow
 // the set of listed chunks and cnt do not depend on the walk order (each
 // leaf is tested against the same fixed t_max), which is how the port's
-// tests hold this walk to the reference's.
+// tests hold this walk to the reference's.  The nudge is written with
+// __fmul_rn / __fsub_rn so nvcc cannot fuse it into an FMA: skipmin is
+// then bit-equal to the plain version's.
 //
-// The nudge is written with __fmul_rn / __fsub_rn so nvcc cannot fuse it
-// into an FMA: skipmin is then bit-equal to the plain version's.
-//
-// What bounds it on this card: like K2, the dependent loads of the walk
-// (three box words, a link word and a leaf word a node, all L1/L2-
-// resident); there is no sweep.  Each thread writes its own row of ids;
-// K is at most a few words, so the scattered stores are a small cost.
+// What bounds it on this card: the walk's dependent, scattered table reads
+// (three box words, a link word and a leaf word a node), not its ~22 flops
+// a node: the colonnade's tables (boxes 373 KB, one octant's links 124 KB,
+// leaf bits 4 KB) overflow L1, and each node step waits on the loads its
+// node decided.  The card hides that latency only with many walks in
+// flight, and this schedule gives it the most: one thread a sorted ray in
+// blocks of 128 at 32 registers, 64 warps an SM.  The TPU kernel's own
+// design (a block-majority octant, 24-node frontier batches voted in
+// power-of-two bits, a scalar-memory stack and link paging) does not
+// carry over.  Measured on the colonnade's sorted queries (PERF.md), each
+// redesign that traded warps for something else ran slower: persistent
+// 1024-thread blocks with the octant's link page and the leaf bits in
+// shared memory (32 warps an SM), lanes refilled from per-octant counters
+// (their atomics queue on 9 addresses), warp-private batches of rays, two
+// rays a thread stepped in turn (48 registers), box words read by two
+// 8-byte loads; writing each id once instead of the row twice measured
+// no faster.  So this is the first port's kernel.
 
 #include <cstdint>
 

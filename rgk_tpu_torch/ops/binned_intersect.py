@@ -169,7 +169,8 @@ def sweep_pairs(cl, cid, ray_of, ro, rd, t_min, t_max, exclude):
     min id) in chunk cid[p] for ray ray_of[p] inside that ray's (t_min,
     t_max), not its `exclude`; 3.4e38 / -1 without one, and for a pair
     whose key is no chunk id (SENT) or whose ray is out of range.  cid,
-    ray_of i32 [P]; the rays as for `walk`, plus exclude i32 [R]."""
+    ray_of i32 [P]; the rays as for `walk`, plus exclude i32 [R].  The
+    pairs need not be sorted, but the kernel is fast when they are."""
     ci._check(cl, ro, rd, t_min, t_max, exclude)
     for name, x in (("cid", cid), ("ray_of", ray_of)):
         if x.device != ro.device or x.dtype != torch.int32 or x.dim() != 1 \

@@ -18,8 +18,10 @@ validity equal on >= 99.99% of rays.  Whole images: the bounds of
 bench.py parity_gate (rgk_tpu_torch/parity.py).  The binned kernels
 K3/K4: lists, counts and skipmin equal the plain walk's on >= 99.99% of
 lanes, K4 as K2; the binned front end's ids equal K2's on >= 99.99% of
-rays (they share the slab and row tests).  The probes: equal to their
-plain versions (the sweeps' t within rtol 3e-4).
+rays (they share the slab and row tests); on the far spheres, where the
+prefilter's slack must grow with the magnitudes, exactly equal on every
+ray whose list did not overflow.  The probes: equal to their plain
+versions (the sweeps' t within rtol 3e-4).
 """
 
 import importlib.util
@@ -455,3 +457,203 @@ def test_binned_colonnade_on_card_matches_cpu(cuda_device, tmp_path,
         assert fi.launches == before[2]
     stats = image_parity(images["gpu"], images["cpu"])
     assert stats["ok"], stats
+
+
+# ------------------------------------------- K4 and K3 redesign: edge cases
+
+
+def _soup_tree(dev, monkeypatch, cap, seed=3):
+    if cap is not None:
+        monkeypatch.setattr(tclusters, "CHUNK_CAP", cap)
+    verts, tris, pack = _soup(8000, seed=seed)
+    cl = tclusters.build_clusters(verts, tris, pack, device=dev)
+    return cl, torch.from_numpy(pack).to(dev)
+
+
+def _check_sweep(cl, cid, ray_of, rays):
+    """K4 against sweep_plain on the same pairs: ids equal on >= 99.99% of
+    the pairs with a chunk key and a ray in range, the others 3.4e38 /
+    -1; t within rtol 3e-4 where ids agree and hit.  -> kernel ids."""
+    n0 = bi.launches["sweep"]
+    tk, ik = bi.sweep_pairs(cl, cid, ray_of, *rays)
+    torch.cuda.synchronize()
+    assert bi.launches["sweep"] == n0 + 1
+    tp, ip = bi.sweep_plain(cl, cid, ray_of, *rays)
+    real = ((cid >= 0) & (cid < bi._n_chunks(cl)) & (ray_of >= 0)
+            & (ray_of < rays[0].shape[0]))
+    if bool(real.any()):
+        assert (ik == ip)[real].double().mean().item() >= 0.9999
+    assert bool((ik[~real] == -1).all() and (tk[~real] == bi.BIG).all())
+    both = (ik == ip) & (ip >= 0)
+    if bool(both.any()):
+        ok = (tk[both] - tp[both]).abs() <= 1e-6 + 3e-4 * tp[both].abs()
+        assert ok.double().mean().item() >= 0.9999
+    return ik
+
+
+@pytest.mark.parametrize("cap,halves", [(None, 1), (16, 8)])
+@pytest.mark.parametrize("case", ["long_run", "single_runs", "straddle",
+                                  "sentinel_tail"])
+def test_sweep_runs_and_windows(cuda_device, monkeypatch, cap, halves, case):
+    """K4's warps of 32 sorted pairs on both layouts: one chunk listed by
+    12,000 pairs (a run longer than any block's share of the work),
+    back-to-back single-pair runs, runs of 300, 511, 513, 1 and 37 pairs
+    that straddle the warps' 32-pair edges, and an all-SENT tail after
+    keys and rays out of range."""
+    cl, _ = _soup_tree(cuda_device, monkeypatch, cap)
+    assert cl.chunk_halves == halves
+    n_chunks = bi._n_chunks(cl)
+    n = 1 << 14
+    _, ro, rd, t_min, t_max, excl = _inputs(0, n, seed=17, dev=cuda_device)
+    rays = [ro, rd, t_min, t_max, excl]
+    rng = np.random.default_rng(n_chunks + len(case))
+    if case == "long_run":
+        # The chunk most rays' lists hold, for 12,000 pairs.
+        ids = bi.walk(cl, ro, rd, t_min, t_max, 8)[0]
+        listed = ids[ids >= 0].long()
+        c = int(torch.bincount(listed).argmax())
+        hold = torch.nonzero((ids == c).any(dim=1)).flatten()
+        ray_of = hold[torch.arange(12_000, device=cuda_device) % hold.numel()]
+        cid = torch.full((12_000,), c, dtype=torch.int32, device=cuda_device)
+        ray_of = ray_of.to(torch.int32)
+    elif case == "single_runs":
+        cid = torch.arange(2500, device=cuda_device) % n_chunks
+        ray_of = torch.from_numpy(rng.integers(0, n, 2500)).to(cuda_device)
+    elif case == "straddle":
+        lens = np.resize([300, 511, 513, 1, 37], n_chunks)
+        cid = torch.from_numpy(np.repeat(np.arange(n_chunks), lens))
+        ray_of = torch.from_numpy(rng.integers(0, n, cid.numel()))
+    else:
+        p = 5000
+        cid = torch.from_numpy(np.sort(rng.integers(0, n_chunks, p)))
+        cid[-700:] = bi.SENT
+        cid[100] = n_chunks
+        cid[101] = -5
+        ray_of = torch.from_numpy(rng.integers(0, n, p))
+        ray_of[200:203] = torch.tensor([-1, n, 10 ** 6])
+    cid = cid.to(device=cuda_device, dtype=torch.int32).contiguous()
+    ray_of = ray_of.to(device=cuda_device, dtype=torch.int32).contiguous()
+    ik = _check_sweep(cl, cid, ray_of, rays)
+    assert (ik >= 0).double().mean().item() > 0.01
+    assert torch.equal(_check_sweep(cl, cid, ray_of, rays), ik)
+
+
+@pytest.mark.parametrize("p", [0, 1, 31, 33, 4097])
+def test_sweep_pair_counts(cuda_device, monkeypatch, p):
+    """K4 at no pair, one pair, below and above one warp's 32 pairs, and
+    a ragged block of 128."""
+    cl, _ = _soup_tree(cuda_device, monkeypatch, None)
+    _, ro, rd, t_min, t_max, excl = _inputs(0, 4096, seed=p, dev=cuda_device)
+    rng = np.random.default_rng(p)
+    cid = torch.from_numpy(np.sort(rng.integers(0, bi._n_chunks(cl), p)))
+    ray_of = torch.from_numpy(rng.integers(0, 4096, p))
+    cid = cid.to(device=cuda_device, dtype=torch.int32)
+    ray_of = ray_of.to(device=cuda_device, dtype=torch.int32)
+    if p == 0:
+        t, tri = bi.sweep_pairs(cl, cid, ray_of, ro, rd, t_min, t_max, excl)
+        assert t.shape == (0,) and tri.shape == (0,)
+    else:
+        _check_sweep(cl, cid, ray_of, [ro, rd, t_min, t_max, excl])
+
+
+@pytest.mark.parametrize("cap,halves", [(None, 1), (16, 8)])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_walk_edges(cuda_device, monkeypatch, cap, halves, order):
+    """K3 on both layouts: lists (written once, -1 in the unused slots),
+    counts, skipmin and node counts equal walk_plain's, at K = 8 and at
+    K = 2 (overflow), on rays in the sort key's order and in no order, a
+    third with an empty interval, and on ray counts below one warp and
+    one block."""
+    cl, _ = _soup_tree(cuda_device, monkeypatch, cap)
+    assert cl.chunk_halves == halves
+    for n in (1, 33, 5000):
+        _, ro, rd, t_min, t_max, excl = _inputs(0, n, seed=n + 40,
+                                                dev=cuda_device)
+        t_max = torch.where(torch.arange(n, device=cuda_device) % 3 == 0,
+                            -1.0, t_max)
+        if order == "sorted":
+            _, ro, rd, t_min, t_max, excl = ci.sort_rays(cl, ro, rd, t_min,
+                                                         t_max, excl)
+        for K in (8, 2):
+            n0 = bi.launches["walk"]
+            k = bi.walk(cl, ro, rd, t_min, t_max, K, stats=True)
+            torch.cuda.synchronize()
+            assert bi.launches["walk"] == n0 + 1
+            p = bi.walk_plain(cl, ro, rd, t_min, t_max, K, stats=True)
+            same = ((k[0] == p[0]).all(dim=1) & (k[1] == p[1])
+                    & (k[2].view(torch.int32) == p[2].view(torch.int32))
+                    & (k[3] == p[3]))
+            assert bool(same.all())
+
+
+def _far_sphere_tree(dev, center, radius, cam_dist, n_rays, seed):
+    """A closed sphere of ~16,000 small triangles as a cluster tree, and
+    rays aimed from far away at points near triangle edges and corners
+    (`_far_sphere`'s construction): many hits lie within rounding of an
+    edge, where K4's prefilter slack must cover both forms' rounding."""
+    mb = _module("_make_bigscene", os.path.join(TOOLS, "make_bigscene.py"))
+    verts, _, faces = mb.make_sphere(16_400, *center, radius)
+    verts = np.asarray(verts, np.float32)
+    faces = np.asarray(faces, np.int32)
+    pack = np.zeros((faces.shape[0], 13), np.float32)
+    pack[:, :12] = build_tri_pack(verts, faces)
+    cl = tclusters.build_clusters(verts, faces, pack, device=dev)
+    rng = np.random.default_rng(seed)
+    corners = verts[faces[rng.integers(0, faces.shape[0], n_rays)]]
+    target = (corners * rng.dirichlet([0.3] * 3, n_rays)[:, :, None]).sum(1)
+    away = rng.normal(size=(n_rays, 3))
+    away /= np.linalg.norm(away, axis=1, keepdims=True)
+    ro = (np.asarray(center) + cam_dist * away).astype(np.float32)
+    rd = target - ro
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    return cl, torch.from_numpy(pack).to(dev), [
+        torch.from_numpy(x).to(dev) for x in (
+            ro, rd, np.zeros(n_rays, np.float32),
+            np.full(n_rays, 1e4, np.float32), np.full(n_rays, -1, np.int32))]
+
+
+@pytest.mark.parametrize("scene", ["far", "tiny"])
+def test_sweep_keeps_k2_winner(cuda_device, scene):
+    """K4's accept decisions and in-kernel t are K2's (its prefilter only
+    lets rows through to cluster_common.cuh's exact stages), where the
+    prefilter's slack must grow with the magnitudes: a sphere of radius 1
+    at coordinates in the hundreds seen from 200 units, and one of radius
+    0.05 seen from 150.  On a ray whose list holds every leaf it passes
+    (no overflow), the listed chunks include the one where K2 found its
+    winner, so the best of the ray's K4 results is K2's winner or one K2
+    pruned within rounding, never later in (t, id) order; the two differ
+    on few rays.  Closest hit and an exclude pass."""
+    if scene == "far":
+        cl, pack, rays = _far_sphere_tree(cuda_device, (300.0, -200.0, 500.0),
+                                          1.0, 200.0, 1 << 16, 12)
+    else:
+        cl, pack, rays = _far_sphere_tree(cuda_device, (0.0, 0.0, 0.0), 0.05,
+                                          150.0, 1 << 16, 13)
+    _, *srt = ci.sort_rays(cl, *rays)
+    K = bi.DEFAULT_K
+    ids, cnt, _ = bi.walk(cl, *srt[:4], K)
+    fits = cnt <= K
+    assert fits.double().mean().item() > 0.3
+    cid, pos = bi.make_pairs(ids)
+    ray_of = torch.div(pos, K, rounding_mode="floor").to(torch.int32)
+    for excl in (srt[4], None):
+        if excl is None:  # the exclude pass over K2's winners
+            excl = ci.traverse(cl, *srt)[1].contiguous()
+        a = [*srt[:4], excl]
+        kt, ki = ci.traverse(cl, *a)
+        assert (ki >= 0).double().mean().item() > 0.9
+        bt, bid = bi.reduce_pairs(*bi.sweep_pairs(cl, cid, ray_of, *a), pos,
+                                  K)
+        later = (bt > kt) | ((bt == kt) & (bid > ki))
+        assert int(later[fits].sum()) == 0, (
+            f"K4 lost K2's winner on {int(later[fits].sum())} rays")
+        differ = (bid != ki) & fits
+        assert int(differ.sum()) <= 1e-3 * differ.numel()
+    # The whole binned front end against K2's (ROADMAP.md section 3).
+    args = [cl, pack, *rays]
+    n_diff = int((bi.intersect_clusters_binned(*args)[1]
+                  != ci.intersect_clusters(*args)[1]).sum())
+    print(f"{scene}: K4's best differs from K2's winner on "
+          f"{int(differ.sum())} of {int(fits.sum())} rays without overflow "
+          f"(exclude pass), never later; the binned front end's id "
+          f"differs from K2's on {n_diff} of {fits.numel()} rays")
