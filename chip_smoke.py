@@ -14,7 +14,7 @@ their scene once more under torch.profiler, and phase 10 the colonnade
 once more with RGK_BINNED=all, and print the round's device time per
 kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
 busy share.  It drives
-rgk_tpu_torch, never JAX, through twelve phases and exits non-zero at
+rgk_tpu_torch, never JAX, through fifteen phases and exits non-zero at
 the first that fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -43,7 +43,12 @@ the first that fails:
    K2 stream time of the round are reported, and the first closest-hit
    and any-hit queries are replayed, with counters;
 8. the colonnade card image against the port's CPU image (33,960
-   triangles, 64x36, 4 spp, depth 2);
+   triangles, 64x36, 4 spp, depth 2), and a third image rendered on the
+   card with K2 replaced by its plain version `cluster_plain`, which
+   tells the card's kernel from the card's shading arithmetic where the
+   card and CPU images part, and the two renders' ray queries compared
+   one by one (the first query whose rays differ; lanes with the same
+   rays and another id);
 9. the binned kernels, walk-emit (K3) and chunk sweep (K4), against
    their plain versions on phase 4's soup and layouts, with K = 8 and
    K = 2 (which overflows and runs pass 2): closest hit in the window,
@@ -63,7 +68,26 @@ the first that fails:
 12. the probes P1 (shared memory per block, the u16 unpack, the cp.async
    row copy) and P2 (block votes, sweeps, tile fetches) through their
    tools' functions, against their plain versions, with the card's
-   numbers.
+   numbers;
+13. thin glass with the tint-thinglass extension: the bdpt_scene box at
+   512x512, 16 spp, reverse 0, with a tinted pane between the emitter
+   and the floor, through the CLI on the card, once flat (K1 launches
+   only) and once with a 5,000-triangle sphere OBJ, a BVH scene (K2
+   only); each against the port's CPU image at 64x64, 4 spp, depth 3;
+14. BDPT at full width through K1: bench.py's BDPT regime (the box,
+   512x512, 16 spp, reverse 4, depth 4, no roulette, one round) through
+   the CLI: K1 launches, round wall time, rays/s (light plus eye
+   extensions), host-loop iterations, and from one more round under
+   torch.profiler the launches per iteration, device ms, K1 ms and busy
+   share; the block's first splat visibility query (65,536 pixels x 16
+   samples x 4 light vertices = 4,194,304 rays) replayed through K1 and
+   flat_plain, with K1's bound; the block's splats
+   scattered twice on the card (the scatter contract: rtol 1e-5); the
+   card image against the CPU image at 64x64, 4 spp, depth 3, reverse 2;
+15. BDPT through K2: the box plus the 5,000-triangle sphere at 256x256,
+   4 spp, reverse 4: K2 launches, the first splat visibility query
+   (1,048,576 rays) replayed through K2 and cluster_plain, and the card
+   image against the CPU image at 64x64, 4 spp, depth 3.
 
 The colonnade is composed from tools/make_bigscene's functions with its
 budget split; its stone texture is written as the linear EXR that the
@@ -92,8 +116,11 @@ the mean over the maximum of the nodes and of the chunks they visit,
 averaged over warps.
 
 Prints one line per phase with its wall seconds, then a JSON line of
-the kernels (launch counts from the renders, for K3/K4 the sum of the
-two binned renders, for the probes their tool runs; ms, plain_ms,
+the kernels (launch counts from the renders, each render's counts set
+to 0 just before it and read just after: K1 the sum of phases 5, 13
+and 14, K2 of phases 7, 13 and 15, K3/K4 of the two binned renders, the
+BDPT splat-query rows those of phases 14 and 15, the probes their tool
+runs; ms, plain_ms,
 bound_ms, bound_by, share, library_ms null, parent_ms for K1-K4 with
 --parent), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
@@ -125,6 +152,7 @@ from bdpt_scene import scene_dict  # noqa: E402
 
 from rgk_tpu_torch import kernels  # noqa: E402
 from rgk_tpu_torch.driver import cli  # noqa: E402
+from rgk_tpu_torch.integrator import path as tpath  # noqa: E402
 from rgk_tpu_torch.io import gamma_decode, read_exr, write_exr  # noqa: E402
 from rgk_tpu_torch.ops import binned_intersect as bi  # noqa: E402
 from rgk_tpu_torch.ops import cluster_intersect as ci  # noqa: E402
@@ -175,6 +203,11 @@ FLAT_RES, FLAT_MS = 512, 16
 # own resolution, and its multisample of 40 cut for the time limit.
 COLONNADE_BUDGET, COLONNADE_TRIS = 1_000_000, 995_628
 COLONNADE_RES, COLONNADE_MS = (960, 540), 8
+# bench.py's BDPT regime: tools/bdpt_scene at 512x512, 16 spp, reverse 4
+# (depth 4, no roulette); the CLI's blocks of 2^20 // 16 pixels.
+BDPT_RES, BDPT_MS, BDPT_REVERSE = 512, 16, 4
+BVH_SPHERE = 5000     # triangles of the sphere that makes a BVH scene
+K2_BDPT_RES, K2_BDPT_MS = 256, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -484,7 +517,7 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(f"[1/12 device] {torch.cuda.get_device_name(0)} | torch "
+    print(f"[1/15 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | "
           f"devices {torch.cuda.device_count()}")
 
@@ -504,7 +537,7 @@ def phase_build(parent_csrc=None):
         else:
             info, lib = kernels.build(), kernels.load()
         secs = time.perf_counter() - t0
-        print(f"[2/12 build] {who}{os.path.relpath(info['path'], ROOT)} "
+        print(f"[2/15 build] {who}{os.path.relpath(info['path'], ROOT)} "
               f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -568,7 +601,7 @@ def phase_k1(dev):
         times.append(f"{'any' if m else 'closest'} "
                      f"{fmt_ab(parent, new, k1_bound(window, m)[0])}, "
                      f"plain {plain:.3f}")
-    print(f"[3/12 K1 {n_tris} tris x {n_rays} rays] closest agree "
+    print(f"[3/15 K1 {n_tris} tris x {n_rays} rays] closest agree "
           f"{agree1:.6f} (excl pass {agree2:.6f}) max|err| "
           f"{max(err1, err2):.3g}; any-hit agree {agree3:.6f}; median ms "
           + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs); "
@@ -622,7 +655,7 @@ def phase_k2(dev):
             times.append(f"{'any' if m else 'closest'} "
                          f"{fmt_ab(parent, new, b)}, plain {plain:.3f}")
         tpc = max(1, halves // 2)
-        print(f"[4/12 K2 {n_tris} tris x {n_rays} rays, {layout}: "
+        print(f"[4/15 K2 {n_tris} tris x {n_rays} rays, {layout}: "
               f"chunk_halves {halves}, tpc {tpc}, "
               f"{cl.boxes_q.shape[0] // 3} nodes, host build {build_s:.3f} s]"
               f" closest agree {s1['agree']:.6f} (excl pass "
@@ -716,21 +749,22 @@ def render(cfg_path, out_dir, *extra):
 
 
 class FirstCalls:
-    """Wraps `module.name`: keeps a copy of the arguments of the first
-    closest-hit and any-hit call (a call without `any_hit` counts as
-    closest), to replay them at the render's shapes, the host time of the
-    first call and, with `timed`, CUDA events around every call.  With
-    `within`, another FirstCalls, each call's events are tagged with
-    whether it ran inside a call of that one."""
+    """Wraps `module.name`: counts its calls (`n`), keeps a copy of the
+    arguments of the first closest-hit and any-hit call (a call without
+    `any_hit` counts as closest), to replay them at the render's shapes,
+    the host time of the first call and, with `timed`, CUDA events around
+    every call.  With `within`, another FirstCalls, each call's events
+    are tagged with whether it ran inside a call of that one."""
 
     def __init__(self, module, name, timed=False, within=None):
         self.module, self.name, self.timed = module, name, timed
         self.within, self.active = within, False
-        self.args, self.events, self.first_t = {}, [], None
+        self.args, self.events, self.first_t, self.n = {}, [], None, 0
         self._orig = getattr(module, name)
 
     def __call__(self, *args, **kw):
         any_hit = kw.get("any_hit", False)
+        self.n += 1
         if self.first_t is None:
             self.first_t = time.perf_counter()
         if any_hit not in self.args:
@@ -768,21 +802,44 @@ class FirstCalls:
         setattr(self.module, self.name, self._orig)
 
 
-def profiled_round(cfg_path, out_dir, module, name, kernels_, binned=None):
-    """With --profile: one more CLI render of `cfg_path` (with
-    RGK_BINNED=`binned` when given) under torch.profiler (card activity
-    only), the round timed from the first call of `module.name` to the
-    EXR on the host clock.  Prints the device ms of every kernel event,
-    of those whose name holds each of `kernels_` (K1 and K2 per variant),
-    and the busy share, kernel ms over the round (the tracing slows the
-    host, so the share reads low)."""
-    if not PROFILE:
-        return
+class EyeSteps:
+    """Counts the queued host loop's iterations inside the block: calls
+    of the integrator's extension step on the eye path."""
+
+    def __init__(self):
+        self.n, self._orig = 0, None
+
+    def __enter__(self):
+        self._orig = tpath._extend_path
+
+        def step(*a, **kw):
+            self.n += a[-1] == tpath.TAG_EYE
+            return self._orig(*a, **kw)
+
+        tpath._extend_path = step
+        return self
+
+    def __exit__(self, *exc):
+        tpath._extend_path = self._orig
+
+
+def profiled_round(cfg_path, out_dir, module, name, kernels_, binned=None,
+                   force=False):
+    """With --profile (or `force`): one more CLI render of `cfg_path`
+    (with RGK_BINNED=`binned` when given) under torch.profiler (card
+    activity only), the round timed from the first call of `module.name`
+    to the EXR on the host clock.  Prints the device ms of every kernel
+    event, of those whose name holds each of `kernels_` (K1 and K2 per
+    variant), the busy share, kernel ms over the round (the tracing
+    slows the host, so the share reads low), and the kernels launched per
+    host-loop iteration.  -> a dict of those numbers, or None."""
+    if not (PROFILE or force):
+        return None
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with binned_mode(binned) if binned else contextlib.nullcontext(), \
-            FirstCalls(module, name) as first, profile(
+            FirstCalls(module, name) as first, EyeSteps() as steps, profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
         render(cfg_path, out_dir)
         torch.cuda.synchronize()
@@ -807,12 +864,17 @@ def profiled_round(cfg_path, out_dir, module, name, kernels_, binned=None):
     if not kern:
         print("    profiled round: the profiler recorded no kernel; busy "
               "share not measured")
-        return
+        return None
+    per_iter = len(kern) / max(steps.n, 1)
     print(f"    profiled round{f' (RGK_BINNED={binned})' if binned else ''}"
           f" (torch.profiler): round {round_ms:.3f} ms, "
-          f"{len(kern)} kernels {total:.3f} ms, busy {total / round_ms:.4f}; "
+          f"{len(kern)} kernels {total:.3f} ms, busy {total / round_ms:.4f}, "
+          f"{steps.n} iterations, {per_iter:.1f} kernels an iteration; "
           + ", ".join(f"{k} {n} launches {ms:.3f} ms"
                       for k, (n, ms) in sorted(mine.items())))
+    return {"round_ms": round_ms, "kernels": len(kern), "kernel_ms": total,
+            "busy": total / round_ms, "iterations": steps.n,
+            "per_iteration": per_iter, "by_kernel": mine}
 
 
 def phase_render(d):
@@ -834,7 +896,7 @@ def phase_render(d):
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
     n_tris = first.args[False][0].shape[0]
     check(n_tris == 3870, f"scene has {n_tris} triangles, not 3870")
-    print(f"[5/12 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
+    print(f"[5/15 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
           f"{wall:.3f} s, "
           f"{rays} extension rays, {rays / wall:.1f} rays/s, K1 launches "
           f"{launches}, image mean {float(img.mean()):.5f}")
@@ -869,7 +931,7 @@ def phase_cpu_parity(d):
     cpu, _ = render(path, os.path.join(d, "cpu64"), "--cpu")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"card vs CPU image parity failed: {stats}")
-    print(f"[6/12 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
+    print(f"[6/15 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
           f" trimmed {stats['corr_trim']:.6f} mean rel diff "
           f"{stats['mean_rel_diff']:.3g} max|diff| {stats['max_abs_diff']:.3g}"
           f" outlier pixels {stats['outlier_pixels']}, max per tile "
@@ -924,7 +986,7 @@ def phase_colonnade(d):
     host = builder.timings
     round_s = t1 - first.first_t
     k2_ms = first.stream_ms()
-    print(f"[7/12 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
+    print(f"[7/15 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
           f"{n_tris} tris]"
           f" CLI wall {t1 - t0:.3f} s, of which host build "
           f"{sum(host.values()):.3f} s ({builder.sah_builder} SAH builder: "
@@ -970,27 +1032,167 @@ def phase_colonnade(d):
     return entries, path, img
 
 
+@contextlib.contextmanager
+def plain_k2():
+    """Inside the block, `cluster_intersect.traverse` runs the plain
+    version `cluster_plain` on the card instead of launching K2."""
+    saved = ci.traverse
+
+    def traverse(cl, ro, rd, t_min, t_max, exclude, any_hit=False,
+                 stats=False):
+        return ci.cluster_plain(cl, ro, rd, t_min, t_max, exclude,
+                                any_hit=any_hit, stats=stats)
+
+    ci.traverse = traverse
+    try:
+        yield
+    finally:
+        ci.traverse = saved
+
+
+class QueryLog:
+    """Records, inside the block, every ray query the integrator makes
+    (through `intersect.make_intersector`): its rays and the ids it
+    returned, on the host, in call order."""
+
+    def __init__(self):
+        self.queries, self._orig = [], None
+
+    def __enter__(self):
+        self._orig = isect.make_intersector
+
+        def make(meta):
+            fn = self._orig(meta)
+
+            def logged(scene, ro, rd, t_min, t_max, exclude=None,
+                       any_hit=False):
+                hit = fn(scene, ro, rd, t_min, t_max, exclude=exclude,
+                         any_hit=any_hit)
+                self.queries.append((any_hit, ro.cpu(), rd.cpu(),
+                                     hit.tri.cpu()))
+                return hit
+            return logged
+
+        isect.make_intersector = make
+        return self
+
+    def __exit__(self, *exc):
+        isect.make_intersector = self._orig
+
+
+def where_they_part(a, b):
+    """Two renders' query logs (card, CPU) compared query by query: the
+    first query whose rays differ anywhere, the largest difference of
+    its rays in float32 ulps of each value, and over the queries both
+    made, the lanes whose rays differ and the lanes whose rays are equal
+    but whose answers differ (those the intersection route decides: the
+    id of a closest hit, hit or miss of an any hit)."""
+    first, ulps, moved, flipped, n = None, 0, 0, 0, min(len(a), len(b))
+    for i, ((any_a, ro_a, rd_a, tri_a), (_, ro_b, rd_b, tri_b)) in \
+            enumerate(zip(a, b)):
+        if ro_a.shape != ro_b.shape:
+            n = i
+            break
+        same_in = ((ro_a == ro_b) & (rd_a == rd_b)).all(dim=1)
+        moved += int((~same_in).sum())
+        # Any hit: K2 answers with a witness id, intersect_bvh with the
+        # triangle it met; only hit or miss is the query's answer.
+        out_a, out_b = (tri_a >= 0, tri_b >= 0) if any_a else (tri_a, tri_b)
+        flipped += int((same_in & (out_a != out_b)).sum())
+        if first is None and not bool(same_in.all()):
+            d = torch.cat([ro_a - ro_b, rd_a - rd_b], dim=1).abs()
+            scale = torch.cat([ro_b, rd_b], dim=1).abs().clamp(min=1e-30)
+            ulps = float((d / (scale * 2.0 ** -23)).max())
+            first = (i, "any" if any_a else "closest", int((~same_in).sum()),
+                     ro_a.shape[0])
+    return {"queries": (len(a), len(b), n), "first": first, "ulps": ulps,
+            "moved": moved, "flipped": flipped}
+
+
+def camera_rays_apart(path, dev):
+    """Where the card's and the CPU's first queries part: for sample 0 of
+    every pixel of `path`'s image, the lanes whose pixel jitter (the
+    sampler) differs bit for bit between the card and the CPU, the lanes
+    whose camera rays differ when both start from the same jitter, and
+    the share of float32 values x for which x / yres on the card differs
+    from the CPU's (a tensor divided by a Python number).  -> a line."""
+    from rgk_tpu_torch.ops import sampler as smp
+    from rgk_tpu_torch.scene import config as tconfig
+    from rgk_tpu_torch.scene.camera import pixel_rays
+
+    cfg = tconfig.load_config(path)
+    cam = cfg.get_camera()
+    pix = torch.arange(cam.xres * cam.yres)
+    px, py = (pix % cam.xres).to(torch.int32), (pix // cam.xres).to(
+        torch.int32)
+    out = {}
+    for where in ("cpu", dev):
+        ctx = smp.SampleCtx(seed=42, pixel=pix.to(where),
+                            sample=torch.zeros_like(pix).to(where),
+                            n_set=int(cfg.settings.multisample))
+        out[str(where)] = smp.sample_2d(ctx, smp.DIM_PIXEL_JITTER).cpu()
+    jit = out["cpu"]
+    jitter_apart = int((out["cpu"] != out[str(dev)]).any(dim=1).sum())
+    rays = [torch.cat(pixel_rays(cam.to(w), px.to(w), py.to(w), jit.to(w)),
+                      dim=1).cpu() for w in ("cpu", dev)]
+    rays_apart = int((rays[0] != rays[1]).any(dim=1).sum())
+    x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(1)) * 64
+    div_apart = ((x.to(dev) / cam.yres).cpu() != x / cam.yres).double()
+    return (f"sample 0 of {pix.numel()} pixels: jitter differs on "
+            f"{jitter_apart} lanes, camera rays from the same jitter on "
+            f"{rays_apart}; x / {cam.yres} differs from the CPU's on "
+            f"{div_apart.mean().item():.4f} of 2^20 values")
+
+
+def fmt_parity(stats):
+    return (f"corr {stats['corr']:.6f} trimmed {stats['corr_trim']:.6f} "
+            f"mean rel diff {stats['mean_rel_diff']:.3g} max|diff| "
+            f"{stats['max_abs_diff']:.3g} outlier pixels "
+            f"{stats['outlier_pixels']}, max per tile "
+            f"{stats['max_outliers_per_tile']} (cap {stats['tile_cap']})")
+
+
 def phase_colonnade_parity(d):
-    """-> (config path, the port's CPU image), for phase 11."""
+    """-> (config path, the port's CPU image), for phase 11.  The third
+    image, on the card with K2's plain version, splits the card's
+    outliers against the CPU image into those of K2's arithmetic (card
+    against card-plain) and those of the shading ops on the card
+    (card-plain against the CPU)."""
     t_phase = time.perf_counter()
     path, n_tris = write_colonnade(
         os.path.join(d, "colonnade_small"), 20000,
         **{"output-width": 64, "output-height": 36, "multisample": 4})
     check(n_tris == 33960, f"small colonnade of {n_tris} triangles")
     reset_launches()
-    gpu, _ = render(path, os.path.join(d, "col_gpu"))
+    with QueryLog() as log_gpu:
+        gpu, _ = render(path, os.path.join(d, "col_gpu"))
     check(ci.launches["closest"] > 0 and fi.launches["closest"] == 0,
           f"the small colonnade did not go through K2: {ci.launches}")
-    cpu, _ = render(path, os.path.join(d, "col_cpu"), "--cpu")
+    with QueryLog() as log_cpu:
+        cpu, _ = render(path, os.path.join(d, "col_cpu"), "--cpu")
+    part = where_they_part(log_gpu.queries, log_cpu.queries)
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"colonnade card vs CPU image parity failed: {stats}")
-    print(f"[8/12 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
-          f"corr {stats['corr']:.6f} trimmed {stats['corr_trim']:.6f} mean "
-          f"rel diff {stats['mean_rel_diff']:.3g} max|diff| "
-          f"{stats['max_abs_diff']:.3g} outlier pixels "
-          f"{stats['outlier_pixels']}, max per tile "
-          f"{stats['max_outliers_per_tile']} (cap {stats['tile_cap']}) "
+    reset_launches()
+    with plain_k2():
+        gpu_plain, _ = render(path, os.path.join(d, "col_gpu_plain"))
+    check(ci.launches == {"closest": 0, "any": 0},
+          f"the plain-K2 card render launched K2: {ci.launches}")
+    print(f"[8/15 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
+          f"{fmt_parity(stats)}; card with cluster_plain vs CPU: "
+          f"{fmt_parity(image_parity(gpu_plain, cpu))}; card K2 vs card "
+          f"cluster_plain: {fmt_parity(image_parity(gpu, gpu_plain))} "
           f"({time.perf_counter() - t_phase:.1f} s)")
+    q = part["queries"]
+    first = ("none" if part["first"] is None else
+             f"query {part['first'][0]} ({part['first'][1]} hit), rays of "
+             f"{part['first'][2]} of {part['first'][3]} lanes, by up to "
+             f"{part['ulps']:.3g} ulps")
+    print(f"    card vs CPU query by query ({q[0]} / {q[1]} queries, {q[2]} "
+          f"compared): first rays that differ: {first}; over the compared "
+          f"queries {part['moved']} lanes with other rays, {part['flipped']} "
+          f"lanes with the same rays and another answer; "
+          f"{camera_rays_apart(path, torch.device('cuda'))}")
     return path, cpu
 
 
@@ -1135,7 +1337,7 @@ def phase_binned_soup(dev, trees):
             k2, af = compare_front(args, False, K)
             _, ax = compare_front(args[:6] + [k2[1].contiguous()], False, K)
             _, aa = compare_front(args, True, K)
-            line = (f"[9/12 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
+            line = (f"[9/15 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
                     f"K={K}] K3 lists agree {a3:.6f} (lanes overflowing "
                     f"{over:.4f}); K4 ids agree {a4:.6f}, t within rtol "
                     f"{t4:.6f}, {c4:.6f} of the {s4:.6f} well-conditioned "
@@ -1250,7 +1452,7 @@ def phase_binned_colonnade(d, path, k2_img):
         check(stats["ok"], f"RGK_BINNED={mode} image against the K2 image: "
               f"{stats}")
         ms = st["ms"]
-        print(f"[10/12 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
+        print(f"[10/15 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
               f"{COLONNADE_MS}spp] CLI wall {st['wall']:.3f} s, round "
               f"(first query to EXR) {st['round']:.3f} s, {rays} extension "
               f"rays, {rays / st['round']:.1f} rays/s; launches K3 "
@@ -1331,7 +1533,7 @@ def phase_binned_small(d, path, cpu):
           f"K2 {ci.launches}")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"binned colonnade card vs CPU parity failed: {stats}")
-    print(f"[11/12 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
+    print(f"[11/15 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
           f"4spp depth 2] launches K3/K4 {dict(bi.launches)}, K2 "
           f"{dict(ci.launches)}; corr {stats['corr']:.6f} trimmed "
           f"{stats['corr_trim']:.6f} mean rel diff "
@@ -1347,7 +1549,7 @@ def phase_probes(dev):
     there), then one kernel of each timed against its plain version."""
     t_phase = time.perf_counter()
     reset_launches()
-    print("[12/12 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
+    print("[12/15 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
     check(p1.main([]) == 0, "P1 failed")
     print("    P2 (rgk_tpu_torch/tools/prof_sync.py):")
     check(p2.main([]) == 0, "P2 failed")
@@ -1398,6 +1600,230 @@ def phase_probes(dev):
     return entries
 
 
+# ------------------------------------------------ thin glass and BDPT
+
+
+def write_bdpt(d, name, res, ms, reverse, sphere=0, glass=False,
+               **overrides):
+    """tools/bdpt_scene's box as a config `name`.json in `d`: plus a
+    make_sphere OBJ of `sphere` triangles (5,000 make it a BVH scene),
+    and with `glass` a pane between the emitter and the floor whose
+    material name matches the "thinglass" phrase, tinted
+    (tint-thinglass)."""
+    cfg = scene_dict(res=res, ms=ms, reverse=reverse)
+    cfg.update(overrides)
+    if sphere:
+        verts, nrms, faces = mb.make_sphere(sphere, 0.0, 0.9, 0.6, 0.6)
+        mb._write_obj(os.path.join(d, f"sphere_{sphere}.obj"), verts, nrms,
+                      faces)
+        cfg["scene"].append({"file": f"sphere_{sphere}.obj",
+                             "material": "white"})
+    if glass:
+        cfg["materials"].append({"name": "pane_thinglass", "brdf": "diffuse",
+                                 "diffuse": [0.35, 0.55, 0.9]})
+        # Turned over (normal up): the shadow segments toward the
+        # emitter enter it, so they are tinted.
+        cfg["scene"].append({"primitive": "plane", "axis": "Y",
+                             "scale": [1.2, 1, 1.2], "rotate": [0, 0, 180],
+                             "translate": [0, 2.0, 0],
+                             "material": "pane_thinglass"})
+        cfg["thinglass"] = ["thinglass"]
+        cfg["tint-thinglass"] = True
+    path = os.path.join(d, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def card_vs_cpu(d, name, *write_args, **overrides):
+    """One scene rendered at 64x64, 4 spp, depth 3 on the card and on the
+    CPU; fails unless the images pass the parity bounds.  -> stats."""
+    path = write_bdpt(d, name, 64, 4, *write_args,
+                      **{"recursion-max": 3, **overrides})
+    gpu, _ = render(path, os.path.join(d, f"{name}_gpu"))
+    cpu, _ = render(path, os.path.join(d, f"{name}_cpu"), "--cpu")
+    stats = image_parity(gpu, cpu)
+    check(stats["ok"], f"{name}: card vs CPU image parity failed: {stats}")
+    return stats
+
+
+def check_image(img, shape):
+    check(img.shape == shape, f"image shape {img.shape}, not {shape}")
+    check(bool(np.isfinite(img).all()), "the image has non-finite pixels")
+    check(float(img.mean()) > 0.0, "the image is black")
+
+
+def phase_glass(d):
+    """-> {"K1": launches, "K2": launches} of the two glass renders."""
+    t_phase = time.perf_counter()
+    got = {}
+    for kernel, sphere in (("K1", 0), ("K2", BVH_SPHERE)):
+        path = write_bdpt(d, f"glass_{kernel}", FLAT_RES, FLAT_MS, 0, sphere,
+                          glass=True)
+        reset_launches()
+        with FirstCalls(tpath, "_tinted") as tinted:
+            t0 = time.perf_counter()
+            img, rays = render(path, os.path.join(d, f"glass_{kernel}_out"))
+            wall = time.perf_counter() - t0
+        k1, k2 = dict(fi.launches), dict(ci.launches)
+        check_image(img, (FLAT_RES, FLAT_RES, 3))
+        used, unused = (k1, k2) if kernel == "K1" else (k2, k1)
+        check(used["closest"] > 0 and used["any"] > 0
+              and unused == {"closest": 0, "any": 0},
+              f"glass render via {kernel}: K1 {k1}, K2 {k2}")
+        check(tinted.n > 0, "the tint-thinglass render tinted nothing")
+        got[kernel] = used
+        stats = card_vs_cpu(d, f"glass_{kernel}_64", 0, sphere, True)
+        print(f"[13/15 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
+              f" via {kernel}{f', + {sphere}-tri sphere' if sphere else ''}]"
+              f" wall {wall:.3f} s, {rays} extension rays, "
+              f"{rays / wall:.1f} rays/s, launches {kernel} {used} (the other "
+              f"kernel none), {tinted.n} tinted segment sets, image mean "
+              f"{float(img.mean()):.5f}; card vs CPU 64x64 4spp depth 3: "
+              f"{fmt_parity(stats)}")
+    print(f"    ({time.perf_counter() - t_phase:.1f} s)")
+    return got
+
+
+def splat_contract(splats):
+    """The block's splats scattered twice on the card: -> (bit-equal,
+    max relative difference); fails beyond rtol 1e-5 / atol 1e-6."""
+    pix, val, hw = splats
+    a = tpath._splat_image(pix, val, hw)
+    b = tpath._splat_image(pix, val, hw)
+    torch.cuda.synchronize()
+    diff = (a - b).abs()
+    check(bool((diff <= 1e-6 + 1e-5 * a.abs()).all()),
+          f"two scatters of one splat set differ by {float(diff.max())}")
+    rel = float((diff / a.abs().clamp(min=1e-30)).max())
+    return bool(torch.equal(a, b)), rel
+
+
+def phase_bdpt_k1(d):
+    """-> kernel entries of the splat query and the render's launches."""
+    t_phase = time.perf_counter()
+    path = write_bdpt(d, "bdpt", BDPT_RES, BDPT_MS, BDPT_REVERSE)
+    reset_launches()
+    with FirstCalls(isect, "intersect_flat") as first, EyeSteps() as steps, \
+            FirstCalls(tpath, "_splat_image") as scat:
+        t0 = time.perf_counter()
+        img, rays = render(path, os.path.join(d, "bdpt_out"))
+        t1 = time.perf_counter()
+    launches, k2 = dict(fi.launches), dict(ci.launches)
+    check_image(img, (BDPT_RES, BDPT_RES, 3))
+    check(launches["closest"] > 0 and launches["any"] > 0,
+          f"the BDPT render did not go through K1: {launches}")
+    check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
+    block = min((1 << 20) // BDPT_MS, BDPT_RES * BDPT_RES)  # the CLI's
+    n_blocks = -(-BDPT_RES * BDPT_RES // block)
+    check(scat.n == n_blocks, f"{scat.n} splat scatters for {n_blocks} blocks")
+    round_s = t1 - first.first_t
+    print(f"[14/15 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
+          f"{BDPT_REVERSE} depth 4 via K1] CLI wall {t1 - t0:.3f} s, round "
+          f"(first query to EXR) {round_s:.3f} s, {rays} extension rays "
+          f"(light + eye), {rays / round_s:.1f} rays/s; {n_blocks} blocks of "
+          f"{block} pixels, {steps.n} host-loop iterations; K1 launches "
+          f"{launches}; image mean {float(img.mean()):.5f}")
+    prof = profiled_round(path, os.path.join(d, "bdpt_prof"), isect,
+                          "intersect_flat", ("flat_sweep",), force=True)
+
+    args = first.args[True]
+    r = args[1].shape[0]
+    check(r == block * BDPT_MS * BDPT_REVERSE,
+          f"the first any-hit query has {r} rays, not the splat query's "
+          f"{block * BDPT_MS * BDPT_REVERSE}")
+    k = fi.intersect_flat(*args, any_hit=True)
+    torch.cuda.synchronize()
+    p = fi.flat_plain(*args, any_hit=True)
+    same = k[1] == p[1]
+    agree = same.double().mean().item()
+    check(agree >= MIN_AGREE, f"splat query: K1 any-hit ids agree with "
+          f"flat_plain on {agree:.6f} of the rays")
+    parent, kms = ab_ms(lambda: fi.intersect_flat(*args, any_hit=True))
+    pms = median_ms(lambda: fi.flat_plain(*args, any_hit=True),
+                    runs=PLAIN_RUNS, warmup=False)
+    bms, by = k1_bound(args, True)
+    live = int((args[4] > args[3]).sum())
+    bitwise, rel = splat_contract(scat.args[False])
+    print(f"    first splat visibility query ({r} rays, {live} live, x "
+          f"{args[0].shape[0]} tris, one launch): K1 any-hit ids equal "
+          f"flat_plain's on {agree:.6f} of the rays, hit rate "
+          f"{(k[1] >= 0).double().mean().item():.4f}; median ms "
+          f"{fmt_ab(parent, kms, bms)} by {by}, plain {pms:.3f} (over "
+          f"{PLAIN_RUNS} runs); {clocks()}")
+    print(f"    the block's splats ({scat.args[False][0].shape[0]} slots) "
+          f"scattered twice on the card: bit-equal {bitwise}, max relative "
+          f"difference {rel:.3g} (contract: rtol 1e-5)")
+    stats = card_vs_cpu(d, "bdpt_64", 2)
+    print(f"    card vs CPU 64x64 4spp depth 3 reverse 2: {fmt_parity(stats)}")
+    if prof is not None:
+        print(f"    BDPT round profile: {prof['iterations']} iterations, "
+              f"{prof['per_iteration']:.1f} kernels an iteration, "
+              f"{prof['kernel_ms']:.3f} ms of device time in "
+              f"{prof['round_ms']:.3f} ms (busy {prof['busy']:.4f})")
+    print(f"    ({time.perf_counter() - t_phase:.1f} s)")
+    entry = kernel_entry("flat_intersect_any_bdpt_splat", K1_SOURCE,
+                         K1_REPLACES, launches["any"], 0.0 if bool(same.all())
+                         else 1.0, kms, pms, bms, by, parent)
+    return [entry], launches
+
+
+def phase_bdpt_k2(d):
+    """-> kernel entries of the splat query and the render's launches."""
+    t_phase = time.perf_counter()
+    path = write_bdpt(d, "bdpt_k2", K2_BDPT_RES, K2_BDPT_MS, BDPT_REVERSE,
+                      BVH_SPHERE)
+    reset_launches()
+    with FirstCalls(ci, "traverse") as first, EyeSteps() as steps:
+        t0 = time.perf_counter()
+        img, rays = render(path, os.path.join(d, "bdpt_k2_out"))
+        t1 = time.perf_counter()
+    launches, k1 = dict(ci.launches), dict(fi.launches)
+    check_image(img, (K2_BDPT_RES, K2_BDPT_RES, 3))
+    check(launches["closest"] > 0 and launches["any"] > 0,
+          f"the BDPT render did not go through K2: {launches}")
+    check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
+    round_s = t1 - first.first_t
+    print(f"[15/15 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
+          f"{BDPT_REVERSE} via K2, box + {BVH_SPHERE}-tri sphere] CLI wall "
+          f"{t1 - t0:.3f} s, round {round_s:.3f} s, {rays} extension rays, "
+          f"{rays / round_s:.1f} rays/s, {steps.n} host-loop iterations; K2 "
+          f"launches {launches}; image mean {float(img.mean()):.5f}")
+    args = first.args[True]
+    cl, r = args[0], args[1].shape[0]
+    check(r == K2_BDPT_RES * K2_BDPT_RES * K2_BDPT_MS * BDPT_REVERSE,
+          f"the first any-hit query has {r} rays")
+    k = ci.traverse(*args, any_hit=True, stats=True)
+    torch.cuda.synchronize()
+    p = ci.cluster_plain(*args, any_hit=True)
+    empty = ~(args[4] > args[3])
+    check(not bool((k[1][empty] >= 0).any()),
+          "K2 splat query: a lane with an empty interval hit")
+    same = (k[1] >= 0) == (p[1] >= 0)
+    agree = same.double().mean().item()
+    check(agree >= MIN_AGREE, f"splat query: K2 any-hit validity agrees "
+          f"with cluster_plain on {agree:.6f} of the rays")
+    parent, kms = ab_ms(lambda: ci.traverse(*args, any_hit=True))
+    pms = median_ms(lambda: ci.cluster_plain(*args, any_hit=True),
+                    runs=PLAIN_RUNS, warmup=False)
+    bms, by = k2_bound(cl, r, k[2], k[3])
+    print(f"    first splat visibility query ({r} rays, "
+          f"{int((~empty).sum())} live): K2 any-hit validity equals "
+          f"cluster_plain's on {agree:.6f} of the rays, hit rate "
+          f"{(k[1] >= 0).double().mean().item():.4f}, nodes per ray "
+          f"{k[2].double().mean().item():.1f}, leaves "
+          f"{k[3].double().mean().item():.2f}; median ms "
+          f"{fmt_ab(parent, kms, bms)} by {by}, plain {pms:.3f} (over "
+          f"{PLAIN_RUNS} runs); {clocks()}")
+    stats = card_vs_cpu(d, "bdpt_k2_64", BDPT_REVERSE, BVH_SPHERE)
+    print(f"    card vs CPU 64x64 4spp depth 3 reverse {BDPT_REVERSE}: "
+          f"{fmt_parity(stats)} ({time.perf_counter() - t_phase:.1f} s)")
+    entry = kernel_entry("cluster_intersect_any_bdpt_splat", K2_SOURCE,
+                         K2_REPLACES, launches["any"], 0.0 if bool(same.all())
+                         else 1.0, kms, pms, bms, by, parent)
+    return [entry], launches
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="CSRC", help="an earlier version's "
@@ -1406,7 +1832,7 @@ def parse_args(argv=None):
     ap.add_argument("--profile", action="store_true", help="phases 5, 7 and "
                     "10 (RGK_BINNED=all) render once more under "
                     "torch.profiler and print the round's kernel time and "
-                    "the device's busy share")
+                    "the device's busy share (phase 14 always does)")
     return ap.parse_args(argv)
 
 
@@ -1429,7 +1855,21 @@ def main(argv=None):
         phase_binned_soup(dev, trees)
         entries += phase_binned_colonnade(d, col_path, col_img)
         phase_binned_small(d, *small)
-    entries += phase_probes(dev)
+        entries += phase_probes(dev)
+        glass = phase_glass(d)
+        bdpt1, k1_bdpt = phase_bdpt_k1(d)
+        bdpt2, k2_bdpt = phase_bdpt_k2(d)
+    # The K1 and K2 rows count every render of their kernel's paths.
+    for e in entries:
+        for kernel, mode in (("flat_intersect", "closest"),
+                             ("flat_intersect", "any"),
+                             ("cluster_intersect", "closest"),
+                             ("cluster_intersect", "any")):
+            if e["name"] == f"{kernel}_{mode}":
+                more = ((glass["K1"], k1_bdpt) if kernel == "flat_intersect"
+                        else (glass["K2"], k2_bdpt))
+                e["launches"] += sum(m[mode] for m in more)
+    entries += bdpt1 + bdpt2
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -2,26 +2,30 @@
 
 A second package beside `rgk_tpu/`, which stays the reference: module
 names mirror it one for one, plain tensor code is PyTorch, and every
-Pallas kernel on the ported path is a hand-written CUDA kernel for
-Hopper (`csrc/`, built at first use by `kernels/`).  Nothing here
-imports JAX; the numpy-only modules of `rgk_tpu` (EXR/OBJ/texture I/O,
-re-exported by `io.py`, JSON helpers, primitives, transforms, utils, the
-progress monitor) are imported from there as they are, since
-`rgk_tpu/__init__.py` imports nothing.
+Pallas kernel of the reference is a hand-written CUDA kernel for Hopper
+(`csrc/`, built at first use by `kernels/`).  The port stands alone: it
+imports neither JAX nor anything of `rgk_tpu`, and keeps its own copies
+of the reference's numpy-only modules (the `io/` package for EXR, OBJ
+and textures, JSON helpers, primitives, transforms, `utils/`, the
+progress monitor), of the LTC tables and of the native BVH and OBJ
+builders (`native/`, compiled with `c++` at first use).
 
-What renders today: unidirectional renders (`reverse == 0`) of JSON
-scenes of any size.  Up to 4096 triangles every ray-triangle query goes
-through the flat-sweep kernel K1 (`ops/flat_intersect.py`); above that
-the commit builds a BVH and a cluster tree (`scene/bvh.py`,
-`scene/clusters.py`) and every query goes through the cluster kernel K2
-(`ops/cluster_intersect.py`), or, as `RGK_BINNED=any|all` asks, through
-the binned pipeline of the walk-emit kernel K3 and the chunk-sweep
-kernel K4 (`ops/binned_intersect.py`).  On the CPU the kernels' plain
-versions run, and BVH scenes walk `ops/intersect.intersect_bvh`, the
-reference's own non-TPU route.
+What renders: JSON scenes of any size, unidirectional (`reverse == 0`,
+`integrator/path.trace_wavefront_queued`) and bidirectional (`reverse >
+0`, `trace_wavefront_queued_bdpt`), with thin glass and the
+`tint-thinglass` extension (`ops/thinglass.py`); the per-sample path
+(`render_lanes`, `render_image_round`) too.  Up to 4096 triangles every
+ray-triangle query goes through the flat-sweep kernel K1
+(`ops/flat_intersect.py`); above that the commit builds a BVH and a
+cluster tree (`scene/bvh.py`, `scene/clusters.py`) and every query goes
+through the cluster kernel K2 (`ops/cluster_intersect.py`), or, as
+`RGK_BINNED=any|all` asks, through the binned pipeline of the walk-emit
+kernel K3 and the chunk-sweep kernel K4 (`ops/binned_intersect.py`).
+On the CPU the kernels' plain versions run, and BVH scenes walk
+`ops/intersect.intersect_bvh`, the reference's own non-TPU route.
 
-Still raising NotImplementedError: `reverse > 0` (BDPT),
-`tint-thinglass` and line-based `.rtc` configs.
+Still raising NotImplementedError: line-based `.rtc` configs.  Not
+ported yet: gradients, the debug replay, multi-GPU.
 
 Public entry points:
     rgk_tpu_torch.scene.config.load_config / build_scene

@@ -2,12 +2,18 @@
 (port of rgk_tpu/driver/render.py, single process, single device).
 
 Each round renders every pixel x multisample once.  The frame is cut
-into pixel blocks of at most `chunk_lanes` lanes; each block's
-per-pixel radiance sums are added into an accumulator of [H*W+1, 3]
+into pixel blocks: unidirectional renders (`reverse == 0`) trace blocks
+of at most `chunk_lanes` pixels through `trace_wavefront_queued`;
+bidirectional ones blocks of `chunk_lanes // multisample` pixels through
+`trace_wavefront_queued_bdpt`, whose light-subpath phase runs on every
+(pixel, sample) of the block at once.  Each block's per-pixel radiance
+sums (and BDPT splat image) are added into an accumulator of [H*W+1, 3]
 that stays on the scene's device (row H*W swallows the padding lanes
-of the last block) and crosses to the host only when the EXR is
-written.  Seeds derive from (seed, round), so a checkpoint of (sum,
-count, next round, seed) resumes with fresh sample indices.
+of the last block and the missed splats) and crosses to the host only
+when the EXR is written.  The ray counter counts extension rays, the
+light subpaths' included.  Seeds derive from (seed, round), so a
+checkpoint of (sum, count, next round, seed) resumes with fresh sample
+indices.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..integrator.path import check_supported, trace_wavefront_queued
+from ..integrator.path import (trace_wavefront_queued,
+                               trace_wavefront_queued_bdpt)
 from ..io import AccumulationImage
 from ..utils import log as out
 from ..utils.format import LowPass, format_int_thousands, format_time
@@ -44,7 +51,6 @@ class RenderDriver:
 
     def __init__(self, settings, scene, meta, camera, seed: int = 42,
                  sampler_mode: int = 1, chunk_lanes: int = 1 << 20):
-        check_supported(settings, meta)
         self.settings = settings
         self.scene = scene
         self.meta = meta
@@ -60,7 +66,9 @@ class RenderDriver:
         # First round to render; load_checkpoint advances it.
         self.start_round = 0
         self.ms = max(1, int(settings.multisample))
-        self.block = max(1, min(int(chunk_lanes), hw))
+        self.bdpt = int(settings.reverse) > 0
+        block = int(chunk_lanes) // self.ms if self.bdpt else int(chunk_lanes)
+        self.block = max(1, min(block, hw))
         self.n_blocks = -(-hw // self.block)
         self._lanes_per_round = hw * self.ms
 
@@ -82,11 +90,17 @@ class RenderDriver:
     def render_round(self, round_idx: int, monitor=None) -> None:
         """Render every pixel x multisample once; accumulate on device."""
         for px, py, pix_idx in zip(self._px, self._py, self._pix_idx):
-            rad, rays = trace_wavefront_queued(
-                self.scene, self.meta, self.settings, self.camera, px, py,
-                round_idx * self.ms, self.ms, self.seed,
-                sampler_mode=self.sampler_mode)
-            self._acc_dev.index_add_(0, pix_idx, rad)
+            args = (self.scene, self.meta, self.settings, self.camera, px, py,
+                    round_idx * self.ms, self.ms, self.seed)
+            if self.bdpt:
+                rad, splat_img, rays = trace_wavefront_queued_bdpt(
+                    *args, sampler_mode=self.sampler_mode)
+                self._acc_dev.index_add_(0, pix_idx, rad)
+                self._acc_dev += splat_img
+            else:
+                rad, rays = trace_wavefront_queued(
+                    *args, sampler_mode=self.sampler_mode)
+                self._acc_dev.index_add_(0, pix_idx, rad)
             self._rays_dev += rays
             if monitor is not None:
                 monitor.add_blocks(1)

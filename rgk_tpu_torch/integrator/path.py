@@ -1,23 +1,37 @@
-"""Queued wavefront path tracing (port of the unidirectional tracer of
-rgk_tpu/integrator/path.py).
+"""Wavefront path tracing (port of rgk_tpu/integrator/path.py).
 
-One lane per pixel; each lane traces its samples back to back,
-starting the next sample's camera ray on the iteration after a path
-ends.  Each iteration of the loop does, for every lane: camera ray for
-lanes that (re)start, the path's light sample, one closest-hit query,
-shading and BxDF sampling, NEE with one any-hit shadow query, and the
-flush of finished samples.  The physics is the reference's: per-path
-single light sample, per-vertex radiance = NEE + emission clamped and
+Three tracers share one extension step (`_extend_path`) and one vertex
+shading (`_vertex_radiance`):
+* `trace_wavefront_queued`, the unidirectional renders' tracer: one
+  lane per pixel; each lane traces its samples back to back, starting
+  the next sample's camera ray on the iteration after a path ends.
+  Each iteration does, for every lane: camera ray for lanes that
+  (re)start, the path's light sample, one closest-hit query, shading
+  and BxDF sampling, NEE with one any-hit shadow query, and the flush
+  of finished samples;
+* `trace_wavefront_queued_bdpt`, the bidirectional renders' tracer
+  (`reverse > 0`): every light subpath of the block at once, their
+  camera splats scattered into one splat image, then the same queued
+  eye walk with `reverse` eye-to-light-vertex connections a vertex;
+* `trace_wavefront`, the per-sample path (`render_lanes`,
+  `render_image_round`): one lane per (pixel, sample), the eye path in
+  a bounce loop, light subpath and splats as above.
+The physics is the reference's: per-path single light sample,
+per-vertex radiance = NEE + emission (+ BDPT connections) clamped and
 weighted by the contribution before the vertex, russian roulette from
 vertex 2, throughput cutoff at 1e-3, light-leak guard, +-10*eps ray
 offsets and sky escape at -ray_dir.
 
-The loop runs on the host: its condition costs one device-to-host sync
-per iteration.  Every value is a pure function of (seed, pixel, sample),
-so a render is bitwise repeatable.
+The `tint-thinglass` extension filters the NEE shadow segment through
+the thin-glass panes it crosses in every tracer, and the sky escape in
+`trace_wavefront_queued` only.  The reference does not tint the sky
+escape of `trace_wavefront` or of the queued BDPT tracer, nor the BDPT
+connections; the port follows each function as it is.
 
-Not ported yet (raise NotImplementedError): bidirectional paths
-(`reverse > 0`) and the `tint-thinglass` extension.
+The loops run on the host: a queued loop's condition costs one
+device-to-host sync per iteration.  Every value is a pure function of
+(seed, pixel, sample), so a render is bitwise repeatable, except the
+splat sums of a BDPT render on the card (`_splat_image`).
 """
 
 from __future__ import annotations
@@ -32,21 +46,21 @@ from ..ops import lights as light_ops
 from ..ops import ltc as ltc_ops
 from ..ops import sampler as smp
 from ..ops import textures as tex_ops
+from ..ops import thinglass as tg
 from ..ops import vecmath as vm
-from ..scene.camera import pixel_rays
+from ..ops import warps
+from ..scene.camera import coords_from_direction, pixel_rays
 
 RAY_FAR = 10000.0  # the reference Ray's default far plane
+TAG_EYE, TAG_LIGHT = 1, 2  # folded into the per-bounce sample seed
 
 
-def check_supported(settings, meta) -> None:
-    """Raise for the settings this slice does not render."""
-    if int(settings.reverse) > 0:
-        raise NotImplementedError(
-            "bidirectional rendering (reverse > 0, rgk_tpu/integrator/"
-            "path.py trace_wavefront_queued_bdpt) is not ported yet")
-    if meta.has_thinglass and bool(settings.tint_thinglass):
-        raise NotImplementedError(
-            "tint-thinglass (rgk_tpu/ops/thinglass.py) is not ported yet")
+class TraceResult(NamedTuple):
+    radiance: torch.Tensor   # f32 [R,3] per-lane radiance estimate
+    rays: torch.Tensor       # int64 [] extension rays traced (shadow,
+    #                          connection and splat rays excluded)
+    splat_pix: torch.Tensor  # int32 [R,K] target pixel (-1 = none)
+    splat_val: torch.Tensor  # f32 [R,K,3] weight-0 splat radiance
 
 
 class ShadePoint(NamedTuple):
@@ -62,6 +76,28 @@ class ShadePoint(NamedTuple):
     mat_id: torch.Tensor
     mat_row: torch.Tensor  # material pack row [.,20]
     tri: torch.Tensor
+
+
+class _Setup(NamedTuple):
+    """What every tracer reads of a scene and its settings."""
+    tables: ltc_ops.LTCTables
+    mat_pack: torch.Tensor
+    intersect: object
+    depth: int
+    russian: float
+    clamp: float
+    n_set: int
+    tint: bool  # the tint-thinglass extension is on and the scene has glass
+
+
+def _setup(scene, meta, settings) -> _Setup:
+    return _Setup(
+        tables=ltc_ops.LTCTables(rows=scene.ltc_rows),
+        mat_pack=bxdf_ops.build_mat_pack(scene.materials),
+        intersect=isect.make_intersector(meta),
+        depth=int(settings.recursion_max), russian=float(settings.russian),
+        clamp=float(settings.clamp), n_set=max(1, int(settings.multisample)),
+        tint=bool(meta.has_thinglass and settings.tint_thinglass))
 
 
 def _shade_point(scene, meta, settings, hit, ro, rd, mat_pack) -> ShadePoint:
@@ -118,28 +154,31 @@ def _to_local(sp: ShadePoint, v):
     return vm.to_local(sp.light_n, sp.t_f, sp.b_f, v)
 
 
-def _extend_path(scene, meta, tables, mat_pack, intersect, ctx, ro, rd,
-                 last_tri, contribution, alive, bounce, russian, settings):
-    """One eye-path extension step: closest hit, shading, BxDF sample,
-    roulette and the next ray.  Returns (next ray state, sp, p0, act,
-    rays traced, sky_mask)."""
-    hit = intersect(scene, ro, rd, 0.0, RAY_FAR, exclude=last_tri)
+def _extend_path(scene, meta, settings, su: _Setup, ctx, ro, rd, last_tri,
+                 contribution, alive, bounce, russian, tag):
+    """One path-extension step, shared by eye (tag 1) and light (tag 2)
+    subpaths: closest hit, shading, BxDF sample, roulette and the next
+    ray.  `bounce` (an int or a per-lane tensor) is the vertex index
+    within the path; `russian` < 0 disables roulette (the light
+    subpath).  Returns (next ray state, sp, p0, act, rays traced,
+    sky_mask)."""
+    hit = su.intersect(scene, ro, rd, 0.0, RAY_FAR, exclude=last_tri)
     rays = alive.sum()
 
     sky_mask = alive & ~hit.valid
-    sp = _shade_point(scene, meta, settings, hit, ro, rd, mat_pack)
+    sp = _shade_point(scene, meta, settings, hit, ro, rd, su.mat_pack)
     act = alive & sp.ok
 
-    # Per-bounce dims: (tag 1 = eye path, bounce) folded into the seed.
-    bctx = ctx._replace(seed=smp.hash_u32(ctx.seed, 1, bounce + 1), mode=0)
+    # Per-bounce dims: (tag, bounce) folded into the seed.
+    bctx = ctx._replace(seed=smp.hash_u32(ctx.seed, tag, bounce + 1), mode=0)
     u2 = smp.sample_2d(bctx, smp.DIM_EYE_BOUNCE)
     rr_u = smp.sample_1d(bctx, smp.DIM_EYE_BOUNCE + 2)
 
-    p0 = bxdf_ops.MatParams(scene, mat_pack, sp.mat_id, sp.uv,
+    p0 = bxdf_ops.MatParams(scene, su.mat_pack, sp.mat_id, sp.uv,
                             row=sp.mat_row, has_textures=meta.has_textures)
     dir_local, transfer, may_leak = bxdf_ops.sample_bxdf(
-        scene, mat_pack, sp.mat_id, _to_local(sp, sp.vr), sp.uv, u2, tables,
-        has_mix=meta.has_mix, has_ltc=meta.has_ltc,
+        scene, su.mat_pack, sp.mat_id, _to_local(sp, sp.vr), sp.uv, u2,
+        su.tables, has_mix=meta.has_mix, has_ltc=meta.has_ltc,
         has_textures=meta.has_textures, p0=p0)
     inside = dir_local[..., 2] < 0.0
     dir_world = vm.to_global(sp.light_n, sp.t_f, sp.b_f, dir_local)
@@ -183,23 +222,40 @@ def _sample_path_light(scene, ctx):
     return light_ops.offset_sphere_light(light, areal2)
 
 
-def _vertex_radiance(scene, meta, tables, mat_pack, intersect, light, sp,
-                     p0, active=None):
-    """NEE direct light + emission at one shaded vertex, before the
-    clamp.  `active` masks lanes whose radiance is consumed; the others
-    get an empty shadow interval."""
+def _tinted(scene, radiance, ro, rd, t_min, t_max, through):
+    """`radiance` filtered by the thin-glass crossings of the segment
+    ro + t rd, t in (t_min, t_max), oriented along `through`."""
+    ts, tris = tg.collect_thinglass(scene, ro, rd, t_min, t_max)
+    return tg.apply_thinglass(scene, radiance, ts, tris, through, tint=True)
+
+
+def _vertex_radiance(scene, meta, su: _Setup, light, sp, p0, active=None):
+    """NEE direct light + emission at one shaded vertex, before BDPT
+    connections and the clamp.  `active` masks lanes whose radiance is
+    consumed; the others get an empty shadow interval."""
     to_light = light.pos - sp.pos
     dist2 = torch.clamp(vm.dot(to_light, to_light), min=1e-12)
     vi_l = to_light / torch.sqrt(dist2)[..., None]
-    vis = isect.visibility(scene, intersect, light.pos, sp.pos,
+    vis = isect.visibility(scene, su.intersect, light.pos, sp.pos,
                            active=active)
-    f = bxdf_ops.eval_bxdf(scene, mat_pack, sp.mat_id,
+    f = bxdf_ops.eval_bxdf(scene, su.mat_pack, sp.mat_id,
                            _to_local(sp, vi_l), _to_local(sp, sp.vr), sp.uv,
-                           tables, has_mix=meta.has_mix, has_ltc=meta.has_ltc,
+                           su.tables, has_mix=meta.has_mix,
+                           has_ltc=meta.has_ltc,
                            has_textures=meta.has_textures, p0=p0)
     g = torch.abs(vm.dot(sp.light_n, vi_l)) / dist2
     inc = (light.color * light.intensity[..., None]
            * light.directional_factor(-vi_l)[..., None])
+    if su.tint:
+        # The shadow segment's crossings, collected light -> point with
+        # the visibility query's 20*eps margins; orientation along the
+        # point -> light direction, as the reference does.
+        seg = sp.pos - light.pos
+        dist = vm.length(seg)
+        margin = scene.epsilon * 20.0
+        inc = _tinted(scene, inc, light.pos,
+                      seg / torch.clamp(dist, min=1e-12)[..., None], margin,
+                      dist - margin, vi_l)
     total_here = torch.where((vis & light.valid)[..., None],
                              inc * f * g[..., None], 0.0)
     # Emission, front side only.
@@ -208,26 +264,224 @@ def _vertex_radiance(scene, meta, tables, mat_pack, intersect, light, sp,
                                     0.0)
 
 
+# ----------------------------------------------------------- BDPT pieces
+
+def _trace_light_subpaths(scene, meta, settings, cam, ctx, su: _Setup,
+                          light, lightdir2, reverse: int):
+    """One `reverse`-vertex light subpath per lane, every vertex
+    projected to the camera.
+
+    Returns (lrec, splat_pix int32 [R,K], splat_val f32 [R,K,3], rays):
+    lrec holds [K, R, ...] per-vertex tensors (valid, pos, light_n, t_f,
+    b_f, vr, uv, mat_id, light_here), read by the eye walk's
+    connections."""
+    emission_dir = warps.to_hemisphere_cosine_directed(lightdir2,
+                                                       light.normal)
+    light_at_start = (light.color * light.intensity[..., None]
+                      * light.directional_factor(emission_dir)[..., None])
+    r, dev = light.pos.shape[0], light.pos.device
+    state = dict(ro=light.pos + scene.epsilon * 100.0 * light.normal,
+                 rd=emission_dir,
+                 last_tri=torch.full((r,), -1, dtype=torch.int32, device=dev),
+                 contribution=torch.ones((r, 3), dtype=torch.float32,
+                                         device=dev),
+                 alive=light.valid.clone())
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    recs = []
+    for k in range(reverse):
+        contrib = state["contribution"]
+        state, sp, _, act, n_rays, _ = _extend_path(
+            scene, meta, settings, su, ctx, state["ro"], state["rd"],
+            state["last_tri"], contrib, state["alive"], k, -1.0, TAG_LIGHT)
+        rays = rays + n_rays
+        recs.append(dict(valid=act, pos=sp.pos, light_n=sp.light_n,
+                         t_f=sp.t_f, b_f=sp.b_f, vr=sp.vr, uv=sp.uv,
+                         mat_id=sp.mat_id,
+                         light_here=contrib * light_at_start))
+    lrec = {f: torch.stack([rec[f] for rec in recs]) for f in recs[0]}
+
+    # Splat every light vertex to the camera: one any-hit query over
+    # K*R rays (K*R*S in the queued tracer's block).  Invalid vertices
+    # get an empty interval; splat_ok drops them whatever the query says,
+    # so the splat image is the reference's, which traces them too.
+    lpos, lvalid = lrec["pos"], lrec["valid"]         # [K,R,3], [K,R]
+    campos = cam.origin.expand(lpos.shape)
+    vis_cam = isect.visibility(
+        scene, su.intersect, lpos.reshape(-1, 3), campos.reshape(-1, 3),
+        active=lvalid.reshape(-1)).reshape(lvalid.shape)
+    direction = vm.normalize(lpos - campos)           # camera -> vertex
+    frame = (lrec["light_n"], lrec["t_f"], lrec["b_f"])
+    f_cam = bxdf_ops.eval_bxdf(
+        scene, su.mat_pack, lrec["mat_id"].reshape(-1),
+        vm.to_local(*frame, lrec["vr"]).reshape(-1, 3),
+        vm.to_local(*frame, -direction).reshape(-1, 3),
+        lrec["uv"].reshape(-1, 2), su.tables, has_mix=meta.has_mix,
+        has_ltc=meta.has_ltc, has_textures=meta.has_textures,
+    ).reshape(lpos.shape)
+    g_cam = (torch.clamp(vm.dot(lrec["light_n"], -direction), min=0.0)
+             / torch.clamp(vm.distance2(campos, lpos), min=1e-12))
+    q = lrec["light_here"] * f_cam * g_cam[..., None]
+    x2, y2, in_view = coords_from_direction(cam, direction)
+    splat_ok = (lvalid & vis_cam & in_view & (g_cam >= 1e-5)
+                & torch.isfinite(q).all(dim=-1))
+    pix = torch.where(splat_ok, y2 * cam.xres + x2, -1).to(torch.int32)
+    splat_val = torch.where(splat_ok[..., None], q, 0.0)
+    return lrec, pix.T, splat_val.transpose(0, 1), rays
+
+
+def _splat_image(pix, val, hw: int):
+    """Scatter splats (pix int [N], -1 = none; val f32 [N, 3]) into an
+    [hw + 1, 3] image whose last row takes the misses.
+
+    The scatter order: on the CPU `index_add_` adds in the splats'
+    order, so a render is bitwise repeatable; on the card it adds with
+    atomics, in another order each run, so two card renders of one BDPT
+    scene agree within rtol 1e-5, not bit for bit
+    (tests/test_torch_cuda.py::test_splat_scatter_contract).  The
+    reference states the same for its scatter ("1-ulp class")."""
+    good = pix >= 0
+    idx = torch.where(good, pix, hw).long()
+    img = torch.zeros((hw + 1, 3), dtype=torch.float32, device=val.device)
+    return img.index_add_(0, idx, torch.where(good[:, None], val, 0.0))
+
+
+def _connect_to_light_vertex(scene, meta, su: _Setup, lv, sp, p0, act):
+    """One eye-vertex x light-vertex connection.  `lv` holds one light
+    vertex per lane ([R, ...] fields as in lrec).  No thin-glass tint,
+    as in the reference."""
+    l_valid, l_pos = lv["valid"], lv["pos"]
+    vis_c = isect.visibility(scene, su.intersect, l_pos, sp.pos,
+                             active=l_valid & act)
+    light_to_p = vm.normalize(sp.pos - l_pos)
+    p_to_light = -light_to_p
+    l_frame = (lv["light_n"], lv["t_f"], lv["b_f"])
+    f_light = bxdf_ops.eval_bxdf(
+        scene, su.mat_pack, lv["mat_id"], vm.to_local(*l_frame, light_to_p),
+        vm.to_local(*l_frame, lv["vr"]), lv["uv"], su.tables,
+        has_mix=meta.has_mix, has_ltc=meta.has_ltc,
+        has_textures=meta.has_textures)
+    f_point = bxdf_ops.eval_bxdf(
+        scene, su.mat_pack, sp.mat_id, _to_local(sp, sp.vr),
+        _to_local(sp, p_to_light), sp.uv, su.tables, has_mix=meta.has_mix,
+        has_ltc=meta.has_ltc, has_textures=meta.has_textures, p0=p0)
+    g_c = (torch.abs(vm.dot(sp.light_n, p_to_light))
+           / torch.clamp(vm.distance2(l_pos, sp.pos), min=1e-12))
+    term = lv["light_here"] * f_light * f_point * g_c[..., None]
+    return torch.where((l_valid & vis_c)[..., None], term, 0.0)
+
+
+# One row of floats per (lane, sample, light vertex): valid, pos3,
+# light_n3, t_f3, b_f3, vr3, uv2, mat_id, then light_here3.
+_LV_F = 19
+_LV_ROW = _LV_F + 3
+
+
+def _pack_light_vertices(lrec, r: int, n_samples: int):
+    """[K, R*S, ...] lrec (sample-outer lanes: flat index s*R + lane) ->
+    [R, S, K*22] rows."""
+    flat = torch.cat([
+        lrec["valid"][..., None].to(torch.float32),
+        lrec["pos"], lrec["light_n"], lrec["t_f"], lrec["b_f"], lrec["vr"],
+        lrec["uv"], lrec["mat_id"][..., None].to(torch.float32),
+        lrec["light_here"]], dim=-1)               # [K, R*S, 22]
+    k = flat.shape[0]
+    flat = flat.transpose(0, 1).reshape(n_samples, r, k * _LV_ROW)
+    return flat.transpose(0, 1).contiguous()       # [R, S, K*22]
+
+
+def _unpack_light_vertex(rows, k: int):
+    """[R, K*22] packed rows -> the light-vertex dict of slot k."""
+    o = k * _LV_ROW
+    return dict(valid=rows[:, o] > 0.5, pos=rows[:, o + 1:o + 4],
+                light_n=rows[:, o + 4:o + 7], t_f=rows[:, o + 7:o + 10],
+                b_f=rows[:, o + 10:o + 13], vr=rows[:, o + 13:o + 16],
+                uv=rows[:, o + 16:o + 18],
+                mat_id=rows[:, o + 18].to(torch.int32),
+                light_here=rows[:, o + 19:o + 22])
+
+
+# --------------------------------------------------------- queued tracers
+
 def trace_wavefront_queued(scene, meta, settings, cam, px, py,
                            sample0: int, n_samples: int, seed: int,
                            sampler_mode: int = 1):
     """Trace samples sample0 .. sample0+n_samples-1 of the pixels
-    (px, py), one lane per pixel.  `cam` and the pixel tensors live on
-    the scene's device.  Returns (radiance sum f32 [R,3] over the
-    lane's samples, extension rays traced as an int64 scalar tensor)."""
-    check_supported(settings, meta)
-    tables = ltc_ops.LTCTables(rows=scene.ltc_rows)
-    mat_pack = bxdf_ops.build_mat_pack(scene.materials)
-    intersect = isect.make_intersector(meta)
-    depth = int(settings.recursion_max)
-    russian = float(settings.russian)
-    clamp = float(settings.clamp)
-    n_set = max(1, int(settings.multisample))
-    r, dev = px.shape[0], px.device
+    (px, py), one lane per pixel, unidirectionally (`reverse` is not
+    read).  `cam` and the pixel tensors live on the scene's device.
+    Returns (radiance sum f32 [R,3] over the lane's samples, extension
+    rays traced as an int64 scalar tensor)."""
+    su = _setup(scene, meta, settings)
+    return _queued_walk(scene, meta, settings, su, cam, px, py, sample0,
+                        n_samples, seed, sampler_mode, lpack=None,
+                        rays=torch.zeros((), dtype=torch.int64,
+                                         device=px.device))
 
+
+def trace_wavefront_queued_bdpt(scene, meta, settings, cam, px, py,
+                                sample0: int, n_samples: int, seed: int,
+                                sampler_mode: int = 1):
+    """Queued bidirectional tracer (`settings.reverse` > 0), one lane
+    per pixel, in two phases:
+    1. every (pixel, sample) light subpath of the block at once (R*S
+       lanes, sample-outer), their camera splats scattered once into an
+       [H*W+1, 3] splat image (the last row takes the misses), and the
+       vertex records packed per (lane, sample);
+    2. the queued eye walk of `trace_wavefront_queued`, which gathers
+       its sample's packed row once an iteration and connects every
+       eye vertex to the `reverse` stored light vertices.
+    Every per-(pixel, sample) value equals `trace_wavefront`'s, since
+    sampling is a pure function of (seed, pixel, sample, dim); only the
+    splat sums add in another order.  Returns (radiance f32 [R,3],
+    splat image f32 [H*W+1, 3], rays int64 []: light-subpath plus eye
+    extensions).
+
+    Sizes at the CLI's defaults (blocks of 2^20 // ms pixels): at 16 spp
+    and reverse 4 a block's light phase runs on 1,048,576 lanes, its
+    splat visibility query is 4,194,304 rays in one kernel launch (K1's
+    and K2's int32 ray offsets hold 715 M), and the packed vertices take
+    65,536 x 16 x 88 floats, 369 MB.  Each eye iteration adds `reverse`
+    connections to the NEE loop's work, one any-hit query and two
+    `eval_bxdf` calls each."""
+    reverse = int(settings.reverse)
+    if reverse <= 0:
+        raise ValueError(f"queued BDPT needs reverse > 0, got {reverse}")
+    su = _setup(scene, meta, settings)
+    r = px.shape[0]
     pixel_id = py.long() * cam.xres + px.long()
-    s_end = int(sample0) + int(n_samples)
+
+    # Phase 1: all light subpaths, vectorized over samples.
+    s_f = (torch.arange(n_samples, device=px.device).repeat_interleave(r)
+           + int(sample0))
+    ctx_f = smp.SampleCtx(seed=int(seed) & 0xFFFFFFFF,
+                          pixel=pixel_id.repeat(n_samples), sample=s_f,
+                          mode=sampler_mode, n_set=su.n_set)
+    lrec, splat_pix, splat_val, rays = _trace_light_subpaths(
+        scene, meta, settings, cam, ctx_f, su, _sample_path_light(scene, ctx_f),
+        smp.sample_2d(ctx_f, smp.DIM_LIGHTDIR), reverse)
+    splat_img = _splat_image(splat_pix.reshape(-1), splat_val.reshape(-1, 3),
+                             cam.xres * cam.yres)
+    lpack = _pack_light_vertices(lrec, r, n_samples)
+    del lrec, splat_pix, splat_val
+
+    # Phase 2: the queued eye walk with connections.
+    radiance, rays = _queued_walk(scene, meta, settings, su, cam, px, py,
+                                  sample0, n_samples, seed, sampler_mode,
+                                  lpack=lpack, rays=rays)
+    return radiance, splat_img, rays
+
+
+def _queued_walk(scene, meta, settings, su: _Setup, cam, px, py, sample0,
+                 n_samples, seed, sampler_mode, lpack, rays):
+    """The queued eye walk: NEE when `lpack` is None, else BDPT with
+    connections to the light vertices of `lpack` [R, S, K*22].  `rays`
+    is the ray counter to continue."""
+    r, dev = px.shape[0], px.device
+    pixel_id = py.long() * cam.xres + px.long()
+    s0 = int(sample0)
+    s_end = s0 + int(n_samples)
     seed = int(seed) & 0xFFFFFFFF
+    # The reference tints the sky escape here only in the NEE tracer.
+    tint_sky = su.tint and lpack is None
 
     zeros3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
     ro = zeros3
@@ -236,17 +490,16 @@ def trace_wavefront_queued(scene, meta, settings, cam, px, py,
     contribution = zeros3
     alive = torch.zeros(r, dtype=torch.bool, device=dev)
     bounce = torch.zeros(r, dtype=torch.int64, device=dev)
-    s = torch.full((r,), int(sample0), dtype=torch.int64, device=dev)
+    s = torch.full((r,), s0, dtype=torch.int64, device=dev)
     sample_rad = zeros3
     radiance = zeros3
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
 
     # Host loop: one device->host sync per iteration for its condition.
     while bool((alive | (s < s_end)).any()):
         # 1) (Re)start lanes that are idle but still have samples.
         need = ~alive & (s < s_end)
         ctx = smp.SampleCtx(seed=seed, pixel=pixel_id, sample=s,
-                            mode=sampler_mode, n_set=n_set)
+                            mode=sampler_mode, n_set=su.n_set)
         jitter = smp.sample_2d(ctx, smp.DIM_PIXEL_JITTER)
         lens = None if cam.is_simple else smp.sample_2d(ctx, smp.DIM_LENS)
         ro0, rd0 = pixel_rays(cam, px, py, jitter, lens_sample=lens)
@@ -263,25 +516,35 @@ def trace_wavefront_queued(scene, meta, settings, cam, px, py,
 
         # 3) One extension step.
         nxt, sp, p0, act, n_rays, sky_mask = _extend_path(
-            scene, meta, tables, mat_pack, intersect, ctx, ro, rd,
-            last_tri, contribution, alive, bounce, russian, settings)
+            scene, meta, settings, su, ctx, ro, rd, last_tri, contribution,
+            alive, bounce, su.russian, TAG_EYE)
         rays = rays + n_rays
 
-        # 4) Radiance at this vertex: sky escape or NEE + emission.
+        # 4) Radiance at this vertex: sky escape or NEE + emission
+        #    (+ the connections to this sample's light vertices).
         sky = tex_ops.sky_radiance(scene, -rd, has_envmap=meta.has_envmap)
+        if tint_sky:
+            sky = _tinted(scene, sky, ro, rd, 0.0, RAY_FAR, rd)
         sample_rad = sample_rad + torch.where(sky_mask[..., None],
                                               contribution * sky, 0.0)
-        total_here = _vertex_radiance(scene, meta, tables, mat_pack,
-                                      intersect, light, sp, p0, active=act)
-        total_here = torch.clamp(total_here, max=clamp)
+        total_here = _vertex_radiance(scene, meta, su, light, sp, p0,
+                                      active=act)
+        if lpack is not None:
+            s_rel = torch.clamp(s - s0, 0, n_samples - 1)
+            rows = lpack[torch.arange(r, device=dev), s_rel]
+            for k in range(lpack.shape[2] // _LV_ROW):
+                total_here = total_here + _connect_to_light_vertex(
+                    scene, meta, su, _unpack_light_vertex(rows, k), sp, p0,
+                    act)
+        total_here = torch.clamp(total_here, max=su.clamp)
         sample_rad = sample_rad + torch.where(act[..., None],
                                               contribution * total_here, 0.0)
 
         # 5) Depth termination; finished paths flush the sample with the
         #    whole-sample clamp + NaN/negative scrub, then advance.
-        alive_after = nxt["alive"] & (bounce + 1 < depth)
+        alive_after = nxt["alive"] & (bounce + 1 < su.depth)
         ended = alive & ~alive_after
-        flushed = torch.clamp(sample_rad, max=clamp)
+        flushed = torch.clamp(sample_rad, max=su.clamp)
         flushed = torch.where(torch.isnan(flushed) | (flushed < 0.0), 0.0,
                               flushed)
         e3 = ended[..., None]
@@ -294,3 +557,112 @@ def trace_wavefront_queued(scene, meta, settings, cam, px, py,
         sample_rad = torch.where(e3, 0.0, sample_rad)
         radiance = radiance + torch.where(e3, flushed, 0.0)
     return radiance, rays
+
+
+# ------------------------------------------------------ per-sample path
+
+def trace_wavefront(scene, meta, settings, cam, ctx, px, py,
+                    differentiable: bool = False) -> TraceResult:
+    """Trace one eye path (and, with `reverse` > 0, one light subpath)
+    per lane; `ctx` gives each lane's (seed, pixel, sample).
+
+    `differentiable` keeps the reference's meaning: True runs all
+    `recursion_max` bounces; False stops once every lane is dead (one
+    device-to-host sync a bounce).  The values are the same either way:
+    a dead lane adds nothing."""
+    su = _setup(scene, meta, settings)
+    reverse = int(settings.reverse)
+
+    jitter = smp.sample_2d(ctx, smp.DIM_PIXEL_JITTER)
+    lens = None if cam.is_simple else smp.sample_2d(ctx, smp.DIM_LENS)
+    ro, rd = pixel_rays(cam, px, py, jitter, lens_sample=lens)
+    # One light per path; the reference also draws DIM_LIGHT_TRI here
+    # and discards it, which moves no other dimension.
+    light = _sample_path_light(scene, ctx)
+    r, dev = ro.shape[0], ro.device
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+
+    if reverse > 0:
+        lrec, splat_pix, splat_val, rays = _trace_light_subpaths(
+            scene, meta, settings, cam, ctx, su, light,
+            smp.sample_2d(ctx, smp.DIM_LIGHTDIR), reverse)
+    else:
+        splat_pix = torch.full((r, 0), -1, dtype=torch.int32, device=dev)
+        splat_val = torch.zeros((r, 0, 3), dtype=torch.float32, device=dev)
+
+    state = dict(ro=ro, rd=rd,
+                 last_tri=torch.full((r,), -1, dtype=torch.int32, device=dev),
+                 contribution=torch.ones((r, 3), dtype=torch.float32,
+                                         device=dev),
+                 alive=torch.ones(r, dtype=torch.bool, device=dev))
+    radiance = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    for bounce in range(su.depth):
+        if not differentiable and not bool(state["alive"].any()):
+            break
+        contrib, ray_dir = state["contribution"], state["rd"]
+        state, sp, p0, act, n_rays, sky_mask = _extend_path(
+            scene, meta, settings, su, ctx, state["ro"], ray_dir,
+            state["last_tri"], contrib, state["alive"], bounce, su.russian,
+            TAG_EYE)
+        rays = rays + n_rays
+        # Sky escape (not tinted through thin glass, as in the reference).
+        sky = tex_ops.sky_radiance(scene, -ray_dir,
+                                   has_envmap=meta.has_envmap)
+        radiance = radiance + torch.where(sky_mask[..., None],
+                                          contrib * sky, 0.0)
+        total_here = _vertex_radiance(scene, meta, su, light, sp, p0,
+                                      active=act)
+        for k in range(reverse):
+            lv = {f: v[k] for f, v in lrec.items()}
+            total_here = total_here + _connect_to_light_vertex(
+                scene, meta, su, lv, sp, p0, act)
+        total_here = torch.clamp(total_here, max=su.clamp)
+        radiance = radiance + torch.where(act[..., None],
+                                          contrib * total_here, 0.0)
+
+    # Final clamp + NaN/negative scrub.
+    radiance = torch.clamp(radiance, max=su.clamp)
+    radiance = torch.where(torch.isnan(radiance) | (radiance < 0.0), 0.0,
+                           radiance)
+    return TraceResult(radiance=radiance, rays=rays, splat_pix=splat_pix,
+                       splat_val=splat_val)
+
+
+def render_lanes(scene, meta, settings, cam, px, py, sample_idx, seed,
+                 sampler_mode: int = 1, differentiable: bool = False):
+    """Render a batch of lanes: px, py int [R], sample_idx int [R]
+    (globally unique per round x multisample), seed a u32."""
+    pixel_id = py.long() * cam.xres + px.long()
+    ctx = smp.SampleCtx(seed=int(seed) & 0xFFFFFFFF, pixel=pixel_id,
+                        sample=sample_idx.long(), mode=sampler_mode,
+                        n_set=max(1, int(settings.multisample)))
+    return trace_wavefront(scene, meta, settings, cam, ctx, px, py,
+                           differentiable=differentiable)
+
+
+def render_image_round(scene, meta, settings, cam, round_idx: int,
+                       seed: int = 42, sampler_mode: int = 1):
+    """Render one full round (all pixels x multisample) on the scene's
+    device in one batch of lanes.  Returns (radiance sum f32 [H,W,3],
+    counts f32 [H,W], rays).  Splats (weight-0 side effects) are added
+    into the sum.  For small and medium images; the driver blocks
+    larger frames."""
+    xres, yres = cam.xres, cam.yres
+    ms = int(settings.multisample)
+    dev = scene.tri_pack.device
+    cam = cam.to(dev)
+    pix = torch.arange(xres * yres, device=dev)
+    px = (pix % xres).to(torch.int32).repeat(ms)
+    py = (pix // xres).to(torch.int32).repeat(ms)
+    sample_idx = (torch.arange(ms, device=dev).repeat_interleave(xres * yres)
+                  + round_idx * ms)
+    result = render_lanes(scene, meta, settings, cam, px, py, sample_idx,
+                          seed, sampler_mode)
+    rad = result.radiance.reshape(ms, yres, xres, 3).sum(dim=0)
+    if result.splat_pix.shape[1] > 0:
+        flat = _splat_image(result.splat_pix.reshape(-1),
+                            result.splat_val.reshape(-1, 3), xres * yres)
+        rad = rad + flat[:-1].reshape(yres, xres, 3)
+    counts = torch.full((yres, xres), float(ms), dtype=torch.float32,
+                        device=dev)
+    return rad, counts, result.rays

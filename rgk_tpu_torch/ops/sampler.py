@@ -238,7 +238,10 @@ def sample_2d(ctx: SampleCtx, dim: int) -> torch.Tensor:
 DIM_PIXEL_JITTER = 0      # 2D subpixel offset
 DIM_LENS = 2              # 2D thin-lens disc sample
 DIM_AREAL = 4             # 2D areal-light surface sample
-DIM_LIGHT_CHOICE = 8      # 2D light pick (the reference draws dim 10
-#                           and discards it; counter-based, so skipping
-#                           it changes no other value)
-DIM_EYE_BOUNCE = 11       # 3 dims per eye bounce: bxdf 2D + russian 1D
+DIM_LIGHTDIR = 6          # 2D light-subpath emission direction (BDPT)
+DIM_LIGHT_CHOICE = 8      # 2D light pick
+DIM_LIGHT_TRI = 10        # 1D, drawn by the reference and discarded by its
+#                           light pick; counter-based, so the port never
+#                           draws it and no other value moves
+DIM_EYE_BOUNCE = 11       # 3 dims per bounce (tag 1 eye, tag 2 light
+#                           path): bxdf 2D + russian 1D

@@ -26,6 +26,15 @@ def length(v, keepdim: bool = False):
     return torch.sqrt(torch.clamp(dot(v, v, keepdim=keepdim), min=EPS))
 
 
+def length2(v, keepdim: bool = False):
+    return dot(v, v, keepdim=keepdim)
+
+
+def distance2(a, b):
+    d = a - b
+    return dot(d, d)
+
+
 def normalize(v):
     return v / length(v, keepdim=True)
 
@@ -67,3 +76,23 @@ def to_local(n, t, b, v):
 def to_global(n, t, b, v):
     """Local shading frame -> world."""
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def rotation_from_y(dest, v):
+    """Rotate `v` by the rotation that takes +Y to the unit `dest`: the
+    reference's quaternion shortcut in branchless Rodrigues form, with
+    the unnormalized axis cross(+Y, dest) = (d.z, 0, -d.x)."""
+    c = dest[..., 1:2]  # cos(theta) = dot(+Y, dest)
+    ax = dest[..., 2:3]
+    az = -dest[..., 0:1]
+    s2 = ax * ax + az * az
+    safe = s2 > 1e-12
+    k = torch.where(safe, (1.0 - c) / torch.clamp(s2, min=1e-12), 0.0)
+    vx, vy, vz = v[..., 0:1], v[..., 1:2], v[..., 2:3]
+    adotv = ax * vx + az * vz
+    rot = torch.cat([vx * c + (-az * vy) + ax * adotv * k,
+                     vy * c + (az * vx - ax * vz),
+                     vz * c + ax * vy + az * adotv * k], dim=-1)
+    # dest ~ -Y: a half turn about +X, (x, -y, -z).
+    flip = torch.cat([vx, -vy, -vz], dim=-1)
+    return torch.where(safe, rot, torch.where(c > 0.0, v, flip))

@@ -1,5 +1,5 @@
 """Sample warping: [0,1)^2 -> discs, hemispheres, spheres, triangles
-(port of rgk_tpu/ops/warps.py, the warps the unidirectional path uses).
+(port of rgk_tpu/ops/warps.py).
 """
 
 from __future__ import annotations
@@ -7,6 +7,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import vecmath as vm
 
 TWO_PI = 2.0 * math.pi
 
@@ -24,6 +26,20 @@ def to_hemisphere_cosine_z(sample):
     z = torch.sqrt(torch.clamp(1.0 - p[..., 0] ** 2 - p[..., 1] ** 2,
                                min=1e-5))
     return torch.stack([p[..., 0], p[..., 1], z], dim=-1)
+
+
+def to_hemisphere_cosine_y(sample):
+    """Cosine-weighted hemisphere with y > 0."""
+    p = to_disc_uniform(sample)
+    y = torch.sqrt(torch.clamp(1.0 - p[..., 0] ** 2 - p[..., 1] ** 2,
+                               min=1e-5))
+    return torch.stack([p[..., 0], y, p[..., 1]], dim=-1)
+
+
+def to_hemisphere_cosine_directed(sample, direction):
+    """Cosine-weighted hemisphere around the unit `direction`: the Y-up
+    warp turned by `rotation_from_y`, as the reference does."""
+    return vm.rotation_from_y(direction, to_hemisphere_cosine_y(sample))
 
 
 def to_sphere_uniform(sample):

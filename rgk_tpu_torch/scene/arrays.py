@@ -12,11 +12,15 @@ Python int `ClusterArrays.chunk_halves`; the reference's `half_meta`,
 whose shape carries it under jit, is kept so the arrays compare one to
 one.
 
-Left out of the port, and ignored by `scene_from_numpy`:
-* `pack_mp` — the TPU flat kernel's sublane-padded pack; the CUDA
-  flat sweep reads `tri_pack` [M, 13] directly;
-* `glass_pack`, `glass_ids` — the thin-glass subset, read only by the
-  `tint-thinglass` extension, which the port does not render yet.
+`glass_pack` / `glass_ids` hold the thin-glass subset: the Badouel
+rows of the triangles whose material is thin glass and their ids in
+`tri_pack`'s order, or one row that never hits (d = 1, n = 0, id -1)
+when the scene has none.  `ops/thinglass.py` sweeps them for the
+`tint-thinglass` extension.
+
+Left out of the port, and ignored by `scene_from_numpy`: `pack_mp`, the
+TPU flat kernel's sublane-padded pack; the CUDA flat sweep reads
+`tri_pack` [M, 13] directly.
 """
 
 from __future__ import annotations
@@ -127,6 +131,8 @@ class SceneArrays(NamedTuple):
     tri_pack: torch.Tensor    # f32 [M,13]
     tri_meta: torch.Tensor    # int32 [M,4] = (v0, v1, v2, material)
     tri_shade: torch.Tensor   # f32 [M,24] per-corner normals, uvs, tangents
+    glass_pack: torch.Tensor  # f32 [G,12] Badouel rows of thin-glass tris
+    glass_ids: torch.Tensor   # int32 [G] their tri_pack ids (-1: none)
     ltc_rows: torch.Tensor    # f32 [2*64*64, 10] LTC fit tables
     materials: MaterialTable
     textures: TextureAtlas
@@ -189,8 +195,7 @@ def scene_from_numpy(tree, device) -> SceneArrays:
     caller turned into numpy arrays.  Every field of the port's
     `SceneArrays` is copied with its dtype, `bvh` and `clusters`
     included (the chunk size read from the shape of `half_meta`); the
-    reference's `pack_mp`, `glass_pack` and `glass_ids` are ignored
-    (see the module docstring)."""
+    reference's `pack_mp` is ignored (see the module docstring)."""
     nested = {"materials": MaterialTable, "textures": TextureAtlas,
               "lights": LightTable, "bvh": BVHArrays}
     fields = {}

@@ -104,6 +104,19 @@ def append_thinglass_column(pack: np.ndarray, tri_mat: np.ndarray,
     return np.concatenate([pack, col], axis=1).astype(np.float32)
 
 
+def glass_subset(tri_pack: np.ndarray):
+    """-> (glass_pack f32 [G, 12], glass_ids i32 [G]): the Badouel rows
+    of the thin-glass triangles (column 12 set) and their ids, or one
+    row that never hits (d = 1, n = 0) with id -1 when there are none."""
+    gmask = tri_pack[:, 12] > 0.5
+    if gmask.any():
+        return (tri_pack[gmask, :12].astype(np.float32),
+                np.nonzero(gmask)[0].astype(np.int32))
+    glass_pack = np.zeros((1, 12), np.float32)
+    glass_pack[0, 3] = 1.0
+    return glass_pack, np.full((1,), -1, np.int32)
+
+
 def phong_exponent_to_roughness(exponent: float) -> float:
     """The reference's Phong-exponent -> LTC roughness map."""
     return float(np.sqrt(2.0 / (2.0 + exponent)))
@@ -322,6 +335,7 @@ class SceneBuilder:
             bvh = placeholder_bvh(self._tri_count, device)
             clusters = empty_clusters(device)
 
+        glass_pack, glass_ids = glass_subset(tri_pack)
         t0 = time.perf_counter()
         arrays = SceneArrays(
             vertices=f32(vertices, device), normals=f32(normals, device),
@@ -335,6 +349,8 @@ class SceneBuilder:
                 normals[tri_vidx].reshape(-1, 9),
                 uvs[tri_vidx].reshape(-1, 6),
                 tangents[tri_vidx].reshape(-1, 9)], axis=1), device),
+            glass_pack=f32(glass_pack, device),
+            glass_ids=i32(glass_ids, device),
             ltc_rows=f32(load_tables_np(), device),
             materials=self._pack_materials(device),
             textures=self._pack_textures(device),

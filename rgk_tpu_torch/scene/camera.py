@@ -93,3 +93,28 @@ def pixel_rays(cam: Camera, px, py, jitter, lens_sample=None):
              + lens[..., 0:1] * cam.cameraleft
              + lens[..., 1:2] * cam.cameraup)
     return o, vm.normalize(p - o)
+
+
+def coords_from_direction(cam: Camera, dirs):
+    """Inverse projection of the light-vertex splats: world directions
+    from the camera origin -> (x int32, y int32, in_view bool).
+
+    The view-plane distance guards q = dot(dir, forward) at 1e-12, as
+    the reference does; x and y are truncated toward zero by the int32
+    cast before they are clipped, so ratios in (-1, 0) give pixel 0
+    (such lanes are out of view anyway)."""
+    n = cam.direction
+    q = vm.dot(dirs, n)
+    t = vm.dot(cam.viewscreen - cam.origin, n) / torch.where(
+        torch.abs(q) > 1e-12, q, 1e-12)
+    p = cam.origin + dirs * t[..., None]
+    vp = p - cam.viewscreen
+    x_ratio = vm.dot(vp, cam.viewscreen_x) / vm.dot(cam.viewscreen_x,
+                                                    cam.viewscreen_x)
+    y_ratio = vm.dot(vp, cam.viewscreen_y) / vm.dot(cam.viewscreen_y,
+                                                    cam.viewscreen_y)
+    in_view = ((q >= 1e-4) & (t > 0) & (x_ratio >= 0.0) & (x_ratio <= 1.0)
+               & (y_ratio >= 0.0) & (y_ratio <= 1.0))
+    x = torch.clamp((cam.xres * x_ratio).to(torch.int32), 0, cam.xres - 1)
+    y = torch.clamp((cam.yres * y_ratio).to(torch.int32), 0, cam.yres - 1)
+    return x, y, in_view

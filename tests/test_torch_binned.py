@@ -376,3 +376,25 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     src = csrc / "binned_sweep.cu"
     src.write_text(src.read_text() + "\n")
     assert kernels.library_path() != base
+
+
+@pytest.mark.parametrize("scene", ["far", "tiny"])
+def test_far_scene_binned_contract(scene):
+    """The far scenes where the binned front end and K2's part (a sphere
+    of radius 1 at coordinates in the hundreds seen from 200 units, one
+    of radius 0.05 seen from 150; 8,192 rays aimed near triangle edges)
+    on the plain route: walk_plain, sweep_plain and pass 2 through
+    cluster_plain against cluster_plain alone.  Where the ids differ,
+    both are hits of the same point across a shared edge, within
+    rounding of the exhaustive oracle (flat_plain over the whole
+    tri_pack) and of each row's float64 t, and the binned hit is the
+    earlier one: K2 pruned a chunk whose box entry t rounded above a hit
+    inside it (scenes.assert_binned_contract)."""
+    cl, pack, rays = scenes.far_sphere_tree("cpu", scene, n_rays=8192)
+    before = dict(bi.launches)
+    binned = bi.intersect_clusters_binned(cl, pack, *rays)
+    k2 = ci.intersect_clusters(cl, pack, *rays)
+    assert bi.launches == before
+    assert (k2[1] >= 0).double().mean().item() > 0.9
+    n, earlier, _ = scenes.assert_binned_contract(pack, rays, binned, k2)
+    assert n > 0 and n == earlier

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_scenes as scenes
 from rgk_tpu_torch.driver import cli
 from rgk_tpu_torch.io import read_exr
 from rgk_tpu_torch.ops import binned_intersect as bi
@@ -586,32 +587,6 @@ def test_walk_edges(cuda_device, monkeypatch, cap, halves, order):
             assert bool(same.all())
 
 
-def _far_sphere_tree(dev, center, radius, cam_dist, n_rays, seed):
-    """A closed sphere of ~16,000 small triangles as a cluster tree, and
-    rays aimed from far away at points near triangle edges and corners
-    (`_far_sphere`'s construction): many hits lie within rounding of an
-    edge, where K4's prefilter slack must cover both forms' rounding."""
-    mb = _module("_make_bigscene", os.path.join(TOOLS, "make_bigscene.py"))
-    verts, _, faces = mb.make_sphere(16_400, *center, radius)
-    verts = np.asarray(verts, np.float32)
-    faces = np.asarray(faces, np.int32)
-    pack = np.zeros((faces.shape[0], 13), np.float32)
-    pack[:, :12] = build_tri_pack(verts, faces)
-    cl = tclusters.build_clusters(verts, faces, pack, device=dev)
-    rng = np.random.default_rng(seed)
-    corners = verts[faces[rng.integers(0, faces.shape[0], n_rays)]]
-    target = (corners * rng.dirichlet([0.3] * 3, n_rays)[:, :, None]).sum(1)
-    away = rng.normal(size=(n_rays, 3))
-    away /= np.linalg.norm(away, axis=1, keepdims=True)
-    ro = (np.asarray(center) + cam_dist * away).astype(np.float32)
-    rd = target - ro
-    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
-    return cl, torch.from_numpy(pack).to(dev), [
-        torch.from_numpy(x).to(dev) for x in (
-            ro, rd, np.zeros(n_rays, np.float32),
-            np.full(n_rays, 1e4, np.float32), np.full(n_rays, -1, np.int32))]
-
-
 @pytest.mark.parametrize("scene", ["far", "tiny"])
 def test_sweep_keeps_k2_winner(cuda_device, scene):
     """K4's accept decisions and in-kernel t are K2's (its prefilter only
@@ -622,13 +597,13 @@ def test_sweep_keeps_k2_winner(cuda_device, scene):
     (no overflow), the listed chunks include the one where K2 found its
     winner, so the best of the ray's K4 results is K2's winner or one K2
     pruned within rounding, never later in (t, id) order; the two differ
-    on few rays.  Closest hit and an exclude pass."""
-    if scene == "far":
-        cl, pack, rays = _far_sphere_tree(cuda_device, (300.0, -200.0, 500.0),
-                                          1.0, 200.0, 1 << 16, 12)
-    else:
-        cl, pack, rays = _far_sphere_tree(cuda_device, (0.0, 0.0, 0.0), 0.05,
-                                          150.0, 1 << 16, 13)
+    on few rays.  Closest hit and an exclude pass.  The whole binned
+    front end against K2's front end: the contract of ROADMAP.md section
+    3, fault 1 (scenes.assert_binned_contract): where the ids differ,
+    both hit the same point within rounding of the exhaustive oracle
+    (either may be the later one in (t, id) here; on the plain route the
+    binned hit never is)."""
+    cl, pack, rays = scenes.far_sphere_tree(cuda_device, scene)
     _, *srt = ci.sort_rays(cl, *rays)
     K = bi.DEFAULT_K
     ids, cnt, _ = bi.walk(cl, *srt[:4], K)
@@ -651,9 +626,117 @@ def test_sweep_keeps_k2_winner(cuda_device, scene):
         assert int(differ.sum()) <= 1e-3 * differ.numel()
     # The whole binned front end against K2's (ROADMAP.md section 3).
     args = [cl, pack, *rays]
-    n_diff = int((bi.intersect_clusters_binned(*args)[1]
-                  != ci.intersect_clusters(*args)[1]).sum())
+    n_diff, earlier, later = scenes.assert_binned_contract(
+        pack, rays, bi.intersect_clusters_binned(*args),
+        ci.intersect_clusters(*args), never_later=False)
     print(f"{scene}: K4's best differs from K2's winner on "
           f"{int(differ.sum())} of {int(fits.sum())} rays without overflow "
           f"(exclude pass), never later; the binned front end's id "
-          f"differs from K2's on {n_diff} of {fits.numel()} rays")
+          f"differs from K2's on {n_diff} of {fits.numel()} rays, within "
+          f"the contract (binned earlier on {earlier}, later on {later})")
+
+
+# ------------------------------------------------ BDPT and thin glass
+
+
+def _bdpt_box(tmp_path, res, ms, reverse, sphere=0, glass=False):
+    """chip_smoke.write_bdpt's box (tools/bdpt_scene, plus a sphere OBJ
+    of `sphere` triangles, with `glass` a tinted thin-glass pane)."""
+    smoke = _module("_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    return smoke.write_bdpt(str(tmp_path), f"box_r{reverse}_s{sphere}_g"
+                            f"{int(glass)}_{res}", res, ms, reverse, sphere,
+                            glass)
+
+
+@pytest.mark.parametrize("sphere,reverse,tint", [(0, 2, False), (5000, 2, False),
+                                                 (0, 0, True), (5000, 2, True)])
+def test_bdpt_and_glass_renders_on_card_match_cpu(cuda_device, tmp_path,
+                                                  sphere, reverse, tint):
+    """BDPT and tint-thinglass renders (the box, and the box plus a
+    5000-triangle sphere, a BVH scene) at 32x32, 4 spp: the card goes
+    through K1 only on the flat scene and K2 only on the BVH scene, and
+    its image passes parity against its CPU twin (the plain kernels)."""
+    path = _bdpt_box(tmp_path, 32, 4, reverse, sphere, tint)
+    images = {}
+    for name, extra in (("gpu", []), ("cpu", ["--cpu"])):
+        before = dict(fi.launches), dict(ci.launches)
+        out = tmp_path / name
+        assert cli.main([path, "-q", "-D", str(out), *extra]) == 0
+        images[name] = read_exr(str(out / "bdpt_box.exr"))
+        k1 = fi.launches["any"] > before[0]["any"]
+        k2 = ci.launches["any"] > before[1]["any"]
+        on_card = name == "gpu"
+        assert (k1, k2) == (on_card and not sphere, on_card and bool(sphere))
+    stats = image_parity(images["gpu"], images["cpu"])
+    assert stats["ok"], stats
+
+
+def test_splat_scatter_contract(cuda_device, tmp_path):
+    """The splat image of one BDPT block on the card, scattered twice
+    from the same splats: the two agree within rtol 1e-5 (atomics add in
+    another order each run), and with the CPU's scatter of the same
+    splats to the same bound; a whole card render twice, too."""
+    from rgk_tpu_torch.integrator import path as tpath
+    from rgk_tpu_torch.scene import config as tconfig
+
+    cfg = tconfig.load_config(_bdpt_box(tmp_path, 64, 16, 4))
+    arrays, meta, _ = tconfig.build_scene(cfg, cuda_device)
+    cam = cfg.get_camera().to(cuda_device)
+    pix = torch.arange(64 * 64, device=cuda_device)
+    n = 16 * pix.numel()
+    ctx = tpath.smp.SampleCtx(seed=42, pixel=pix.repeat(16),
+                              sample=torch.arange(16, device=cuda_device)
+                              .repeat_interleave(pix.numel()), n_set=16)
+    su = tpath._setup(arrays, meta, cfg.settings)
+    _, spix, sval, _ = tpath._trace_light_subpaths(
+        arrays, meta, cfg.settings, cam, ctx, su,
+        tpath._sample_path_light(arrays, ctx),
+        tpath.smp.sample_2d(ctx, tpath.smp.DIM_LIGHTDIR), 4)
+    assert spix.shape == (n, 4)
+    spix, sval = spix.reshape(-1), sval.reshape(-1, 3)
+    assert (spix >= 0).double().mean().item() > 0.1
+    a = tpath._splat_image(spix, sval, 64 * 64)
+    b = tpath._splat_image(spix, sval, 64 * 64)
+    c = tpath._splat_image(spix.cpu(), sval.cpu(), 64 * 64)
+    for x in (b, c.to(cuda_device)):
+        torch.testing.assert_close(x, a, rtol=1e-5, atol=1e-6)
+    images = []
+    for run in ("a", "b"):
+        out = tmp_path / run
+        assert cli.main([_bdpt_box(tmp_path, 32, 4, 2), "-q", "-D",
+                         str(out)]) == 0
+        images.append(read_exr(str(out / "bdpt_box.exr")))
+    np.testing.assert_allclose(images[1], images[0], rtol=1e-5, atol=1e-6)
+
+
+def test_4m_ray_any_hit_query(cuda_device, tmp_path):
+    """The BDPT splat visibility query at the smoke's size: 65,536
+    pixels x 16 samples x 4 light vertices = 4,194,304 any-hit rays in
+    one K1 launch (launch grid and int32 offsets at that size), against
+    flat_plain on every 4th ray."""
+    from rgk_tpu_torch.scene import config as tconfig
+
+    cfg = tconfig.load_config(_bdpt_box(tmp_path, 16, 1, 4))
+    arrays, _, _ = tconfig.build_scene(cfg, cuda_device)
+    n = 65_536 * 16 * 4
+    rng = np.random.default_rng(9)
+    lo = np.asarray([-2.1, 0.05, -2.1], np.float32)
+    hi = np.asarray([2.1, 2.55, 2.1], np.float32)
+    pts = torch.from_numpy(rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+                           ).to(cuda_device)
+    cam = torch.tensor([0.0, 1.6, 4.2], device=cuda_device).expand(n, 3)
+    d = pts - cam
+    dist = torch.linalg.norm(d, dim=1)
+    eps = float(arrays.epsilon) * 20.0
+    args = [arrays.tri_pack, cam.contiguous(), (d / dist[:, None]).contiguous(),
+            torch.full((n,), eps, device=cuda_device),
+            (dist - eps).contiguous(),
+            torch.full((n,), -1, dtype=torch.int32, device=cuda_device)]
+    n0 = fi.launches["any"]
+    k = fi.intersect_flat(*args, any_hit=True)
+    torch.cuda.synchronize()
+    assert fi.launches["any"] == n0 + 1 and k[1].shape == (n,)
+    sub = [a[::4].contiguous() for a in args[1:]]
+    p = fi.flat_plain(arrays.tri_pack, *sub, any_hit=True)
+    assert torch.equal(k[1][::4], p[1])
+    assert 0.02 < (p[1] >= 0).double().mean().item() < 0.98

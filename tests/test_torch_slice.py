@@ -31,6 +31,7 @@ from rgk_tpu_torch.integrator import path as tpath
 from rgk_tpu_torch.io import load_texture, read_exr
 from rgk_tpu_torch.ops import intersect as isect
 from rgk_tpu_torch.parity import image_parity
+from rgk_tpu_torch.scene import config as tconfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -215,20 +216,26 @@ def test_resume_matches_straight_run(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    # Bidirectional rendering.
-    path = _box(tmp_path, reverse=2)
-    arrays, meta, cfg = scenes.port_build(path)
-    with pytest.raises(NotImplementedError, match="reverse"):
-        RenderDriver(cfg.settings, arrays, meta, cfg.get_camera())
+    """The one input the port still refuses is a line-based .rtc scene:
+    NotImplementedError from load_config and from the CLI, before any
+    output.  BDPT (reverse > 0) and the tint-thinglass extension, which
+    raised before they were ported, now set up a render driver."""
+    rtc = tmp_path / "scene.rtc"
+    rtc.write_text("output-file x.exr\n")
+    with pytest.raises(NotImplementedError, match="line-based .rtc"):
+        tconfig.load_config(str(rtc))
+    with pytest.raises(NotImplementedError, match="line-based .rtc"):
+        cli.main([str(rtc), "--cpu", "-q", "-D", str(tmp_path / "out")])
+    assert not os.path.exists(tmp_path / "out")
 
-    # The tint-thinglass extension.
     tinted = scenes.box_config(thinglass=["mirror"])
     tinted["tint-thinglass"] = True
-    path = scenes.write_config(tmp_path, tinted, "tint.json")
-    arrays, meta, cfg = scenes.port_build(path)
-    assert meta.has_thinglass
-    with pytest.raises(NotImplementedError, match="tint-thinglass"):
-        RenderDriver(cfg.settings, arrays, meta, cfg.get_camera())
+    for path in (_box(tmp_path, reverse=2),
+                 scenes.write_config(tmp_path, tinted, "tint.json")):
+        arrays, meta, cfg = scenes.port_build(path)
+        drv = RenderDriver(cfg.settings, arrays, meta, cfg.get_camera())
+        assert drv.bdpt == (int(cfg.settings.reverse) > 0)
+    assert meta.has_thinglass and cfg.settings.tint_thinglass
 
 
 def _tree_through(front_end, calls):
@@ -261,6 +268,28 @@ def test_trace_through_binned_pipeline(tmp_path, monkeypatch):
     assert torch.equal(traces["binned"][0], traces["k2"][0])
     assert int(traces["binned"][1]) == int(traces["k2"][1])
     _assert_close(traces["binned"], _reference_trace(path, has_bvh=True))
+
+
+def test_colonnade_routes_agree_on_the_cpu(tmp_path, monkeypatch):
+    """The small colonnade of chip_smoke.py phase 8 (33,960 triangles,
+    depth 2; here 32x18, 2 spp) renders to the same image bit for bit
+    through intersect_bvh and through the K2 front end's plain version:
+    where the card's image parts from the CPU's (ROADMAP.md section 3,
+    fault 2), the intersection route is not the cause."""
+    path = scenes.colonnade(tmp_path, 20000, **{"output-width": 32,
+                                                "output-height": 18,
+                                                "multisample": 2})
+    images, calls = {}, []
+    for name in ("bvh", "k2"):
+        if name == "k2":
+            monkeypatch.setattr(isect, "intersect_bvh", _tree_through(
+                isect.intersect_clusters, calls))
+        out = tmp_path / name
+        assert cli.main([path, "--cpu", "-q", "-D", str(out)]) == 0
+        images[name] = read_exr(os.path.join(str(out), "colonnade.exr"))
+    assert True in calls and False in calls
+    np.testing.assert_array_equal(images["k2"], images["bvh"])
+    assert images["bvh"].mean() > 0.0
 
 
 def test_cpu_render_ignores_rgk_binned(tmp_path, monkeypatch):

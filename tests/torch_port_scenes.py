@@ -8,19 +8,24 @@ point lights, thin glass and a thin lens.  `jax_build` and `port_build`
 commit one config through rgk_tpu and rgk_tpu_torch.  `soup` and
 `rays` make the random triangle soups and rays of
 tests/test_intersect.py; `assert_same` compares two committed trees
-bit for bit.
+bit for bit.  `far_sphere_tree` and `assert_binned_contract` hold the
+binned front end to K2's on far scenes, on the CPU and on the card.
+
+JAX and rgk_tpu are imported only by `jax_build`, so the card tests,
+which run where JAX is not installed, can use the rest.
 """
 
 import importlib.util
 import json
 import os
 
-import jax
 import numpy as np
 import torch
 
-from rgk_tpu.scene import config as jconfig
+from rgk_tpu_torch.ops import flat_intersect as fi
+from rgk_tpu_torch.scene import clusters as tclusters
 from rgk_tpu_torch.scene import config as tconfig
+from rgk_tpu_torch.scene.builder import build_tri_pack
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools")
@@ -168,6 +173,10 @@ def zoo_config(tmp_path, res=8, ms=2):
 
 def jax_build(path):
     """-> (numpy SceneArrays tree, jax SceneArrays, SceneMeta, Config)."""
+    import jax
+
+    from rgk_tpu.scene import config as jconfig
+
     cfg = jconfig.load_config(path)
     arrays, meta, _ = jconfig.build_scene(cfg)
     return jax.tree_util.tree_map(np.asarray, arrays), arrays, meta, cfg
@@ -178,3 +187,88 @@ def port_build(path, device="cpu"):
     cfg = tconfig.load_config(path)
     arrays, meta, _ = tconfig.build_scene(cfg, device)
     return arrays, meta, cfg
+
+
+# The far scenes of the binned front end (ROADMAP.md section 3, fault 1).
+FAR_SPHERES = {
+    # center, radius, camera distance, seed
+    "far": ((300.0, -200.0, 500.0), 1.0, 200.0, 12),
+    "tiny": ((0.0, 0.0, 0.0), 0.05, 150.0, 13),
+}
+# Where the binned and K2 ids differ, the two hits' t agree within this
+# rtol (two triangles that share the edge the ray passes), and each id's
+# row, taken in float64, puts the hit within T_RTOL of its route's t.
+SAME_POINT_RTOL = 1e-5
+T_RTOL = 3e-4
+MAX_DIFFER = 1e-3   # share of the rays whose ids may differ
+
+
+def far_sphere_tree(dev, scene, n_rays=1 << 16):
+    """A closed sphere of ~16,000 small triangles (`FAR_SPHERES[scene]`)
+    as a cluster tree, and rays aimed from far away at points near
+    triangle edges and corners: many hits lie within rounding of an
+    edge shared by two triangles.  -> (ClusterArrays, tri_pack [M, 13],
+    [ro, rd, t_min, t_max, exclude])."""
+    center, radius, cam_dist, seed = FAR_SPHERES[scene]
+    verts, _, faces = tool("make_bigscene").make_sphere(16_400, *center,
+                                                        radius)
+    verts = np.asarray(verts, np.float32)
+    faces = np.asarray(faces, np.int32)
+    pack = np.zeros((faces.shape[0], 13), np.float32)
+    pack[:, :12] = build_tri_pack(verts, faces)
+    cl = tclusters.build_clusters(verts, faces, pack, device=dev)
+    rng = np.random.default_rng(seed)
+    corners = verts[faces[rng.integers(0, faces.shape[0], n_rays)]]
+    target = (corners * rng.dirichlet([0.3] * 3, n_rays)[:, :, None]).sum(1)
+    away = rng.normal(size=(n_rays, 3))
+    away /= np.linalg.norm(away, axis=1, keepdims=True)
+    ro = (np.asarray(center) + cam_dist * away).astype(np.float32)
+    rd = target - ro
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    return cl, torch.from_numpy(pack).to(dev), [
+        torch.from_numpy(x).to(dev) for x in (
+            ro, rd, np.zeros(n_rays, np.float32),
+            np.full(n_rays, 1e4, np.float32), np.full(n_rays, -1, np.int32))]
+
+
+def row_t64(pack, ro, rd, tri):
+    """t of each ray against its triangle's Badouel row, in float64."""
+    w = pack[tri.long()].double().cpu()
+    o, d = ro.double().cpu(), rd.double().cpu()
+    return -((w[:, 0:3] * o).sum(1) + w[:, 3]) / (w[:, 0:3] * d).sum(1)
+
+
+def assert_binned_contract(pack, rays, binned, k2, never_later=True):
+    """The binned front end against K2's on one query (closest hit):
+    ids differ on at most MAX_DIFFER of the rays; where they differ, both
+    hit, at the same point (t within SAME_POINT_RTOL of each other), both
+    t lie within T_RTOL of the exhaustive oracle's closest t (flat_plain
+    over the whole tri_pack), and each id's row in float64 puts the hit
+    within T_RTOL of its route's t.  With `never_later`, the binned hit
+    is never later in (t, id) than K2's (so on the plain route; on the
+    card, where both kernels contract multiply-adds to FMA, either may be
+    the later one).  -> (rays that differ, rays where the binned hit is
+    the earlier one, rays where it is the later one)."""
+    (bt, bid), (kt, kid) = binned[:2], k2[:2]
+    differ = torch.nonzero(bid != kid).flatten()
+    n = int(differ.numel())
+    assert n <= MAX_DIFFER * bid.numel(), f"ids differ on {n} rays"
+    earlier = (bt < kt) | ((bt == kt) & (bid < kid))
+    later = (bt > kt) | ((bt == kt) & (bid > kid))
+    if n:
+        ro, rd = rays[0][differ], rays[1][differ]
+        b_t, k_t = bt[differ].double(), kt[differ].double()
+        assert bool((bid[differ] >= 0).all() and (kid[differ] >= 0).all())
+        assert bool(((b_t - k_t).abs() <= SAME_POINT_RTOL * k_t.abs()).all())
+        oracle = fi.flat_plain(pack, ro.contiguous(), rd.contiguous(),
+                               *(x[differ].contiguous() for x in rays[2:]))
+        o_t = oracle[0].double()
+        assert bool((oracle[1] >= 0).all())
+        for t in (b_t, k_t):
+            assert bool(((t - o_t).abs() <= T_RTOL * o_t.abs()).all())
+        for t, tri in ((b_t, bid[differ]), (k_t, kid[differ])):
+            t64 = row_t64(pack, ro, rd, tri)
+            assert bool(((t64 - t.cpu()).abs() <= T_RTOL * t64.abs()).all())
+    if never_later:
+        assert int(later.sum()) == 0, f"binned later on {int(later.sum())}"
+    return n, int(earlier.sum()), int(later.sum())
