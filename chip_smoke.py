@@ -14,7 +14,7 @@ their scene once more under torch.profiler, and phase 10 the colonnade
 once more with RGK_BINNED=all, and print the round's device time per
 kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
 busy share.  It drives
-rgk_tpu_torch, never JAX, through fifteen phases and exits non-zero at
+rgk_tpu_torch, never JAX, through nineteen phases and exits non-zero at
 the first that fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -87,7 +87,37 @@ the first that fails:
 15. BDPT through K2: the box plus the 5,000-triangle sphere at 256x256,
    4 spp, reverse 4: K2 launches, the first splat visibility query
    (1,048,576 rays) replayed through K2 and cluster_plain, and the card
-   image against the CPU image at 64x64, 4 spp, depth 3.
+   image against the CPU image at 64x64, 4 spp, depth 3;
+16. gradients through K1 at full width: phase 5's scene plus a point
+   light, 512x512, 4 spp (1,048,576 lanes), depth 4, no roulette, the L2
+   loss of `diff.params.make_loss_fn` against a target rendered with the
+   diffuse albedo scaled by 0.8: forward and backward ms (medians of 3),
+   peak memory, K1 launches, central differences on the card for
+   `mat_diffuse`, `mat_emission` and `light_intensity` (eps 1e-3, rtol
+   0.03, as tests/test_grad.py) of the loss with the light-pick tables
+   held at the base parameters (the gradient detaches them; with the
+   tables free, a change of intensity or emission moves some of the 1M
+   lanes between the point and the areal light, a jump the central
+   difference of the full loss also reports, printed beside it), one
+   `torch.optim.SGD` step that must lower the loss, and the first
+   closest-hit query replayed through K1 and flat_plain; then
+   tests/test_grad.py's scene (8x8, 4 spp, a glossy cube): the gradient
+   of `mat_roughness`, which moves the glossy bounce's rays, against
+   central differences (eps 2e-4, rtol 0.08, as tests/test_grad.py) and
+   against the CPU's gradient (rtol 5e-3);
+17. gradients through K2: the box plus the 5,000-triangle sphere (its
+   own material), 256x256, 4 spp: the sphere's albedo by central
+   difference, K2 launches, no K1 launch;
+18. the debug replay and `.rtc`: the CLI with `-d 256 256` on the flat
+   scene (bounce 0's triangle and material as the CPU replay's, its
+   position within rtol 1e-4), and a line-based `.rtc` scene (a floor
+   quad and a 600-triangle ball in one OBJ) rendered through the CLI on
+   the card (K1) against its CPU image under the parity bounds;
+19. distribution on one card: the 64x64 box through the CLI plain, with
+   `--devices 1` and with `--coordinator localhost:<port>
+   --num-processes 1 --process-id 0` (NCCL, world size 1): EXRs and
+   checkpoints equal bit for bit; a mesh that lists the card twice is
+   refused.
 
 The colonnade is composed from tools/make_bigscene's functions with its
 budget split; its stone texture is written as the linear EXR that the
@@ -117,8 +147,8 @@ averaged over warps.
 
 Prints one line per phase with its wall seconds, then a JSON line of
 the kernels (launch counts from the renders, each render's counts set
-to 0 just before it and read just after: K1 the sum of phases 5, 13
-and 14, K2 of phases 7, 13 and 15, K3/K4 of the two binned renders, the
+to 0 just before it and read just after: K1 the sum of phases 5, 13,
+14 and 16-19, K2 of phases 7, 13, 15 and 17, K3/K4 of the two binned renders, the
 BDPT splat-query rows those of phases 14 and 15, the probes their tool
 runs; ms, plain_ms,
 bound_ms, bound_by, share, library_ms null, parent_ms for K1-K4 with
@@ -132,8 +162,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -146,19 +178,25 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import make_bigscene as mb  # noqa: E402
 from bdpt_scene import scene_dict  # noqa: E402
+from torch_port_scenes import GRAD_SCENE, write_rtc_scene  # noqa: E402
 
 from rgk_tpu_torch import kernels  # noqa: E402
+from rgk_tpu_torch.diff import params as dparams  # noqa: E402
 from rgk_tpu_torch.driver import cli  # noqa: E402
+from rgk_tpu_torch.integrator.debug import trace_pixel_debug  # noqa: E402
 from rgk_tpu_torch.integrator import path as tpath  # noqa: E402
 from rgk_tpu_torch.io import gamma_decode, read_exr, write_exr  # noqa: E402
 from rgk_tpu_torch.ops import binned_intersect as bi  # noqa: E402
 from rgk_tpu_torch.ops import cluster_intersect as ci  # noqa: E402
 from rgk_tpu_torch.ops import flat_intersect as fi  # noqa: E402
 from rgk_tpu_torch.ops import intersect as isect  # noqa: E402
+from rgk_tpu_torch.parallel.mesh import MeshContext  # noqa: E402
 from rgk_tpu_torch.parity import image_parity  # noqa: E402
+from rgk_tpu_torch.scene import config as tconfig  # noqa: E402
 from rgk_tpu_torch.scene import clusters as tclusters  # noqa: E402
 from rgk_tpu_torch.scene.builder import build_tri_pack  # noqa: E402
 from rgk_tpu_torch.tools import prof_smem_probe as p1  # noqa: E402
@@ -208,6 +246,26 @@ COLONNADE_RES, COLONNADE_MS = (960, 540), 8
 BDPT_RES, BDPT_MS, BDPT_REVERSE = 512, 16, 4
 BVH_SPHERE = 5000     # triangles of the sphere that makes a BVH scene
 K2_BDPT_RES, K2_BDPT_MS = 256, 4
+# Gradients (phases 16, 17): the flat smoke scene plus a point light at
+# 512x512, 4 spp (1,048,576 lanes), and the box plus the sphere at
+# 256x256, 4 spp; forward and backward timed over GRAD_RUNS runs.
+GRAD_RES, GRAD_MS, GRAD_RUNS = 512, 4, 3
+GRAD_LIGHT = {"position": [0.8, 2.2, 1.0], "color": [1.0, 0.95, 0.9],
+              "intensity": 3.0}
+# (leaf, material whose red channel is checked, or None for index 0)
+GRAD_K1_CHECKS = (("mat_diffuse", "white"), ("mat_emission", "glow"),
+                  ("light_intensity", None))
+GRAD_PEAK_LIMIT = 60e9  # bytes; above it the lanes would go in blocks
+# (leaf, flat index, eps, rtol) of tests/test_grad.py's roughness check,
+# and how far the card's gradient may lie from the CPU's: dropping the
+# hit point's term along the ray moves this one by 2.5% on the CPU.
+GRAD_ROUGHNESS = ("mat_roughness", 2, 2e-4, 0.08)
+GRAD_CARD_CPU_RTOL = 5e-3
+K2_GRAD_RES, K2_GRAD_MS = 256, 4
+DEBUG_PIXEL = (256, 256)
+RTC_RES = (96, 72)
+DIST_RES = 64
+CUDA = torch.device("cuda", 0)  # the card of phases 16-19
 
 
 class SmokeFailure(RuntimeError):
@@ -517,7 +575,7 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(f"[1/15 device] {torch.cuda.get_device_name(0)} | torch "
+    print(f"[1/19 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | "
           f"devices {torch.cuda.device_count()}")
 
@@ -537,7 +595,7 @@ def phase_build(parent_csrc=None):
         else:
             info, lib = kernels.build(), kernels.load()
         secs = time.perf_counter() - t0
-        print(f"[2/15 build] {who}{os.path.relpath(info['path'], ROOT)} "
+        print(f"[2/19 build] {who}{os.path.relpath(info['path'], ROOT)} "
               f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -601,7 +659,7 @@ def phase_k1(dev):
         times.append(f"{'any' if m else 'closest'} "
                      f"{fmt_ab(parent, new, k1_bound(window, m)[0])}, "
                      f"plain {plain:.3f}")
-    print(f"[3/15 K1 {n_tris} tris x {n_rays} rays] closest agree "
+    print(f"[3/19 K1 {n_tris} tris x {n_rays} rays] closest agree "
           f"{agree1:.6f} (excl pass {agree2:.6f}) max|err| "
           f"{max(err1, err2):.3g}; any-hit agree {agree3:.6f}; median ms "
           + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs); "
@@ -655,7 +713,7 @@ def phase_k2(dev):
             times.append(f"{'any' if m else 'closest'} "
                          f"{fmt_ab(parent, new, b)}, plain {plain:.3f}")
         tpc = max(1, halves // 2)
-        print(f"[4/15 K2 {n_tris} tris x {n_rays} rays, {layout}: "
+        print(f"[4/19 K2 {n_tris} tris x {n_rays} rays, {layout}: "
               f"chunk_halves {halves}, tpc {tpc}, "
               f"{cl.boxes_q.shape[0] // 3} nodes, host build {build_s:.3f} s]"
               f" closest agree {s1['agree']:.6f} (excl pass "
@@ -768,7 +826,8 @@ class FirstCalls:
         if self.first_t is None:
             self.first_t = time.perf_counter()
         if any_hit not in self.args:
-            self.args[any_hit] = [a.clone() if isinstance(a, torch.Tensor)
+            self.args[any_hit] = [a.detach().clone()
+                                  if isinstance(a, torch.Tensor)
                                   else a for a in args]
         if not self.timed:
             return self._orig(*args, **kw)
@@ -896,7 +955,7 @@ def phase_render(d):
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
     n_tris = first.args[False][0].shape[0]
     check(n_tris == 3870, f"scene has {n_tris} triangles, not 3870")
-    print(f"[5/15 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
+    print(f"[5/19 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
           f"{wall:.3f} s, "
           f"{rays} extension rays, {rays / wall:.1f} rays/s, K1 launches "
           f"{launches}, image mean {float(img.mean()):.5f}")
@@ -931,7 +990,7 @@ def phase_cpu_parity(d):
     cpu, _ = render(path, os.path.join(d, "cpu64"), "--cpu")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"card vs CPU image parity failed: {stats}")
-    print(f"[6/15 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
+    print(f"[6/19 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
           f" trimmed {stats['corr_trim']:.6f} mean rel diff "
           f"{stats['mean_rel_diff']:.3g} max|diff| {stats['max_abs_diff']:.3g}"
           f" outlier pixels {stats['outlier_pixels']}, max per tile "
@@ -986,7 +1045,7 @@ def phase_colonnade(d):
     host = builder.timings
     round_s = t1 - first.first_t
     k2_ms = first.stream_ms()
-    print(f"[7/15 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
+    print(f"[7/19 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
           f"{n_tris} tris]"
           f" CLI wall {t1 - t0:.3f} s, of which host build "
           f"{sum(host.values()):.3f} s ({builder.sah_builder} SAH builder: "
@@ -1178,7 +1237,7 @@ def phase_colonnade_parity(d):
         gpu_plain, _ = render(path, os.path.join(d, "col_gpu_plain"))
     check(ci.launches == {"closest": 0, "any": 0},
           f"the plain-K2 card render launched K2: {ci.launches}")
-    print(f"[8/15 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
+    print(f"[8/19 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
           f"{fmt_parity(stats)}; card with cluster_plain vs CPU: "
           f"{fmt_parity(image_parity(gpu_plain, cpu))}; card K2 vs card "
           f"cluster_plain: {fmt_parity(image_parity(gpu, gpu_plain))} "
@@ -1337,7 +1396,7 @@ def phase_binned_soup(dev, trees):
             k2, af = compare_front(args, False, K)
             _, ax = compare_front(args[:6] + [k2[1].contiguous()], False, K)
             _, aa = compare_front(args, True, K)
-            line = (f"[9/15 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
+            line = (f"[9/19 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
                     f"K={K}] K3 lists agree {a3:.6f} (lanes overflowing "
                     f"{over:.4f}); K4 ids agree {a4:.6f}, t within rtol "
                     f"{t4:.6f}, {c4:.6f} of the {s4:.6f} well-conditioned "
@@ -1452,7 +1511,7 @@ def phase_binned_colonnade(d, path, k2_img):
         check(stats["ok"], f"RGK_BINNED={mode} image against the K2 image: "
               f"{stats}")
         ms = st["ms"]
-        print(f"[10/15 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
+        print(f"[10/19 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
               f"{COLONNADE_MS}spp] CLI wall {st['wall']:.3f} s, round "
               f"(first query to EXR) {st['round']:.3f} s, {rays} extension "
               f"rays, {rays / st['round']:.1f} rays/s; launches K3 "
@@ -1533,7 +1592,7 @@ def phase_binned_small(d, path, cpu):
           f"K2 {ci.launches}")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"binned colonnade card vs CPU parity failed: {stats}")
-    print(f"[11/15 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
+    print(f"[11/19 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
           f"4spp depth 2] launches K3/K4 {dict(bi.launches)}, K2 "
           f"{dict(ci.launches)}; corr {stats['corr']:.6f} trimmed "
           f"{stats['corr_trim']:.6f} mean rel diff "
@@ -1549,7 +1608,7 @@ def phase_probes(dev):
     there), then one kernel of each timed against its plain version."""
     t_phase = time.perf_counter()
     reset_launches()
-    print("[12/15 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
+    print("[12/19 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
     check(p1.main([]) == 0, "P1 failed")
     print("    P2 (rgk_tpu_torch/tools/prof_sync.py):")
     check(p2.main([]) == 0, "P2 failed")
@@ -1674,7 +1733,7 @@ def phase_glass(d):
         check(tinted.n > 0, "the tint-thinglass render tinted nothing")
         got[kernel] = used
         stats = card_vs_cpu(d, f"glass_{kernel}_64", 0, sphere, True)
-        print(f"[13/15 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
+        print(f"[13/19 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
               f" via {kernel}{f', + {sphere}-tri sphere' if sphere else ''}]"
               f" wall {wall:.3f} s, {rays} extension rays, "
               f"{rays / wall:.1f} rays/s, launches {kernel} {used} (the other "
@@ -1718,7 +1777,7 @@ def phase_bdpt_k1(d):
     n_blocks = -(-BDPT_RES * BDPT_RES // block)
     check(scat.n == n_blocks, f"{scat.n} splat scatters for {n_blocks} blocks")
     round_s = t1 - first.first_t
-    print(f"[14/15 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
+    print(f"[14/19 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} depth 4 via K1] CLI wall {t1 - t0:.3f} s, round "
           f"(first query to EXR) {round_s:.3f} s, {rays} extension rays "
           f"(light + eye), {rays / round_s:.1f} rays/s; {n_blocks} blocks of "
@@ -1784,7 +1843,7 @@ def phase_bdpt_k2(d):
           f"the BDPT render did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
     round_s = t1 - first.first_t
-    print(f"[15/15 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
+    print(f"[15/19 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} via K2, box + {BVH_SPHERE}-tri sphere] CLI wall "
           f"{t1 - t0:.3f} s, round {round_s:.3f} s, {rays} extension rays, "
           f"{rays / round_s:.1f} rays/s, {steps.n} host-loop iterations; K2 "
@@ -1824,6 +1883,352 @@ def phase_bdpt_k2(d):
     return [entry], launches
 
 
+# ------------------------------------------ gradients, replay, distribution
+
+
+# The light-pick tables, which apply_params recomputes from the
+# parameters but detaches.
+PICK_TABLES = ("point_cum", "total_point_power", "areal_cum",
+               "total_areal_power")
+
+
+def grad_setup(path, dev, res, ms):
+    """The scene at `path` on `dev`, its lanes (every pixel x `ms`
+    samples), and make_loss_fn's L2 loss against a target rendered with
+    the diffuse albedo scaled by 0.8.  -> (loss_fn, held_loss, params,
+    meta): `held_loss` is the same loss with the light-pick tables held
+    at the base parameters', the function whose derivative the gradient
+    is (the sampling distribution is detached)."""
+    cfg = tconfig.load_config(path)
+    arrays, meta, _ = tconfig.build_scene(cfg, dev)
+    pix = torch.arange(res * res, device=dev)
+    px = (pix % res).to(torch.int32).repeat(ms)
+    py = (pix // res).to(torch.int32).repeat(ms)
+    si = torch.arange(ms, device=dev).repeat_interleave(res * res)
+    cam = cfg.get_camera().to(dev)
+    scaled = dparams.extract_params(arrays)
+    with torch.no_grad():
+        scaled["mat_diffuse"] = scaled["mat_diffuse"] * 0.8
+        target = tpath.render_lanes(
+            dparams.apply_params(arrays, scaled), meta, cfg.settings, cam,
+            px, py, si, 42, differentiable=True).radiance
+    loss_fn = dparams.make_loss_fn(arrays, meta, cfg.settings, cam, px, py,
+                                   si, 42, target)
+    base = dparams.apply_params(arrays, dparams.extract_params(arrays))
+    held = {f: getattr(base.lights, f).detach() for f in PICK_TABLES}
+
+    def held_loss(params):
+        s = dparams.apply_params(arrays, params)
+        s = s._replace(lights=s.lights._replace(**held))
+        diff = tpath.render_lanes(s, meta, cfg.settings, cam, px, py, si, 42,
+                                  differentiable=True).radiance - target
+        return torch.mean(diff * diff)
+
+    return loss_fn, held_loss, dparams.extract_params(arrays), meta
+
+
+def central_diff(loss_fn, params, key, idx, eps=1e-3):
+    """(loss(p + eps) - loss(p - eps)) / 2 eps at flat `idx` of leaf
+    `key`, on the card."""
+    flat = params[key].detach().reshape(-1).double()
+
+    def loss_at(v):
+        arr = flat.clone()
+        arr[idx] = v
+        with torch.no_grad():
+            return float(loss_fn({**params, key: arr.reshape(
+                params[key].shape).float()}))
+
+    return (loss_at(float(flat[idx]) + eps)
+            - loss_at(float(flat[idx]) - eps)) / (2 * eps)
+
+
+def fd_check(loss_fn, params, grads, key, idx, eps=1e-3, rtol=0.03):
+    """tests/test_grad.py's check on the card: the gradient of leaf
+    `key` at flat `idx` against central differences of `loss_fn`.
+    -> (gradient, finite difference)."""
+    g = float(grads[key].reshape(-1)[idx])
+    fd = central_diff(loss_fn, params, key, idx, eps)
+    check(np.isfinite(g), f"{key}[{idx}]: gradient {g}")
+    check(abs(g - fd) <= rtol * max(abs(fd), abs(g)) + 1e-6,
+          f"{key}[{idx}]: gradient {g} against central difference {fd}")
+    return g, fd
+
+
+def timed_grads(loss_fn, params, runs=GRAD_RUNS):
+    """`runs` forward + backward passes: -> (median forward ms, median
+    backward ms, peak bytes allocated, loss, gradients of the last)."""
+    fwd, bwd = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        loss = loss_fn(params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((time.perf_counter() - t1) * 1e3)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(params.items(), grads)}
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"non-finite gradient of {k}")
+    return (statistics.median(fwd), statistics.median(bwd),
+            torch.cuda.max_memory_allocated(), float(loss.detach()), grads)
+
+
+def sgd_step_lowers(loss_fn, params, grads):
+    """One torch.optim.SGD step on every leaf, the largest change 0.01:
+    -> (loss before, loss after); fails unless it went down."""
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    g_max = max(float(g.abs().max()) for g in grads.values())
+    opt = torch.optim.SGD(list(p.values()), lr=0.01 / g_max)
+    opt.zero_grad()
+    loss = loss_fn(p)
+    loss.backward()
+    opt.step()
+    with torch.no_grad():
+        after = float(loss_fn(p))
+    before = float(loss.detach())
+    check(after < before, f"an SGD step did not lower the loss: {before} "
+          f"-> {after}")
+    return before, after
+
+
+def grad_roughness(d):
+    """tests/test_grad.py's scene, lanes, seed and black target on the
+    card: the roughness of the glossy cube moves its bounce's rays, so
+    its gradient needs K1's hit points differentiated along the ray.
+    -> (card gradient, card central difference, CPU gradient) of
+    GRAD_ROUGHNESS's leaf, the first two checked at its eps and rtol,
+    the first and the last within GRAD_CARD_CPU_RTOL."""
+    path = os.path.join(d, "grad_scene.json")
+    with open(path, "w") as f:
+        json.dump(GRAD_SCENE, f)
+    key, idx, eps, rtol = GRAD_ROUGHNESS
+
+    def setup(dev):
+        cfg = tconfig.load_config(path)
+        arrays, meta, _ = tconfig.build_scene(cfg, dev, build_bvh=False)
+        i = torch.arange(64)
+        loss_fn = dparams.make_loss_fn(
+            arrays, meta, cfg.settings, cfg.get_camera(),
+            (i % 8).to(torch.int32), (i // 8).to(torch.int32),
+            torch.zeros(64, dtype=torch.int64), 3, torch.zeros(64, 3))
+        params = dparams.extract_params(arrays)
+        (g,) = torch.autograd.grad(loss_fn(params), [params[key]])
+        return loss_fn, params, {key: g}
+
+    g, fd = fd_check(*setup(CUDA), key, idx, eps, rtol)
+    g_cpu = float(setup(torch.device("cpu"))[2][key].reshape(-1)[idx])
+    check(abs(g - g_cpu) <= GRAD_CARD_CPU_RTOL * abs(g_cpu),
+          f"{key}[{idx}]: card gradient {g}, CPU gradient {g_cpu}")
+    return g, fd, g_cpu
+
+
+def phase_grad_k1(d):
+    """-> K1 launches of the gradient runs."""
+    t_phase = time.perf_counter()
+    res, ms = GRAD_RES, GRAD_MS
+    sub = os.path.join(d, "grad_k1")
+    os.makedirs(sub)
+    path = write_box(sub, res=res, ms=ms, lights=[GRAD_LIGHT])
+    loss_fn, held_loss, params, meta = grad_setup(path, CUDA, res, ms)
+    check(not meta.has_bvh and meta.n_triangles == 3870,
+          f"phase 16's scene: {meta.n_triangles} triangles, bvh "
+          f"{meta.has_bvh}")
+    reset_launches()
+    index = {k: 0 if m is None else 3 * meta.material_names.index(m)
+             for k, m in GRAD_K1_CHECKS}
+    with FirstCalls(isect, "intersect_flat") as first:
+        fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params)
+        checks = [(k, i, *fd_check(held_loss, params, grads, k, i),
+                   central_diff(loss_fn, params, k, i))
+                  for k, i in index.items()]
+        before, after = sgd_step_lowers(loss_fn, params, grads)
+    rough_g, rough_fd, rough_cpu = grad_roughness(sub)
+    launches, k2 = dict(fi.launches), dict(ci.launches)
+    check(launches["closest"] > 0 and launches["any"] > 0,
+          f"the gradient runs did not go through K1: {launches}")
+    check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
+    check(peak <= GRAD_PEAK_LIMIT, f"peak memory {peak} bytes")
+    args = first.args[False]
+    _, agree, err = compare(args, False)
+    print(f"[16/19 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
+          f"lanes, depth 4, 3870 tris + a point light, L2 against albedo "
+          f"x 0.8] forward {fwd:.3f} ms, backward {bwd:.3f} ms (medians of "
+          f"{GRAD_RUNS}), peak memory {peak / 2**30:.3f} GiB in one block "
+          f"(no split), loss {loss:.6g}, K1 launches {launches}; "
+          + "; ".join(f"{k}[{i}] grad {g:.6g} central diff {fd:.6g} "
+                      f"(tables free: {fd_free:.6g})"
+                      for k, i, g, fd, fd_free in checks)
+          + f"; SGD step loss {before:.6g} -> {after:.6g}; test_grad's "
+          f"scene {GRAD_ROUGHNESS[0]}[{GRAD_ROUGHNESS[1]}] grad {rough_g:.6g}"
+          f" central diff {rough_fd:.6g} (CPU grad {rough_cpu:.6g}); first "
+          f"closest query ({args[1].shape[0]} rays) K1 vs flat_plain agree "
+          f"{agree:.6f} max|err| {err:.3g} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    return launches
+
+
+def phase_grad_k2(d):
+    """-> K2 launches of the gradient runs."""
+    t_phase = time.perf_counter()
+    res, ms = K2_GRAD_RES, K2_GRAD_MS
+    cfg = scene_dict(res=res, ms=ms, reverse=0)
+    cfg["materials"].append({"name": "ball", "brdf": "diffuse",
+                             "diffuse": [0.6, 0.3, 0.2]})
+    verts, nrms, faces = mb.make_sphere(BVH_SPHERE, 0.0, 0.9, 0.6, 0.6)
+    mb._write_obj(os.path.join(d, "grad_ball.obj"), verts, nrms, faces)
+    cfg["scene"].append({"file": "grad_ball.obj", "material": "ball"})
+    path = os.path.join(d, "grad_k2.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    loss_fn, held_loss, params, meta = grad_setup(path, CUDA, res, ms)
+    check(meta.has_bvh, "phase 17's scene has no BVH")
+    ball = 3 * meta.material_names.index("ball")
+    reset_launches()
+    fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params, runs=1)
+    g, fd = fd_check(held_loss, params, grads, "mat_diffuse", ball)
+    check(abs(g) > 1e-7, "no gradient reaches the sphere's albedo")
+    launches, k1 = dict(ci.launches), dict(fi.launches)
+    check(launches["closest"] > 0 and launches["any"] > 0,
+          f"the gradient runs did not go through K2: {launches}")
+    check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
+    print(f"[17/19 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
+          f"{res}x{res} {ms}spp] forward {fwd:.3f} ms, backward {bwd:.3f} "
+          f"ms, peak memory {peak / 2**30:.3f} GiB, loss {loss:.6g}; the "
+          f"sphere's albedo mat_diffuse[{ball}] grad {g:.6g} central diff "
+          f"{fd:.6g}; K2 launches {launches}, K1 none "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    return launches
+
+
+def phase_debug_rtc(d):
+    """-> K1 launches of the CLI runs on the card."""
+    t_phase = time.perf_counter()
+    sub = os.path.join(d, "debug")
+    os.makedirs(sub)
+    path = write_box(sub, res=FLAT_RES, ms=1)
+    x, y = DEBUG_PIXEL
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main([path, "-q", "-D", os.path.join(sub, "out"), "-d",
+                        str(x), str(y)]) == 0, "the CLI with -d failed")
+    printed = buf.getvalue()
+    check(f"[debug {x},{y} s0] camera ray" in printed,
+          "the CLI's -d printed no camera ray")
+    recs = {}
+    for dev in ("card", "cpu"):
+        cfg = tconfig.load_config(path)
+        arrays, meta, _ = tconfig.build_scene(
+            cfg, CUDA if dev == "card" else torch.device("cpu"))
+        recs[dev] = trace_pixel_debug(arrays, meta, cfg.settings,
+                                      cfg.get_camera(), x, y,
+                                      printer=lambda *_: None)
+    gpu, cpu = recs["card"][0], recs["cpu"][0]
+    name = meta.material_names[cpu["mat_id"]]
+    check(f"b0: tri {cpu['tri']} mat '{name}'" in printed,
+          f"the CLI's bounce 0 is not the CPU replay's tri {cpu['tri']} "
+          f"mat '{name}':\n{printed}")
+    check((gpu["tri"], gpu["mat_id"]) == (cpu["tri"], cpu["mat_id"]),
+          f"bounce 0: card tri/mat {gpu['tri']}/{gpu['mat_id']}, CPU "
+          f"{cpu['tri']}/{cpu['mat_id']}")
+    pos_err = float(np.max(np.abs(np.subtract(gpu["pos"], cpu["pos"]))
+                           / np.maximum(np.abs(cpu["pos"]), 1e-30)))
+    check(np.allclose(gpu["pos"], cpu["pos"], rtol=1e-4, atol=0.0),
+          f"bounce 0 position: card {gpu['pos']}, CPU {cpu['pos']}")
+    debug_k1 = dict(fi.launches)
+
+    rtc_dir = os.path.join(d, "rtc")
+    os.makedirs(rtc_dir)
+    rtc = write_rtc_scene(rtc_dir, RTC_RES, 4, 3)
+    reset_launches()
+    check(cli.main([rtc, "-q", "-D", os.path.join(rtc_dir, "gpu")]) == 0,
+          "the CLI failed on the .rtc scene")
+    rtc_k1 = dict(fi.launches)
+    check(rtc_k1["closest"] > 0 and rtc_k1["any"] > 0,
+          f"the .rtc render did not go through K1: {rtc_k1}")
+    check(cli.main([rtc, "-q", "--cpu", "-D",
+                    os.path.join(rtc_dir, "cpu")]) == 0,
+          "the CLI failed on the .rtc scene on the CPU")
+    gpu_img = read_exr(os.path.join(rtc_dir, "gpu", "rtc.exr"))
+    cpu_img = read_exr(os.path.join(rtc_dir, "cpu", "rtc.exr"))
+    check_image(gpu_img, (RTC_RES[1], RTC_RES[0], 3))
+    stats = image_parity(gpu_img, cpu_img)
+    check(stats["ok"], f".rtc card vs CPU image parity failed: {stats}")
+    print(f"[18/19 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
+          f"scene; .rtc scene {RTC_RES[0]}x{RTC_RES[1]} 4spp depth 3] the "
+          f"CLI printed {len(printed.splitlines())} lines; {len(recs['card'])}"
+          f" bounces on the card, {len(recs['cpu'])} on the CPU; bounce 0 "
+          f"tri {gpu['tri']} mat '{name}' on both, position max rel diff "
+          f"{pos_err:.3g}; K1 launches {debug_k1}; .rtc render K1 launches "
+          f"{rtc_k1}, card vs CPU: {fmt_parity(stats)} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    return {m: debug_k1[m] + rtc_k1[m] for m in ("closest", "any")}
+
+
+def free_port():
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def outputs(out_dir, name):
+    img = read_exr(os.path.join(out_dir, name + ".exr"))
+    with np.load(os.path.join(out_dir, name + ".exr.ckpt.npz")) as ck:
+        return img, {k: ck[k] for k in ck.files}
+
+
+def phase_distribution(d):
+    """-> K1 launches of the distributed renders."""
+    t_phase = time.perf_counter()
+    path = write_bdpt(d, "dist", DIST_RES, 4, 0)
+    runs = (("plain", []), ("devices", ["--devices", "1"]),
+            ("nccl", ["--coordinator", f"localhost:{free_port()}",
+                      "--num-processes", "1", "--process-id", "0"]))
+    reset_launches()
+    got = {}
+    for name, extra in runs:
+        out = os.path.join(d, f"dist_{name}")
+        check(cli.main([path, "-q", "-D", out, *extra]) == 0,
+              f"the CLI failed with {extra}")
+        got[name] = outputs(out, "bdpt_box")
+    world = torch.distributed.get_world_size()
+    backend = torch.distributed.get_backend()
+    torch.distributed.destroy_process_group()
+    launches = dict(fi.launches)
+    check(launches["closest"] > 0 and launches["any"] > 0,
+          f"the distributed renders did not go through K1: {launches}")
+    for name in ("devices", "nccl"):
+        check(np.array_equal(got[name][0], got["plain"][0]),
+              f"--{name} EXR differs from the plain render's")
+        for k, v in got["plain"][1].items():
+            check(np.array_equal(got[name][1][k], v),
+                  f"--{name} checkpoint {k} differs from the plain render's")
+
+    # Shards on one card would share K2's per-card work counter.
+    try:
+        MeshContext(devices=[CUDA, CUDA])
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    check(refused, "a mesh listing the card twice was built")
+    print(f"[19/19 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
+          f"--devices 1 and {backend} world size {world} (--coordinator "
+          f"localhost) write the plain render's EXR and checkpoint bit for "
+          f"bit; a mesh listing the card twice is refused; K1 launches "
+          f"{launches} ({time.perf_counter() - t_phase:.1f} s)")
+    return launches
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="CSRC", help="an earlier version's "
@@ -1859,16 +2264,21 @@ def main(argv=None):
         glass = phase_glass(d)
         bdpt1, k1_bdpt = phase_bdpt_k1(d)
         bdpt2, k2_bdpt = phase_bdpt_k2(d)
-    # The K1 and K2 rows count every render of their kernel's paths.
+        k1_grad = phase_grad_k1(d)
+        k2_grad = phase_grad_k2(d)
+        k1_debug = phase_debug_rtc(d)
+        k1_dist = phase_distribution(d)
+    # The K1 and K2 rows count every run of their kernel's paths.
+    more = {"flat_intersect": (glass["K1"], k1_bdpt, k1_grad, k1_debug,
+                               k1_dist),
+            "cluster_intersect": (glass["K2"], k2_bdpt, k2_grad)}
     for e in entries:
         for kernel, mode in (("flat_intersect", "closest"),
                              ("flat_intersect", "any"),
                              ("cluster_intersect", "closest"),
                              ("cluster_intersect", "any")):
             if e["name"] == f"{kernel}_{mode}":
-                more = ((glass["K1"], k1_bdpt) if kernel == "flat_intersect"
-                        else (glass["K2"], k2_bdpt))
-                e["launches"] += sum(m[mode] for m in more)
+                e["launches"] += sum(m[mode] for m in more[kernel])
     entries += bdpt1 + bdpt2
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")

@@ -24,13 +24,21 @@ kernel K3 and the chunk-sweep kernel K4 (`ops/binned_intersect.py`).
 On the CPU the kernels' plain versions run, and BVH scenes walk
 `ops/intersect.intersect_bvh`, the reference's own non-TPU route.
 
-Still raising NotImplementedError: line-based `.rtc` configs.  Not
-ported yet: gradients, the debug replay, multi-GPU.
+Also ported: line-based `.rtc` configs (`scene/rtc.py`); gradients
+(`diff/params.py`: autograd through `render_lanes`, hits detached);
+the `-d X Y` per-bounce replay (`integrator/debug.py`); lanes sharded
+over several devices of one process (`parallel/mesh.py`) and rendering
+in several processes over `torch.distributed`, NCCL on the card and
+gloo on the CPU (`parallel/multihost.py`).  The port does everything
+`rgk_tpu` does; a device other than the CPU or a CUDA card raises.
 
 Public entry points:
     rgk_tpu_torch.scene.config.load_config / build_scene
     rgk_tpu_torch.driver.render.RenderDriver
     rgk_tpu_torch.driver.cli.main   (python -m rgk_tpu_torch.driver.cli)
+    rgk_tpu_torch.diff.params.extract_params / apply_params / make_loss_fn
+    rgk_tpu_torch.integrator.debug.trace_pixel_debug
+    rgk_tpu_torch.parallel.mesh.MeshContext
     python -m rgk_tpu_torch.tools.prof_smem_probe   (probe P1, on a card)
     python -m rgk_tpu_torch.tools.prof_sync         (probe P2, on a card)
 """

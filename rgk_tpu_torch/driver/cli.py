@@ -3,6 +3,13 @@
 Renders on the CUDA device unless --cpu is given; without a CUDA
 device and without --cpu it raises rather than falling back.
 
+Distribution: `--devices N` shards each block's lanes over N local
+devices (every visible card by default; with --cpu, N shards on the
+CPU); `--coordinator HOST:PORT --num-processes P --process-id I` renders
+with P processes, each a contiguous slice of the pixel blocks (NCCL on
+the card, gloo with --cpu).  `-d X Y` prints a per-bounce trace of one
+pixel before rendering.
+
 Usage:
     python -m rgk_tpu_torch.driver.cli scene.json [options]
 """
@@ -15,7 +22,10 @@ import sys
 
 import torch
 
+from ..integrator.debug import trace_pixel_debug
 from ..ops.sampler import MODE_NAMES
+from ..parallel import multihost
+from ..parallel.mesh import MeshContext
 from ..scene.config import build_scene, load_config
 from ..utils import log as out
 from ..utils.format import format_time
@@ -33,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rgk_tpu_torch",
         description="Path tracer, PyTorch/CUDA port of rgk_tpu")
-    p.add_argument("config", help="scene configuration JSON")
+    p.add_argument("config", help="scene configuration (JSON or .rtc)")
     p.add_argument("-p", "--preview", action="store_true",
                    help="preview: resolution/4, multisample/2")
     p.add_argument("-t", "--timed", type=float, metavar="MINUTES",
@@ -59,8 +69,21 @@ def build_parser() -> argparse.ArgumentParser:
                    default="halton", help="sampler family")
     p.add_argument("--chunk-lanes", type=int, default=1 << 20,
                    help="max wavefront lanes per pixel block")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard lanes over N local devices (0 = every "
+                        "visible card; with --cpu, N shards on the CPU)")
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU (plain versions of the kernels)")
+    p.add_argument("--coordinator", metavar="HOST:PORT", default="",
+                   help="multi-process: address of process 0")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="multi-process: total participating processes")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="multi-process: this process's rank")
+    p.add_argument("-d", "--debug-pixel", nargs=2, type=int,
+                   metavar=("X", "Y"),
+                   help="print a per-bounce trace of one pixel before "
+                        "rendering")
     return p
 
 
@@ -73,10 +96,30 @@ def select_device(cpu: bool) -> torch.device:
     return torch.device("cuda")
 
 
+def make_mesh(devices: int, device: torch.device):
+    """The device mesh of `--devices`, or None for one device.  On the
+    card: `devices` of the visible cards (every one for 0, clamped to
+    the visible count); a mesh is built when more than one card is
+    visible or `devices` is given.  On the CPU: `devices` shards."""
+    if device.type == "cpu":
+        return MeshContext(devices=[device] * devices) if devices > 1 \
+            else None
+    visible = torch.cuda.device_count()
+    n = min(devices, visible) if devices > 0 else visible
+    if n > 1 or devices > 0:
+        return MeshContext(n)
+    return None
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     out.set_verbosity(2 + args.verbose - args.quiet)
     device = select_device(args.cpu)
+    if args.num_processes > 1 or args.coordinator:
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, device)
+        if multihost.process_index() != 0:
+            out.set_verbosity(0)  # one progress stream: process 0's
 
     cfg = load_config(args.config)
     s = cfg.settings
@@ -99,6 +142,9 @@ def main(argv=None) -> int:
     out.log(2, f"Loading scene from {args.config} onto {device}")
     arrays, meta, _ = build_scene(cfg, device)
     sampler_mode = MODE_NAMES[args.sampler]
+    mesh = make_mesh(args.devices, device)
+    if mesh is not None:
+        out.log(2, f"Sharding lanes over {mesh.n} devices")
 
     frames = ANIMATION_FRAMES if args.rotate else 1
     for frame in range(frames):
@@ -110,9 +156,13 @@ def main(argv=None) -> int:
             continue
         cam = cfg.get_camera(rotation)
         cfg.post_check()
+        if args.debug_pixel is not None and frame == 0:
+            dx, dy = args.debug_pixel
+            trace_pixel_debug(arrays, meta, s, cam, dx, dy, seed=args.seed,
+                              sampler_mode=sampler_mode)
         driver = RenderDriver(s, arrays, meta, cam, seed=args.seed,
                               sampler_mode=sampler_mode,
-                              chunk_lanes=args.chunk_lanes)
+                              chunk_lanes=args.chunk_lanes, mesh=mesh)
         if args.resume:
             nr = driver.try_resume(frame_file + ".ckpt.npz")
             if nr:

@@ -1,5 +1,5 @@
 """Progressive render driver: rounds / timed loop over pixel blocks
-(port of rgk_tpu/driver/render.py, single process, single device).
+(port of rgk_tpu/driver/render.py).
 
 Each round renders every pixel x multisample once.  The frame is cut
 into pixel blocks: unidirectional renders (`reverse == 0`) trace blocks
@@ -14,6 +14,14 @@ when the EXR is written.  The ray counter counts extension rays, the
 light subpaths' included.  Seeds derive from (seed, round), so a
 checkpoint of (sum, count, next round, seed) resumes with fresh sample
 indices.
+
+With a `parallel.mesh.MeshContext` each block's lanes are sharded over
+its devices (blocks rounded up to a multiple of the mesh size).  Under
+several processes (`parallel.multihost`) blocks are at most a
+process's share of the pixels, each process renders a contiguous slice
+of them, and `fetch_accumulation` is a collective that sums the
+processes' accumulators and counters; process 0 alone writes the EXR
+and the checkpoint, decides the timed stop and loads a checkpoint.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 from ..integrator.path import (trace_wavefront_queued,
                                trace_wavefront_queued_bdpt)
 from ..io import AccumulationImage
+from ..parallel import multihost
 from ..utils import log as out
 from ..utils.format import LowPass, format_int_thousands, format_time
 from .monitor import FrameMonitor
@@ -47,14 +56,18 @@ class RenderStats:
 
 
 class RenderDriver:
-    """Drives progressive rendering of one frame on the scene's device."""
+    """Drives progressive rendering of one frame on the scene's device
+    (or the devices of `mesh`)."""
 
     def __init__(self, settings, scene, meta, camera, seed: int = 42,
-                 sampler_mode: int = 1, chunk_lanes: int = 1 << 20):
+                 sampler_mode: int = 1, chunk_lanes: int = 1 << 20,
+                 mesh=None):
         self.settings = settings
-        self.scene = scene
         self.meta = meta
-        self.device = scene.tri_pack.device
+        self.mesh = mesh
+        self.device = (mesh.devices[0] if mesh is not None
+                       else scene.tri_pack.device)
+        self.scene = mesh.shard_scene(scene) if mesh is not None else scene
         self.camera = camera.to(self.device)
         self.seed = seed
         self.sampler_mode = sampler_mode
@@ -67,15 +80,29 @@ class RenderDriver:
         self.start_round = 0
         self.ms = max(1, int(settings.multisample))
         self.bdpt = int(settings.reverse) > 0
+        self.n_procs = multihost.process_count()
+        self.proc_id = multihost.process_index()
         block = int(chunk_lanes) // self.ms if self.bdpt else int(chunk_lanes)
+        if self.n_procs > 1:
+            # At most a process's share, so that every process gets work.
+            block = min(block, -(-hw // self.n_procs))
         self.block = max(1, min(block, hw))
+        if mesh is not None and self.block % mesh.n:
+            self.block += mesh.n - self.block % mesh.n
         self.n_blocks = -(-hw // self.block)
-        self._lanes_per_round = hw * self.ms
+        # This process's contiguous slice of blocks.
+        self._blk_lo, self._blk_hi = multihost.host_lane_range(self.n_blocks)
+        self.local_blocks = self._blk_hi - self._blk_lo
 
         # Pixel coordinates padded to whole blocks: padding lanes
         # re-render pixel 0 and scatter into the dummy row hw.
-        pix = torch.arange(self.n_blocks * self.block, dtype=torch.int64)
+        pix = torch.arange(self._blk_lo * self.block,
+                           self._blk_hi * self.block, dtype=torch.int64)
         real = pix < hw
+        # Real lanes this process traces a round; fetch_accumulation
+        # sums the processes' counts.
+        self._local_lanes = int(real.sum()) * self.ms
+        self._lanes_done = 0
         px = torch.where(real, pix % xres, 0).to(torch.int32)
         py = torch.where(real, pix // xres, 0).to(torch.int32)
         pix_idx = torch.where(real, pix, hw)
@@ -87,42 +114,65 @@ class RenderDriver:
                                     device=dev)
         self._rays_dev = torch.zeros((), dtype=torch.int64, device=dev)
 
+        if mesh is None:
+            tracer = (trace_wavefront_queued_bdpt if self.bdpt
+                      else trace_wavefront_queued)
+
+            def trace(px, py, sample0):
+                return tracer(self.scene, meta, settings, self.camera, px,
+                              py, sample0, self.ms, self.seed,
+                              sampler_mode=sampler_mode)
+        else:
+            sharded = (mesh.make_queued_bdpt_fn if self.bdpt
+                       else mesh.make_queued_fn)(meta, settings, sampler_mode)
+
+            def trace(px, py, sample0):
+                return sharded(self.scene, self.camera, px, py, sample0,
+                               self.seed)
+        self._trace = trace
+
     def render_round(self, round_idx: int, monitor=None) -> None:
-        """Render every pixel x multisample once; accumulate on device."""
+        """Render this process's blocks, every pixel x multisample once;
+        accumulate on the device."""
         for px, py, pix_idx in zip(self._px, self._py, self._pix_idx):
-            args = (self.scene, self.meta, self.settings, self.camera, px, py,
-                    round_idx * self.ms, self.ms, self.seed)
+            out = self._trace(px, py, round_idx * self.ms)
+            self._acc_dev.index_add_(0, pix_idx, out[0])
             if self.bdpt:
-                rad, splat_img, rays = trace_wavefront_queued_bdpt(
-                    *args, sampler_mode=self.sampler_mode)
-                self._acc_dev.index_add_(0, pix_idx, rad)
-                self._acc_dev += splat_img
-            else:
-                rad, rays = trace_wavefront_queued(
-                    *args, sampler_mode=self.sampler_mode)
-                self._acc_dev.index_add_(0, pix_idx, rad)
-            self._rays_dev += rays
+                self._acc_dev += out[1]
+            self._rays_dev += out[-1]
             if monitor is not None:
                 monitor.add_blocks(1)
-        self.stats.lanes += self._lanes_per_round
+        self._lanes_done += self._local_lanes
+        self.stats.lanes = self._lanes_done
         self.stats.rounds += 1
 
     def fetch_accumulation(self) -> None:
         """Copy the device accumulation into the host AccumulationImage
-        (called before EXR writes and checkpoints)."""
+        (called before EXR writes and checkpoints).  Under several
+        processes a collective: every process calls it for the same
+        round, and the sum over their disjoint pixels is the frame."""
         xres, yres = self.camera.xres, self.camera.yres
-        acc_host = self._acc_dev[:-1].cpu().numpy()
+        acc = self._acc_dev[:-1]
+        counters = torch.stack([
+            self._rays_dev,
+            torch.tensor(self._lanes_done, dtype=torch.int64,
+                         device=self.device)])
+        if self.n_procs > 1:
+            acc = multihost.allreduce_image(acc)
+            counters = multihost.allreduce_image(counters)
+        acc_host = acc.cpu().numpy()
         self.acc.sum = acc_host.astype(np.float64).reshape(yres, xres, 3)
         self.acc.count = np.full((yres, xres),
                                  float(self.ms * self.stats.rounds))
-        self.stats.rays = int(self._rays_dev.item())
+        self.stats.rays, self.stats.lanes = (int(v) for v in counters.cpu())
 
     def render_frame(self, out_path: Optional[str] = None) -> RenderStats:
         """Run the rounds / timed loop, writing the EXR after each round."""
         s = self.settings
         est_rounds = 1 if s.timed else max(1, int(s.rounds) - self.start_round)
-        with FrameMonitor(self.n_blocks * est_rounds,
-                          enabled=out.get_verbosity() >= 2) as monitor:
+        with FrameMonitor(self.local_blocks * est_rounds,
+                          enabled=(out.get_verbosity() >= 2
+                                   and self.proc_id == 0)) as monitor:
             return self._render_frame_loop(out_path, s, monitor)
 
     def _render_frame_loop(self, out_path, s, monitor):
@@ -135,8 +185,8 @@ class RenderDriver:
             round_idx += 1
             rt = time.time() - rt0
             self.stats.seconds = time.time() - t0
-            self.fetch_accumulation()
-            if out_path:
+            self.fetch_accumulation()  # a collective under processes
+            if out_path and self.proc_id == 0:
                 self.acc.save(out_path, scale=s.output_scale)
                 self.save_checkpoint(out_path + ".ckpt.npz", round_idx)
             monitor.set_rays(self.stats.rays)
@@ -146,12 +196,18 @@ class RenderDriver:
                 left = total - self.stats.seconds
                 monitor.total = max(
                     monitor.done,
-                    int(round(self.n_blocks * round_idx
+                    int(round(self.local_blocks * round_idx
                               * total / max(self.stats.seconds, 1e-6))))
                 out.log(2, f"Round {round_idx} in {rt:.1f}s | "
                            f"{format_int_thousands(int(rays_s))} rays/s | "
                            f"{format_time(max(0, left))} left")
-                if self.stats.seconds >= total:
+                # Process 0's clock decides, so that every process
+                # renders the same rounds (a disagreeing process would
+                # wedge the next collective).
+                stop = self.stats.seconds >= total
+                if self.n_procs > 1:
+                    stop = multihost.broadcast_scalar(float(stop)) > 0.5
+                if stop:
                     break
             else:
                 remaining = (s.rounds - round_idx) * eta.push(rt)
@@ -176,8 +232,29 @@ class RenderDriver:
 
     def try_resume(self, path: str) -> int:
         """Load `path` if it exists.  Returns the next round index
-        (0 = nothing to resume)."""
-        return self.load_checkpoint(path) if os.path.exists(path) else 0
+        (0 = nothing to resume).  Under several processes, process 0
+        alone looks for and loads the checkpoint and broadcasts the next
+        round, so the processes agree on the rounds even without a
+        shared file system."""
+        if self.n_procs == 1:
+            return self.load_checkpoint(path) if os.path.exists(path) else 0
+        exists = self.proc_id == 0 and os.path.exists(path)
+        if multihost.broadcast_scalar(float(exists)) < 0.5:
+            return 0
+        nr = self.load_checkpoint(path) if self.proc_id == 0 else 0
+        nr = int(multihost.broadcast_scalar(float(nr)))
+        if self.proc_id != 0:
+            self.start_round = nr
+            self.stats.rounds = nr
+        # Every process keeps the checkpointed sums of its own pixels
+        # (process 0 loaded them all, the others hold zeros), so each
+        # pixel adds its rounds in the order of a one-process render.
+        acc = multihost.allreduce_image(self._acc_dev)
+        pix = torch.arange(acc.shape[0], device=acc.device)
+        own = ((pix >= self._blk_lo * self.block)
+               & (pix < min(self._blk_hi * self.block, acc.shape[0] - 1)))
+        self._acc_dev = torch.where(own[:, None], acc, 0.0)
+        return nr
 
     def load_checkpoint(self, path: str) -> int:
         """Restore the accumulation; returns the next round index."""

@@ -18,6 +18,7 @@ import glob
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from functools import lru_cache
 
@@ -122,9 +123,19 @@ def _build_from(csrc):
     return {"path": path, "seconds": seconds, "log": log}
 
 
-@lru_cache(maxsize=1)
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
-    """The built library, with the argument types of its entry points."""
+    """The built library, with the argument types of its entry points.
+    Built and opened once per process, whichever thread asks first (the
+    threads of a device mesh launch concurrently)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@lru_cache(maxsize=1)
+def _load() -> ctypes.CDLL:
     return _open(build()["path"])
 
 

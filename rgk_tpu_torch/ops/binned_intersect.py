@@ -135,7 +135,7 @@ def walk(cl, ro, rd, t_min, t_max, K: int = DEFAULT_K, stats: bool = False):
     if ro.device.type == "cpu":
         return walk_plain(cl, ro, rd, t_min, t_max, K, stats)
     if ro.device.type != "cuda":
-        raise NotImplementedError(f"no walk kernel for device {ro.device}")
+        raise RuntimeError(f"no walk kernel for device {ro.device}")
     from .. import kernels
 
     lib = kernels.load()
@@ -181,7 +181,7 @@ def sweep_pairs(cl, cid, ray_of, ro, rd, t_min, t_max, exclude):
     if ro.device.type == "cpu":
         return sweep_plain(cl, cid, ray_of, ro, rd, t_min, t_max, exclude)
     if ro.device.type != "cuda":
-        raise NotImplementedError(f"no sweep kernel for device {ro.device}")
+        raise RuntimeError(f"no sweep kernel for device {ro.device}")
     from .. import kernels
 
     lib = kernels.load()

@@ -185,7 +185,7 @@ def traverse(cl, ro, rd, t_min, t_max, exclude, any_hit: bool = False,
         return cluster_plain(cl, ro, rd, t_min, t_max, exclude, any_hit,
                              stats)
     if ro.device.type != "cuda":
-        raise NotImplementedError(
+        raise RuntimeError(
             f"no cluster kernel for device {ro.device}")
     return _launch(cl, ro, rd, t_min, t_max, exclude, any_hit, stats)
 

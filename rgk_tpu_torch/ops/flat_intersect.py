@@ -60,13 +60,21 @@ def intersect_flat(tri_pack, ro, rd, t_min, t_max, exclude,
     """-> (t f32 [R], tri i32 [R], bary_b f32 [R], bary_c f32 [R]).
 
     tri_pack f32 [M, 13]; ro, rd f32 [R, 3]; t_min, t_max f32 [R];
-    exclude i32 [R] (-1 = none); all contiguous on one device."""
+    exclude i32 [R] (-1 = none); all contiguous on one device.
+
+    Under autograd, with rays that carry a gradient, K1 sweeps the
+    detached rays and a closest hit's record is recomputed from the
+    winner's row, as `flat_plain` does: the card and the CPU
+    differentiate the hit point along the ray alike."""
     _check(tri_pack, ro, rd, t_min, t_max, exclude)
     if ro.device.type == "cpu":
         return flat_plain(tri_pack, ro, rd, t_min, t_max, exclude, any_hit)
     if ro.device.type != "cuda":
-        raise NotImplementedError(
+        raise RuntimeError(
             f"no flat-sweep kernel for device {ro.device}")
+    if _records_grad(ro, rd):
+        return _recorded(_launch, tri_pack, ro, rd, t_min, t_max, exclude,
+                         any_hit)
     return _launch(tri_pack, ro, rd, t_min, t_max, exclude, any_hit)
 
 
@@ -96,7 +104,17 @@ def _launch(tri_pack, ro, rd, t_min, t_max, exclude, any_hit):
 
 def flat_plain(tri_pack, ro, rd, t_min, t_max, exclude,
                any_hit: bool = False):
-    """K1's function in plain PyTorch, on any device (see module doc)."""
+    """K1's function in plain PyTorch, on any device (see module doc).
+
+    Under autograd, with rays that carry a gradient, the sweep runs
+    without one and a closest hit's record is recomputed from the
+    winner's row by the sweep's own expressions (the same values): the
+    hit point is differentiated along the ray as the reference's
+    `intersect_brute` does, and only [R] tensors are saved, not the
+    [R, M] planes.  Any-hit results carry no gradient."""
+    if _records_grad(ro, rd):
+        return _recorded(flat_plain, tri_pack, ro, rd, t_min, t_max,
+                         exclude, any_hit)
     r, m = ro.shape[0], tri_pack.shape[0]
     dev = ro.device
     t_out = torch.full((r,), BIG, dtype=torch.float32, device=dev)
@@ -144,3 +162,39 @@ def flat_plain(tri_pack, ro, rd, t_min, t_max, exclude,
         bb_out[s:e] = torch.where(found, beta.gather(1, idx)[:, 0], 0.0)
         bc_out[s:e] = torch.where(found, gamma.gather(1, idx)[:, 0], 0.0)
     return t_out, tri_out, bb_out, bc_out
+
+
+def _records_grad(ro, rd):
+    return torch.is_grad_enabled() and (ro.requires_grad or rd.requires_grad)
+
+
+def _recorded(sweep, tri_pack, ro, rd, t_min, t_max, exclude, any_hit):
+    """`sweep` (K1's launch or `flat_plain`) on the detached rays, then a
+    closest hit's record recomputed from the winner's row with the rays'
+    gradient."""
+    with torch.no_grad():
+        hit = sweep(tri_pack, ro.detach(), rd.detach(), t_min, t_max,
+                    exclude, any_hit)
+    return hit if any_hit else _winner_record(tri_pack, ro, rd, *hit)
+
+
+def _winner_record(tri_pack, ro, rd, t, tri, bary_b, bary_c):
+    """(t, tri, bary_b, bary_c) of closest hits, t and the barycentrics
+    recomputed in torch ops from the winning rows, as `flat_plain`'s
+    sweep computes them."""
+    found = tri >= 0
+    rows = tri_pack[torch.clamp(tri, min=0).long()]
+    (nx, ny, nz, d, b0, bvx, bvy, bvz, g0, gvx, gvy, gvz,
+     _) = rows.unbind(1)
+    ox, oy, oz = ro.unbind(1)
+    dx, dy, dz = rd.unbind(1)
+    rddn = dx * nx + dy * ny + dz * nz
+    rodn = ox * nx + oy * ny + oz * nz + d
+    safe = torch.abs(rddn) > _PARALLEL_EPS
+    tw = -rodn / torch.where(safe, rddn, 1.0)
+    beta = (b0 + ox * bvx + oy * bvy + oz * bvz
+            + tw * (dx * bvx + dy * bvy + dz * bvz))
+    gamma = (g0 + ox * gvx + oy * gvy + oz * gvz
+             + tw * (dx * gvx + dy * gvy + dz * gvz))
+    return (torch.where(found, tw, t), tri, torch.where(found, beta, bary_b),
+            torch.where(found, gamma, bary_c))

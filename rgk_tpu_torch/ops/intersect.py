@@ -13,6 +13,15 @@ extension and shadow ray:
   whatever `RGK_BINNED` says.
 Hit records are (t, tri, bary_b, bary_c); the barycentric weight of
 vertex A is 1 - b - c.
+
+Gradients: the kernels' outputs carry none, and BVH scenes' hits are
+detached on either device (as the reference's `intersect_bvh`).  On a
+flat scene, under autograd with rays that carry a gradient, the sweep
+(K1 on the card, `flat_plain` on the CPU) picks the winner without one
+and t and the barycentrics are recomputed from its row in torch ops, so
+on either device autograd differentiates the hit point along the ray,
+as the reference's `intersect_brute` does (a parameter that moves a
+ray, such as the roughness of a glossy bounce, keeps that term).
 """
 
 from __future__ import annotations
@@ -170,9 +179,11 @@ def make_intersector(meta):
             binned = mode == "all" or (mode == "any" and any_hit)
             fn = intersect_clusters_binned if binned else intersect_clusters
             r, dev = ro.shape[0], ro.device
+            # Detached as on the CPU route: the front ends recompute the
+            # record from ro and rd, and hits take no gradient.
             return Hit(*fn(
-                scene.clusters, scene.tri_pack, ro.contiguous(),
-                rd.contiguous(), _lanes(t_min, r, torch.float32, dev),
+                scene.clusters, scene.tri_pack, ro.detach().contiguous(),
+                rd.detach().contiguous(), _lanes(t_min, r, torch.float32, dev),
                 _lanes(t_max, r, torch.float32, dev),
                 _lanes(-1 if exclude is None else exclude, r, torch.int32,
                        dev), any_hit=any_hit))

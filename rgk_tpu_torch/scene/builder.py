@@ -5,7 +5,8 @@ host, then `commit(device=...)` freezes them into the port's
 `SceneArrays` on one device.  The numpy build is the reference's,
 line for line, so the committed arrays equal `rgk_tpu`'s exactly.
 
-Above `FLAT_MAX_TRIANGLES` the commit also builds the leaf-4 BVH
+Above `bvh_threshold` triangles (`FLAT_MAX_TRIANGLES` by default; never
+with `build_bvh=False`) the commit also builds the leaf-4 BVH
 (scene/bvh.py) and, on its triangle order, the chunk tree of the
 cluster kernel (scene/clusters.py), and sets `SceneMeta.has_bvh`.
 `SceneBuilder.timings` keeps the host seconds of the last commit.
@@ -25,7 +26,8 @@ from ..ops.ltc import load_tables_np
 from ..utils import log as out
 from ..utils.lru import LRU
 from . import transforms as xf
-from .bvh import build_bvh, builder_name, placeholder_bvh
+from . import bvh as bvh_mod
+from .bvh import builder_name, placeholder_bvh
 from .clusters import build_clusters, empty_clusters
 from .json_utils import ConfigError
 from .arrays import (
@@ -285,12 +287,15 @@ class SceneBuilder:
 
     # ---------------- commit ----------------
 
-    def commit(self, device):
+    def commit(self, device, build_bvh: bool = True,
+               bvh_threshold: int = FLAT_MAX_TRIANGLES):
         """Freeze to `SceneArrays` on `device` + `SceneMeta`.
 
         Computes the dynamic epsilon (1e-5 x bbox diameter), the
         per-triangle normals and Badouel rows, the light tables and,
-        above FLAT_MAX_TRIANGLES, the BVH and cluster structures."""
+        with `build_bvh` above `bvh_threshold` triangles, the BVH and
+        cluster structures; otherwise the scene stays flat whatever its
+        size."""
         if self._tri_count == 0:
             raise ConfigError("cannot commit an empty scene")
 
@@ -318,10 +323,11 @@ class SceneBuilder:
             build_tri_pack(vertices, tri_vidx), tri_mat,
             np.asarray([m.is_thinglass for m in self.materials], bool))
 
-        has_bvh = self._tri_count > FLAT_MAX_TRIANGLES
+        has_bvh = build_bvh and self._tri_count > bvh_threshold
         if has_bvh:
             t0 = time.perf_counter()
-            bvh = build_bvh(vertices, tri_vidx, leaf_size=4, device=device)
+            bvh = bvh_mod.build_bvh(vertices, tri_vidx, leaf_size=4,
+                                    device=device)
             t1 = time.perf_counter()
             # One SAH sweep feeds both structures: the chunk tree chops
             # the BVH's own triangle order.

@@ -3,8 +3,8 @@ rgk_tpu/scene/config.py).
 
 Parses render settings, camera, materials, scene objects (built-in
 primitives or OBJ files with transforms), point lights and sky, and
-drives a `SceneBuilder`.  Legacy line-based `.rtc` configs are not
-ported yet and raise.
+drives a `SceneBuilder`.  Legacy line-based `.rtc` configs load
+through `scene/rtc.py` `ConfigRTC`.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ from .arrays import (
     BSDF_NAMES,
     BSDF_TRANSPARENT,
 )
-from .builder import MaterialSpec, SceneBuilder, phong_exponent_to_roughness
+from .builder import (FLAT_MAX_TRIANGLES, MaterialSpec, SceneBuilder,
+                      phong_exponent_to_roughness)
 from .camera import Camera, make_camera
 from .json_utils import ConfigError, Node, loads_tolerant
 
@@ -395,23 +396,26 @@ def mtl_to_material(m, builder: SceneBuilder, texturedir: str) -> MaterialSpec:
 
 
 def load_config(path: str) -> Config:
-    """Load a JSON scene config.  A `.rtc` file whose content is JSON
-    loads as JSON, as in the reference; a line-based `.rtc` raises."""
+    """Load a scene config: JSON (`Config`) or line-based `.rtc`
+    (`ConfigRTC`).  A `.rtc` file whose content is JSON loads as JSON,
+    as in the reference."""
     if path.endswith(".rtc"):
         with open(path, "r") as f:
             head = f.read(64).lstrip()
         if not head.startswith("{"):
-            raise NotImplementedError(
-                f"{path}: line-based .rtc configs (rgk_tpu/scene/rtc.py) "
-                "are not ported yet; use a JSON config")
+            from .rtc import ConfigRTC
+            return ConfigRTC(path)
     return Config(path)
 
 
-def build_scene(config: Config, device):
-    """config -> (SceneArrays on `device`, SceneMeta, SceneBuilder)."""
+def build_scene(config: Config, device, build_bvh: bool = True,
+                bvh_threshold: int = FLAT_MAX_TRIANGLES):
+    """config -> (SceneArrays on `device`, SceneMeta, SceneBuilder).
+    `build_bvh` / `bvh_threshold` as in `SceneBuilder.commit`."""
     builder = SceneBuilder()
     t0 = time.perf_counter()
     config.install(builder)
     builder.timings["load"] = time.perf_counter() - t0
-    arrays, meta = builder.commit(device=device)
+    arrays, meta = builder.commit(device=device, build_bvh=build_bvh,
+                                  bvh_threshold=bvh_threshold)
     return arrays, meta, builder

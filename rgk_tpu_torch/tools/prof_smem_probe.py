@@ -48,7 +48,7 @@ def _lib_stream(dev):
 
 def _cuda(x, what):
     if x.device.type != "cuda":
-        raise NotImplementedError(f"no {what} probe kernel for {x.device}")
+        raise RuntimeError(f"no {what} probe kernel for {x.device}")
 
 
 # ------------------------------------------------- 1. the shared-memory size

@@ -99,7 +99,7 @@ def sync(variant: str, x, table, iters: int, thr: float):
     if x.device.type == "cpu":
         return sync_plain(variant, x, table, iters, thr)
     if x.device.type != "cuda":
-        raise NotImplementedError(f"no sync probe kernel for {x.device}")
+        raise RuntimeError(f"no sync probe kernel for {x.device}")
     want = TILE[0] * TILE[1] if variant.startswith("sweep") else THREADS
     if x.shape != (want,) or x.dtype != torch.float32 or table.shape != (
             TABLE,) or table.dtype != torch.float32:
@@ -126,7 +126,7 @@ def fetch(tiles, depth: int, iters: int, thr: float):
     if tiles.device.type == "cpu":
         return fetch_plain(tiles, depth, iters, thr)
     if tiles.device.type != "cuda":
-        raise NotImplementedError(f"no fetch probe kernel for {tiles.device}")
+        raise RuntimeError(f"no fetch probe kernel for {tiles.device}")
     if tiles.dtype != torch.float32 or not tiles.is_contiguous() or not n:
         raise ValueError("tiles must be contiguous f32 [n * 2048]")
     lib, stream = _lib_stream(tiles.device)

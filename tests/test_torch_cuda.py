@@ -740,3 +740,132 @@ def test_4m_ray_any_hit_query(cuda_device, tmp_path):
     p = fi.flat_plain(arrays.tri_pack, *sub, any_hit=True)
     assert torch.equal(k[1][::4], p[1])
     assert 0.02 < (p[1] >= 0).double().mean().item() < 0.98
+
+
+# ---- gradients, the debug replay and distribution on the card ---------
+
+
+def _grad_scene(tmp_path, dev):
+    from rgk_tpu_torch.diff.params import extract_params, make_loss_fn
+    from rgk_tpu_torch.scene import config as tconfig
+
+    cfg = tconfig.load_config(scenes.write_config(tmp_path,
+                                                  scenes.GRAD_SCENE))
+    arrays, meta, _ = tconfig.build_scene(cfg, dev, build_bvh=False)
+    i = torch.arange(64)
+    loss_fn = make_loss_fn(arrays, meta, cfg.settings, cfg.get_camera(),
+                           (i % 8).to(torch.int32), (i // 8).to(torch.int32),
+                           torch.zeros(64, dtype=torch.int64), 3,
+                           torch.zeros(64, 3))
+    return loss_fn, extract_params(arrays)
+
+
+@pytest.mark.parametrize("key,idx,eps,rtol", [
+    ("mat_diffuse", 0, 1e-3, 0.03), ("mat_emission", 3, 1e-3, 0.03),
+    ("light_intensity", 0, 1e-3, 0.03), ("sky_intensity", 0, 1e-3, 0.03),
+    ("mat_roughness", 2, 2e-4, 0.08), ("mat_specular", 6, 1e-3, 0.05)])
+def test_grad_through_k1_matches_finite_differences(cuda_device, tmp_path,
+                                                    key, idx, eps, rtol):
+    """tests/test_grad.py's scene on the card: the forward goes through
+    K1, the backward gives finite gradients, and the checked leaf's
+    gradient matches central differences of the card's own loss (eps
+    and rtol as tests/test_grad.py's, + 1e-6).  The roughness moves the
+    glossy bounce's rays, so its gradient needs K1's hit points
+    differentiated along the ray, as on the CPU."""
+    loss_fn, params = _grad_scene(tmp_path, cuda_device)
+    n0 = fi.launches["closest"] + fi.launches["any"]
+    loss = loss_fn(params)
+    assert fi.launches["closest"] + fi.launches["any"] > n0
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    for g in grads:
+        assert g is None or bool(torch.isfinite(g).all())
+    g_val = float(dict(zip(params, grads))[key].reshape(-1)[idx])
+    flat = params[key].detach().reshape(-1).double()
+
+    def loss_at(v):
+        arr = flat.clone()
+        arr[idx] = v
+        with torch.no_grad():
+            return float(loss_fn({**params, key: arr.reshape(
+                params[key].shape).float()}))
+
+    fd = (loss_at(float(flat[idx]) + eps)
+          - loss_at(float(flat[idx]) - eps)) / (2 * eps)
+    assert abs(g_val - fd) <= rtol * max(abs(fd), abs(g_val)) + 1e-6, (
+        g_val, fd)
+
+
+def test_grad_through_k1_matches_cpu(cuda_device, tmp_path):
+    """The same scene's gradients on the card and on the CPU: every leaf
+    within 5e-3 * max|g_cpu| + 1e-6.  Dropping the hit point's term
+    along the ray moves the roughness's gradient by 2.5% on the CPU."""
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        loss_fn, params = _grad_scene(tmp_path, dev)
+        got = torch.autograd.grad(loss_fn(params), list(params.values()),
+                                  allow_unused=True)
+        grads.append({k: (torch.zeros_like(v) if g is None else g).cpu()
+                      for (k, v), g in zip(params.items(), got)})
+    card, cpu = grads
+
+    def top(x):
+        return float(x.abs().max()) if x.numel() else 0.0
+
+    for k, want in cpu.items():
+        assert top(card[k] - want) <= 5e-3 * top(want) + 1e-6, k
+
+
+def test_debug_replay_on_card_matches_cpu(cuda_device, tmp_path):
+    """The -d replay of one pixel on the card and on the CPU: the same
+    triangles, materials and decisions, positions within rtol 1e-4."""
+    from rgk_tpu_torch.integrator.debug import trace_pixel_debug
+
+    path = scenes.write_config(tmp_path, scenes.box_config(
+        res=16, ms=4, **{"recursion-max": 6}))
+    recs = {}
+    for dev in ("cpu", cuda_device):
+        arrays, meta, cfg = scenes.port_build(path, dev)
+        recs[str(dev)] = trace_pixel_debug(
+            arrays, meta, cfg.settings, cfg.get_camera(), 8, 10,
+            printer=lambda *_: None)
+    cpu, gpu = recs["cpu"], recs[str(cuda_device)]
+    assert len(cpu) >= 2
+    for a, b in zip(cpu, gpu):
+        for k in ("tri", "mat_id", "hit", "sky"):
+            assert a[k] == b[k], k
+    np.testing.assert_allclose(gpu[0]["pos"], cpu[0]["pos"], rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_distributed_world_size_one_equals_plain(cuda_device, tmp_path):
+    """One NCCL process (`--coordinator ... --num-processes 1`) and a
+    one-card mesh (`--devices 1`) write the EXR and checkpoint of a plain
+    CLI render bit for bit."""
+    import socket
+    import subprocess
+    import sys
+
+    path = scenes.write_config(tmp_path, scenes.box_config(res=32, ms=2))
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    runs = {"plain": [], "devices": ["--devices", "1"],
+            "nccl": ["--coordinator", f"localhost:{port}",
+                     "--num-processes", "1", "--process-id", "0"]}
+    out = {}
+    for name, extra in runs.items():
+        d = tmp_path / name
+        proc = subprocess.run(
+            [sys.executable, "-m", "rgk_tpu_torch.driver.cli", path, "-q",
+             "-D", str(d), *extra], cwd=REPO, capture_output=True, text=True,
+            timeout=600)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        with np.load(str(d / "bdpt_box.exr.ckpt.npz")) as ck:
+            out[name] = (read_exr(str(d / "bdpt_box.exr")),
+                         {k: ck[k] for k in ck.files})
+    for name in ("devices", "nccl"):
+        np.testing.assert_array_equal(out[name][0], out["plain"][0])
+        for k, v in out["plain"][1].items():
+            np.testing.assert_array_equal(out[name][1][k], v, err_msg=k)

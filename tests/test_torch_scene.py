@@ -113,8 +113,9 @@ def test_pixel_rays_match_reference(tmp_path, thin_lens):
 
 
 def test_config_rejections(tmp_path):
-    """A nested mix is rejected at load, as in the reference; a
-    line-based .rtc raises NotImplementedError."""
+    """A nested mix is rejected at load, as in the reference; so is a
+    line-based .rtc that ends inside its header (ConfigError, as the
+    reference's ConfigRTC raises)."""
     cfg = scenes.box_config()
     cfg["materials"] += [
         {"name": "m1", "brdf": "mix", "material1": "white",
@@ -126,5 +127,5 @@ def test_config_rejections(tmp_path):
         tconfig.build_scene(tconfig.load_config(path), "cpu")
     rtc = tmp_path / "scene.rtc"
     rtc.write_text("output-file x.exr\n")
-    with pytest.raises(NotImplementedError, match="rtc"):
+    with pytest.raises(ConfigError, match="Unexpected end"):
         tconfig.load_config(str(rtc))

@@ -32,6 +32,8 @@ from rgk_tpu_torch.io import load_texture, read_exr
 from rgk_tpu_torch.ops import intersect as isect
 from rgk_tpu_torch.parity import image_parity
 from rgk_tpu_torch.scene import config as tconfig
+from rgk_tpu_torch.scene.json_utils import ConfigError
+from rgk_tpu_torch.scene.rtc import ConfigRTC
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -216,16 +218,22 @@ def test_resume_matches_straight_run(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    """The one input the port still refuses is a line-based .rtc scene:
-    NotImplementedError from load_config and from the CLI, before any
-    output.  BDPT (reverse > 0) and the tint-thinglass extension, which
-    raised before they were ported, now set up a render driver."""
-    rtc = tmp_path / "scene.rtc"
-    rtc.write_text("output-file x.exr\n")
-    with pytest.raises(NotImplementedError, match="line-based .rtc"):
-        tconfig.load_config(str(rtc))
-    with pytest.raises(NotImplementedError, match="line-based .rtc"):
-        cli.main([str(rtc), "--cpu", "-q", "-D", str(tmp_path / "out")])
+    """Nothing the reference renders is refused any more: a line-based
+    .rtc scene loads and renders through the CLI, and a malformed one
+    raises ConfigError from load_config and from the CLI, before any
+    output.  BDPT (reverse > 0) and the tint-thinglass extension set up a
+    render driver."""
+    rtc = scenes.write_rtc_scene(tmp_path, res=(8, 6), ms=1, sphere=60)
+    assert isinstance(tconfig.load_config(rtc), ConfigRTC)
+    assert cli.main([rtc, "--cpu", "-q", "-D", str(tmp_path / "rtc")]) == 0
+    img = read_exr(os.path.join(str(tmp_path / "rtc"), "rtc.exr"))
+    assert img.shape == (6, 8, 3) and np.isfinite(img).all()
+    bad = tmp_path / "bad.rtc"
+    bad.write_text("output-file x.exr\n")
+    with pytest.raises(ConfigError, match="Unexpected end"):
+        tconfig.load_config(str(bad))
+    with pytest.raises(ConfigError, match="Unexpected end"):
+        cli.main([str(bad), "--cpu", "-q", "-D", str(tmp_path / "out")])
     assert not os.path.exists(tmp_path / "out")
 
     tinted = scenes.box_config(thinglass=["mirror"])

@@ -10,9 +10,11 @@ commit one config through rgk_tpu and rgk_tpu_torch.  `soup` and
 tests/test_intersect.py; `assert_same` compares two committed trees
 bit for bit.  `far_sphere_tree` and `assert_binned_contract` hold the
 binned front end to K2's on far scenes, on the CPU and on the card.
+`GRAD_SCENE` is tests/test_grad.py's scene; `write_rtc_scene` writes a
+line-based `.rtc` scene.
 
-JAX and rgk_tpu are imported only by `jax_build`, so the card tests,
-which run where JAX is not installed, can use the rest.
+JAX and rgk_tpu are imported only by `jax_build`, so the card tests and
+chip_smoke.py, which run where JAX is not installed, can use the rest.
 """
 
 import importlib.util
@@ -70,6 +72,63 @@ def colonnade(tmp_path, n_tris=20000, **overrides):
         cfg = json.load(f)
     cfg.update(overrides)
     return write_config(tmp_path, cfg, "colonnade_small.json")
+
+
+# tests/test_grad.py's scene: a floor, a glossy cube and an emissive
+# triangle under a point light and the sky, 8x8, depth 2, no roulette.
+GRAD_SCENE = {
+    "output-file": "t.exr", "output-width": 8, "output-height": 8,
+    "multisample": 4, "recursion-max": 2, "russian": -1.0,
+    "camera": {"position": [0, 1.5, 1.5], "lookat": [0, 0, 0], "fov": 50},
+    "sky": {"color": [0.3, 0.3, 0.4], "intensity": 1.0},
+    "materials": [
+        {"name": "floor", "brdf": "diffuse", "diffuse": [0.6, 0.4, 0.3]},
+        {"name": "glow", "brdf": "diffuse", "diffuse": [0.2, 0.2, 0.2],
+         "emission": [1.0, 0.8, 0.6]},
+        {"name": "shiny", "brdf": "ltc_ggx_diffuse", "roughness": 0.35,
+         "specular": [0.4, 0.4, 0.4], "diffuse": [0.2, 0.3, 0.2]},
+    ],
+    "scene": [
+        {"primitive": "plane", "axis": "Y", "scale": [4, 1, 4],
+         "material": "floor"},
+        {"primitive": "cube", "translate": [-0.4, 0.25, 0],
+         "scale": [0.5, 0.5, 0.5], "material": "shiny"},
+        {"primitive": "tri", "translate": [0.5, 0.8, 0],
+         "rotate": [0, 0, 180], "scale": [0.3, 1, 0.3], "material": "glow"},
+    ],
+    "lights": [{"position": [1, 2, 1], "color": [1, 0.9, 0.8],
+                "intensity": 2.0}],
+}
+
+
+def write_rtc_scene(tmp_path, res=(32, 24), ms=2, depth=3, sphere=600):
+    """A line-based .rtc scene under `tmp_path`, `res` = (width, height):
+    tests/test_rtc_config.py's floor quad and a make_sphere ball of
+    `sphere` triangles in one OBJ, a point light and the sky.  -> the
+    .rtc path."""
+    d = str(tmp_path)
+    verts, nrms, faces = tool("make_bigscene").make_sphere(sphere, 0.0, 0.6,
+                                                           0.0, 0.6)
+    lines = ["mtllib box.mtl", "v -1 0 -1", "v 1 0 -1", "v 1 0 1",
+             "v -1 0 1", "vn 0 1 0", "usemtl white", "f 1//1 2//1 3//1",
+             "f 1//1 3//1 4//1"]
+    lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+    lines += [f"vn {x:.5f} {y:.5f} {z:.5f}" for x, y, z in nrms]
+    lines.append("usemtl ball")
+    lines += ["f " + " ".join(f"{i + 5}//{i + 2}" for i in f) for f in faces]
+    with open(os.path.join(d, "box.obj"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(d, "box.mtl"), "w") as f:
+        f.write("newmtl white\nKd 0.7 0.7 0.7\nNs 10\nnewmtl ball\n"
+                "Kd 0.6 0.3 0.2\nKs 0.3 0.3 0.3\nNs 100\n")
+    rtc = ["rtc smoke scene", "box.obj", "rtc.exr", str(depth),
+           f"{res[0]} {res[1]}", "0 2 -5", "0 0.4 0", "0 1 0", "1.2",
+           "L 1 3 -1 255 240 220 60 0.2", f"ms {ms}", "sky 60 80 120 1.5",
+           "clamp 50", "rounds 1"]
+    path = os.path.join(d, "scene.rtc")
+    with open(path, "w") as f:
+        f.write("\n".join(rtc) + "\n")
+    return path
 
 
 def soup(n_tris, seed, spread=10.0):
