@@ -9,12 +9,13 @@ kernel sources, unpacked for example by `git archive <commit>
 rgk_tpu_torch/csrc`), phases 3-5 and 7 also time that version's K1 and
 K2, and phases 9 and 10 its K3 and K4, in turns with this tree's
 (earlier, new, new, earlier), and holds this tree's K3 and K4 bit-equal
-to that version's on the same inputs.  With --profile, phases 5 and 7 render
-their scene once more under torch.profiler, and phase 10 the colonnade
-once more with RGK_BINNED=all, and print the round's device time per
+to that version's on the same inputs.  With --profile, phases 5, 7 and 14
+render their scene once more under torch.profiler, and phase 10 the
+colonnade once more with RGK_BINNED=all, and print the round's device
+time per
 kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
 busy share.  It drives
-rgk_tpu_torch, never JAX, through nineteen phases and exits non-zero at
+rgk_tpu_torch, never JAX, through twenty phases and exits non-zero at
 the first that fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -39,11 +40,14 @@ the first that fails:
 7. the colonnade render: tools/make_bigscene's scene at 995,628
    triangles, 960x540, depth 2, one round, through the CLI on the card,
    multisample cut from the config's 40 to 8 for the time limit; every
-   K2 launch is counted (no K1 launch), the host build seconds and the
-   K2 stream time of the round are reported, and the first closest-hit
-   and any-hit queries are replayed, with counters;
+   K2 launch is counted (no K1 launch), the host build seconds are
+   reported, and the first closest-hit and any-hit queries are
+   replayed, with counters;
 8. the colonnade card image against the port's CPU image (33,960
-   triangles, 64x36, 4 spp, depth 2), and a third image rendered on the
+   triangles, 64x36, 4 spp, depth 2), the card images through the
+   eager queued loop (`EagerDriver`, whose instruments see every ray
+   query; the CLI's CUDA-graph image must equal it bit for bit), and a
+   third image rendered on the
    card with K2 replaced by its plain version `cluster_plain`, which
    tells the card's kernel from the card's shading arithmetic where the
    card and CPU images part, and the two renders' ray queries compared
@@ -57,8 +61,8 @@ the first that fails:
    front end is held to K2's on all 2^20 rays;
 10. the colonnade of phase 7 rendered again through the CLI with
    RGK_BINNED=any and then all (the environment restored after each):
-   K3/K4 launches counted (K1 none, K2 as the mode implies), round wall
-   time, rays/s, the stream time of K3, K4, pass 2 and the glue, the
+   K3/K4 launches counted against the queued loop's steps (K1 none, K2
+   as the mode implies), round wall time, rays/s, the
    first binned query replayed against the plain versions and against
    K2, with K3's node SIMD efficiency and the same-chunk runs of K4's
    sorted pairs (phase 9 prints both too), and each image against phase
@@ -77,9 +81,10 @@ the first that fails:
 14. BDPT at full width through K1: bench.py's BDPT regime (the box,
    512x512, 16 spp, reverse 4, depth 4, no roulette, one round) through
    the CLI: K1 launches, round wall time, rays/s (light plus eye
-   extensions), host-loop iterations, and from one more round under
-   torch.profiler the launches per iteration, device ms, K1 ms and busy
-   share; the block's first splat visibility query (65,536 pixels x 16
+   extensions), loop iterations (with --profile also one more round
+   under torch.profiler: launches per iteration, device ms, K1 ms and
+   busy share; phase 20 profiles a BDPT block on both routes); the
+   block's first splat visibility query (65,536 pixels x 16
    samples x 4 light vertices = 4,194,304 rays) replayed through K1 and
    flat_plain, with K1's bound; the block's splats
    scattered twice on the card (the scatter contract: rtol 1e-5); the
@@ -117,7 +122,25 @@ the first that fails:
    `--devices 1` and with `--coordinator localhost:<port>
    --num-processes 1 --process-id 0` (NCCL, world size 1): EXRs and
    checkpoints equal bit for bit; a mesh that lists the card twice is
-   refused.
+   refused;
+20. the queued loop as CUDA graphs against the eager loop
+   (`EagerDriver`) on phase 5's flat scene, phase 7's colonnade with
+   RGK_BINNED off and all, and phase 14's BDPT box: block 0 bit-equal
+   (BDPT: eye radiance; splats within rtol 1e-5), a round's image equal
+   (BDPT within rtol 1e-5), syncs a block under
+   set_sync_debug_mode("warn") (the graph route's must be its end-test
+   reads, at most iterations / k + 1 a block), replays and replays past
+   the end, capture ms, graph pool bytes and peak memory across the
+   capture, round wall time and rays/s in paired turns (graph, eager,
+   eager, graph; each driver's first round dropped), and the busy share
+   of one round each under torch.profiler; on the flat scene also the
+   block's time with the end test read every k = 1, 2, 4, 8 replays.
+
+Every CLI render on the card runs the queued loop as CUDA graphs
+(`rgk_tpu_torch/integrator/graph.py`): the render phases print the
+runners' counters (captures, pool, iterations, replays, end-test
+reads), and a kernel's launch count includes its launches in graph
+replays (each capture's launches times its replays).
 
 The colonnade is composed from tools/make_bigscene's functions with its
 budget split; its stone texture is written as the linear EXR that the
@@ -171,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -187,6 +211,8 @@ from torch_port_scenes import GRAD_SCENE, write_rtc_scene  # noqa: E402
 from rgk_tpu_torch import kernels  # noqa: E402
 from rgk_tpu_torch.diff import params as dparams  # noqa: E402
 from rgk_tpu_torch.driver import cli  # noqa: E402
+from rgk_tpu_torch.driver.render import RenderDriver  # noqa: E402
+from rgk_tpu_torch.integrator import graph as tgraph  # noqa: E402
 from rgk_tpu_torch.integrator.debug import trace_pixel_debug  # noqa: E402
 from rgk_tpu_torch.integrator import path as tpath  # noqa: E402
 from rgk_tpu_torch.io import gamma_decode, read_exr, write_exr  # noqa: E402
@@ -194,6 +220,7 @@ from rgk_tpu_torch.ops import binned_intersect as bi  # noqa: E402
 from rgk_tpu_torch.ops import cluster_intersect as ci  # noqa: E402
 from rgk_tpu_torch.ops import flat_intersect as fi  # noqa: E402
 from rgk_tpu_torch.ops import intersect as isect  # noqa: E402
+from rgk_tpu_torch.ops import sampler as smp  # noqa: E402
 from rgk_tpu_torch.parallel.mesh import MeshContext  # noqa: E402
 from rgk_tpu_torch.parity import image_parity  # noqa: E402
 from rgk_tpu_torch.scene import config as tconfig  # noqa: E402
@@ -265,6 +292,7 @@ K2_GRAD_RES, K2_GRAD_MS = 256, 4
 DEBUG_PIXEL = (256, 256)
 RTC_RES = (96, 72)
 DIST_RES = 64
+GRAPH_KS = (1, 2, 4, 8)  # end-test read intervals timed in phase 20
 CUDA = torch.device("cuda", 0)  # the card of phases 16-19
 
 
@@ -300,6 +328,7 @@ def reset_launches():
     bi.launches.update(walk=0, sweep=0)
     p1.launches.update(smem=0, unpack=0, row_copy=0)
     p2.launches.update(sync=0, fetch=0)
+    tgraph.reset_stats()
 
 
 def compare(args, any_hit):
@@ -575,7 +604,7 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(f"[1/19 device] {torch.cuda.get_device_name(0)} | torch "
+    print(f"[1/20 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | "
           f"devices {torch.cuda.device_count()}")
 
@@ -595,7 +624,7 @@ def phase_build(parent_csrc=None):
         else:
             info, lib = kernels.build(), kernels.load()
         secs = time.perf_counter() - t0
-        print(f"[2/19 build] {who}{os.path.relpath(info['path'], ROOT)} "
+        print(f"[2/20 build] {who}{os.path.relpath(info['path'], ROOT)} "
               f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -659,7 +688,7 @@ def phase_k1(dev):
         times.append(f"{'any' if m else 'closest'} "
                      f"{fmt_ab(parent, new, k1_bound(window, m)[0])}, "
                      f"plain {plain:.3f}")
-    print(f"[3/19 K1 {n_tris} tris x {n_rays} rays] closest agree "
+    print(f"[3/20 K1 {n_tris} tris x {n_rays} rays] closest agree "
           f"{agree1:.6f} (excl pass {agree2:.6f}) max|err| "
           f"{max(err1, err2):.3g}; any-hit agree {agree3:.6f}; median ms "
           + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs); "
@@ -713,7 +742,7 @@ def phase_k2(dev):
             times.append(f"{'any' if m else 'closest'} "
                          f"{fmt_ab(parent, new, b)}, plain {plain:.3f}")
         tpc = max(1, halves // 2)
-        print(f"[4/19 K2 {n_tris} tris x {n_rays} rays, {layout}: "
+        print(f"[4/20 K2 {n_tris} tris x {n_rays} rays, {layout}: "
               f"chunk_halves {halves}, tpc {tpc}, "
               f"{cl.boxes_q.shape[0] // 3} nodes, host build {build_s:.3f} s]"
               f" closest agree {s1['agree']:.6f} (excl pass "
@@ -806,18 +835,71 @@ def render(cfg_path, out_dir, *extra):
     return img, rays
 
 
+def load_scene(cfg_path, dev=CUDA):
+    """-> (settings, scene, meta, camera) of `cfg_path` on `dev`, as the
+    CLI builds them (the camera moved to `dev`, as the driver moves it)."""
+    cfg = tconfig.load_config(cfg_path)
+    arrays, meta, _ = tconfig.build_scene(cfg, dev)
+    cam = cfg.get_camera()
+    cfg.post_check()
+    return cfg.settings, arrays, meta, cam.to(dev)
+
+
+class EagerDriver(RenderDriver):
+    """The CLI's driver with every block traced by the eager queued loop
+    (`path.*_eager`: the step loop driven from the host, one sync an
+    iteration, no graph): for the card renders whose instruments see
+    every ray query (phase 8), and the route phase 20 holds the graphs
+    against."""
+
+    def render_round(self, round_idx, monitor=None):
+        tracer = (tpath.trace_wavefront_queued_bdpt_eager if self.bdpt
+                  else tpath.trace_wavefront_queued_eager)
+        for px, py, pix_idx in zip(self._px, self._py, self._pix_idx):
+            out = tracer(self.scene, self.meta, self.settings, self.camera,
+                         px, py, round_idx * self.ms, self.ms, self.seed,
+                         self.sampler_mode)
+            self._acc_dev.index_add_(0, pix_idx, out[0])
+            if self.bdpt:
+                self._acc_dev += out[1]
+            self._rays_dev += out[-1]
+        self._lanes_done += self._local_lanes
+        self.stats.lanes = self._lanes_done
+        self.stats.rounds += 1
+
+
+def make_driver(scene, eager=False):
+    """The CLI's driver (seed 42, halton, blocks of 2^20 lanes) on a
+    `load_scene` scene, or its EagerDriver."""
+    s, arrays, meta, cam = scene
+    return (EagerDriver if eager else RenderDriver)(
+        s, arrays, meta, cam, seed=42, sampler_mode=smp.MODE_HALTON)
+
+
+def render_eager(cfg_path, out_dir):
+    """`render` through EagerDriver on the card: the CLI's EXR and
+    checkpoint, written by the same driver code.  -> (image, rays)."""
+    scene = load_scene(cfg_path)
+    drv = make_driver(scene, eager=True)
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, os.path.basename(scene[0].output_file))
+    drv.render_frame(out_path)
+    return read_exr(out_path), drv.stats.rays
+
+
 class FirstCalls:
     """Wraps `module.name`: counts its calls (`n`), keeps a copy of the
     arguments of the first closest-hit and any-hit call (a call without
     `any_hit` counts as closest), to replay them at the render's shapes,
-    the host time of the first call and, with `timed`, CUDA events around
-    every call.  With `within`, another FirstCalls, each call's events
-    are tagged with whether it ran inside a call of that one."""
+    and the host time of the first call.  On the card a render's queued
+    loop calls it in the graph runner's eager warm-up (the frame's first
+    pixels and samples, the render's seed: its first block's queries)
+    and while capturing; a replay does not call it, so `n` counts
+    neither iterations nor launches there."""
 
-    def __init__(self, module, name, timed=False, within=None):
-        self.module, self.name, self.timed = module, name, timed
-        self.within, self.active = within, False
-        self.args, self.events, self.first_t, self.n = {}, [], None, 0
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.args, self.first_t, self.n = {}, None, 0
         self._orig = getattr(module, name)
 
     def __call__(self, *args, **kw):
@@ -825,33 +907,12 @@ class FirstCalls:
         self.n += 1
         if self.first_t is None:
             self.first_t = time.perf_counter()
-        if any_hit not in self.args:
+        if (any_hit not in self.args
+                and not torch.cuda.is_current_stream_capturing()):
             self.args[any_hit] = [a.detach().clone()
                                   if isinstance(a, torch.Tensor)
                                   else a for a in args]
-        if not self.timed:
-            return self._orig(*args, **kw)
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        inside = self.within is not None and self.within.active
-        self.active = True
-        ev[0].record()
-        try:
-            out = self._orig(*args, **kw)
-        finally:
-            self.active = False
-        ev[1].record()
-        self.events.append((*ev, inside))
-        return out
-
-    def stream_ms(self, inside=None):
-        """Summed ms between the events around each call, which include
-        the stream's idle gaps while the host issues the call's launches
-        (only the calls inside `within`, or only those outside, when
-        `inside` is given)."""
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b, w in self.events
-                   if inside is None or w == inside)
+        return self._orig(*args, **kw)
 
     def __enter__(self):
         setattr(self.module, self.name, self)
@@ -861,48 +922,45 @@ class FirstCalls:
         setattr(self.module, self.name, self._orig)
 
 
-class EyeSteps:
-    """Counts the queued host loop's iterations inside the block: calls
-    of the integrator's extension step on the eye path."""
-
-    def __init__(self):
-        self.n, self._orig = 0, None
-
-    def __enter__(self):
-        self._orig = tpath._extend_path
-
-        def step(*a, **kw):
-            self.n += a[-1] == tpath.TAG_EYE
-            return self._orig(*a, **kw)
-
-        tpath._extend_path = step
-        return self
-
-    def __exit__(self, *exc):
-        tpath._extend_path = self._orig
+def graph_line():
+    """The queued-loop runners' counters since the last reset_launches():
+    what a render's blocks did as CUDA graphs."""
+    st = tgraph.read_stats()
+    return (f"queued loop as CUDA graphs: {st['runners']} runner(s), "
+            f"{st['captures']} graphs captured in {st['capture_ms']:.1f} ms, "
+            f"graph pool {st['pool_bytes'] / 2**20:.1f} MiB, max memory "
+            f"allocated {st['peak_before'] / 2**30:.3f} -> "
+            f"{st['peak_after'] / 2**30:.3f} GiB across the capture; "
+            f"{st['blocks']} blocks, {st['iterations']} iterations, "
+            f"{st['replays']} step replays + {st['warmup_steps']} warm-up "
+            f"steps ({st['overshoot']} past the end), "
+            f"{st['light_replays']} light-phase replays, {st['flag_reads']} "
+            f"end-test reads")
 
 
-def profiled_round(cfg_path, out_dir, module, name, kernels_, binned=None,
-                   force=False):
-    """With --profile (or `force`): one more CLI render of `cfg_path`
+def profiled_round(cfg_path, out_dir, module, name, kernels_, binned=None):
+    """With --profile: one more CLI render of `cfg_path`
     (with RGK_BINNED=`binned` when given) under torch.profiler (card
     activity only), the round timed from the first call of `module.name`
-    to the EXR on the host clock.  Prints the device ms of every kernel
+    (in the graph runner's warm-up, so the capture counts) to the EXR on
+    the host clock.  Prints the device ms of every kernel
     event, of those whose name holds each of `kernels_` (K1 and K2 per
     variant), the busy share, kernel ms over the round (the tracing
-    slows the host, so the share reads low), and the kernels launched per
-    host-loop iteration.  -> a dict of those numbers, or None."""
-    if not (PROFILE or force):
+    slows the host, so the share reads low), and the kernels run per
+    iteration of the queued loop.  -> a dict of those numbers, or None."""
+    if not PROFILE:
         return None
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    tgraph.reset_stats()
     with binned_mode(binned) if binned else contextlib.nullcontext(), \
-            FirstCalls(module, name) as first, EyeSteps() as steps, profile(
+            FirstCalls(module, name) as first, profile(
                 activities=[ProfilerActivity.CUDA]) as prof:
         render(cfg_path, out_dir)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+    iterations = tgraph.read_stats()["iterations"]
     round_ms = (t1 - first.first_t) * 1e3
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -924,15 +982,15 @@ def profiled_round(cfg_path, out_dir, module, name, kernels_, binned=None,
         print("    profiled round: the profiler recorded no kernel; busy "
               "share not measured")
         return None
-    per_iter = len(kern) / max(steps.n, 1)
+    per_iter = len(kern) / max(iterations, 1)
     print(f"    profiled round{f' (RGK_BINNED={binned})' if binned else ''}"
           f" (torch.profiler): round {round_ms:.3f} ms, "
           f"{len(kern)} kernels {total:.3f} ms, busy {total / round_ms:.4f}, "
-          f"{steps.n} iterations, {per_iter:.1f} kernels an iteration; "
+          f"{iterations} iterations, {per_iter:.1f} kernels an iteration; "
           + ", ".join(f"{k} {n} launches {ms:.3f} ms"
                       for k, (n, ms) in sorted(mine.items())))
     return {"round_ms": round_ms, "kernels": len(kern), "kernel_ms": total,
-            "busy": total / round_ms, "iterations": steps.n,
+            "busy": total / round_ms, "iterations": iterations,
             "per_iteration": per_iter, "by_kernel": mine}
 
 
@@ -955,10 +1013,11 @@ def phase_render(d):
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
     n_tris = first.args[False][0].shape[0]
     check(n_tris == 3870, f"scene has {n_tris} triangles, not 3870")
-    print(f"[5/19 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
+    print(f"[5/20 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
           f"{wall:.3f} s, "
           f"{rays} extension rays, {rays / wall:.1f} rays/s, K1 launches "
           f"{launches}, image mean {float(img.mean()):.5f}")
+    print(f"    {graph_line()}")
 
     entries = []
     for any_hit in (False, True):
@@ -990,7 +1049,7 @@ def phase_cpu_parity(d):
     cpu, _ = render(path, os.path.join(d, "cpu64"), "--cpu")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"card vs CPU image parity failed: {stats}")
-    print(f"[6/19 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
+    print(f"[6/20 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
           f" trimmed {stats['corr_trim']:.6f} mean rel diff "
           f"{stats['mean_rel_diff']:.3g} max|diff| {stats['max_abs_diff']:.3g}"
           f" outlier pixels {stats['outlier_pixels']}, max per tile "
@@ -1026,7 +1085,7 @@ def phase_colonnade(d):
     reset_launches()
     cli.build_scene = keep_builder
     try:
-        with FirstCalls(ci, "traverse", timed=True) as first:
+        with FirstCalls(ci, "traverse") as first:
             t0 = time.perf_counter()
             img, rays = render(path, out_dir)
             t1 = time.perf_counter()
@@ -1044,17 +1103,15 @@ def phase_colonnade(d):
           f"SAH builder {builder.sah_builder}")
     host = builder.timings
     round_s = t1 - first.first_t
-    k2_ms = first.stream_ms()
-    print(f"[7/19 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
+    print(f"[7/20 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
           f"{n_tris} tris]"
           f" CLI wall {t1 - t0:.3f} s, of which host build "
           f"{sum(host.values()):.3f} s ({builder.sah_builder} SAH builder: "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
           + f"); round (first query to EXR) {round_s:.3f} s, {rays} "
           f"extension rays, {rays / round_s:.1f} rays/s; K2 launches "
-          f"{launches}, K2 stream time {k2_ms:.3f} ms "
-          f"({k2_ms / 10 / round_s:.2f}% of the round); image mean "
-          f"{float(img.mean()):.5f}")
+          f"{launches}; image mean {float(img.mean()):.5f}")
+    print(f"    {graph_line()}")
 
     entries = []
     for any_hit in (False, True):
@@ -1224,9 +1281,12 @@ def phase_colonnade_parity(d):
     check(n_tris == 33960, f"small colonnade of {n_tris} triangles")
     reset_launches()
     with QueryLog() as log_gpu:
-        gpu, _ = render(path, os.path.join(d, "col_gpu"))
+        gpu, _ = render_eager(path, os.path.join(d, "col_gpu"))
     check(ci.launches["closest"] > 0 and fi.launches["closest"] == 0,
           f"the small colonnade did not go through K2: {ci.launches}")
+    graph_img, _ = render(path, os.path.join(d, "col_gpu_graph"))
+    check(np.array_equal(graph_img, gpu), "the CLI's image (CUDA graphs) "
+          "differs from the eager loop's")
     with QueryLog() as log_cpu:
         cpu, _ = render(path, os.path.join(d, "col_cpu"), "--cpu")
     part = where_they_part(log_gpu.queries, log_cpu.queries)
@@ -1234,10 +1294,12 @@ def phase_colonnade_parity(d):
     check(stats["ok"], f"colonnade card vs CPU image parity failed: {stats}")
     reset_launches()
     with plain_k2():
-        gpu_plain, _ = render(path, os.path.join(d, "col_gpu_plain"))
+        gpu_plain, _ = render_eager(path, os.path.join(d, "col_gpu_plain"))
     check(ci.launches == {"closest": 0, "any": 0},
           f"the plain-K2 card render launched K2: {ci.launches}")
-    print(f"[8/19 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
+    print(f"[8/20 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
+          f"card (eager loop; the CLI's CUDA-graph image equal bit for "
+          f"bit) vs CPU: "
           f"{fmt_parity(stats)}; card with cluster_plain vs CPU: "
           f"{fmt_parity(image_parity(gpu_plain, cpu))}; card K2 vs card "
           f"cluster_plain: {fmt_parity(image_parity(gpu, gpu_plain))} "
@@ -1396,7 +1458,7 @@ def phase_binned_soup(dev, trees):
             k2, af = compare_front(args, False, K)
             _, ax = compare_front(args[:6] + [k2[1].contiguous()], False, K)
             _, aa = compare_front(args, True, K)
-            line = (f"[9/19 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
+            line = (f"[9/20 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
                     f"K={K}] K3 lists agree {a3:.6f} (lanes overflowing "
                     f"{over:.4f}); K4 ids agree {a4:.6f}, t within rtol "
                     f"{t4:.6f}, {c4:.6f} of the {s4:.6f} well-conditioned "
@@ -1454,29 +1516,19 @@ def binned_mode(mode):
 
 def render_binned(path, out_dir, mode):
     """One CLI render with RGK_BINNED=mode (restored after).  -> (image,
-    rays, launches, stats of the round)."""
+    rays, launches, stats of the round: the queued loop's steps, every
+    one issued, warm-up and replays)."""
     reset_launches()
     with binned_mode(mode), \
-            FirstCalls(isect, "intersect_clusters_binned",
-                       timed=True) as front, \
-            FirstCalls(isect, "intersect_clusters") as k2_front, \
-            FirstCalls(bi, "walk", timed=True) as k3, \
-            FirstCalls(bi, "sweep_pairs", timed=True) as k4, \
-            FirstCalls(ci, "traverse", timed=True, within=front) as k2:
+            FirstCalls(isect, "intersect_clusters_binned") as front:
         t0 = time.perf_counter()
         img, rays = render(path, out_dir)
         t1 = time.perf_counter()
     launches = {"K1": dict(fi.launches), "K2": dict(ci.launches),
                 "K3/K4": dict(bi.launches)}
-    firsts = [c.first_t for c in (front, k2_front) if c.first_t is not None]
-    ms = {"front": front.stream_ms(), "K3": k3.stream_ms(),
-          "K4": k4.stream_ms(), "pass 2": k2.stream_ms(inside=True),
-          "K2 closest queries": k2.stream_ms(inside=False)}
-    ms["glue"] = ms["front"] - ms["K3"] - ms["K4"] - ms["pass 2"]
     return img, rays, launches, {
-        "wall": t1 - t0, "round": t1 - min(firsts), "ms": ms,
-        "n_binned": len(front.events), "n_k2_front": len(k2.events) - len(
-            front.events), "args": front.args}
+        "wall": t1 - t0, "round": t1 - front.first_t,
+        "steps": tgraph.read_stats()["steps"], "args": front.args}
 
 
 def phase_binned_colonnade(d, path, k2_img):
@@ -1492,35 +1544,34 @@ def phase_binned_colonnade(d, path, k2_img):
         check(img.shape == (res[1], res[0], 3), f"image shape {img.shape}")
         check(bool(np.isfinite(img).all()), "non-finite pixels")
         check(float(img.mean()) > 0.0, "the image is black")
-        nb = st["n_binned"]
+        # A step of the NEE loop makes one closest-hit and one shadow
+        # query; each binned query launches K3, K4 and pass 2's K2.
+        steps = st["steps"]
+        nb = steps * (2 if mode == "all" else 1)
         k34 = launches["K3/K4"]
         check(nb > 0 and k34 == {"walk": nb, "sweep": nb},
-              f"RGK_BINNED={mode}: {nb} binned queries, K3/K4 launches "
-              f"{k34}")
+              f"RGK_BINNED={mode}: {steps} steps, {nb} binned queries, "
+              f"K3/K4 launches {k34}")
         check(launches["K1"] == {"closest": 0, "any": 0},
               f"the colonnade launched K1: {launches['K1']}")
         k2 = launches["K2"]
-        n_closest = 0 if mode == "all" else st["n_k2_front"]
-        check(k2 == {"closest": nb + n_closest, "any": 0} and (
-            mode == "all" or n_closest > 0),
-              f"RGK_BINNED={mode}: K2 launches {k2} for {nb} binned and "
-              f"{n_closest} closest-hit queries")
+        check(k2 == {"closest": 2 * steps, "any": 0},
+              f"RGK_BINNED={mode}: K2 launches {k2} for {nb} binned "
+              f"queries of {steps} steps")
         for key in total:
             total[key] += k34[key]
         stats = image_parity(img, k2_img)
         check(stats["ok"], f"RGK_BINNED={mode} image against the K2 image: "
               f"{stats}")
-        ms = st["ms"]
-        print(f"[10/19 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
+        print(f"[10/20 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
               f"{COLONNADE_MS}spp] CLI wall {st['wall']:.3f} s, round "
               f"(first query to EXR) {st['round']:.3f} s, {rays} extension "
               f"rays, {rays / st['round']:.1f} rays/s; launches K3 "
-              f"{k34['walk']}, K4 {k34['sweep']}, K2 {k2}; stream ms "
-              "(events around each call, host gaps included): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-              + f"; image vs K2's: max|diff| {stats['max_abs_diff']:.3g}, "
-              f"corr {stats['corr']:.6f}, outlier pixels "
-              f"{stats['outlier_pixels']}")
+              f"{k34['walk']}, K4 {k34['sweep']}, K2 {k2} ({steps} steps of "
+              f"the queued loop); image vs K2's: max|diff| "
+              f"{stats['max_abs_diff']:.3g}, corr {stats['corr']:.6f}, "
+              f"outlier pixels {stats['outlier_pixels']}")
+        print(f"    {graph_line()}")
 
         any_hit = mode == "any"
         args = st["args"][any_hit]
@@ -1592,7 +1643,7 @@ def phase_binned_small(d, path, cpu):
           f"K2 {ci.launches}")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"binned colonnade card vs CPU parity failed: {stats}")
-    print(f"[11/19 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
+    print(f"[11/20 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
           f"4spp depth 2] launches K3/K4 {dict(bi.launches)}, K2 "
           f"{dict(ci.launches)}; corr {stats['corr']:.6f} trimmed "
           f"{stats['corr_trim']:.6f} mean rel diff "
@@ -1608,7 +1659,7 @@ def phase_probes(dev):
     there), then one kernel of each timed against its plain version."""
     t_phase = time.perf_counter()
     reset_launches()
-    print("[12/19 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
+    print("[12/20 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
     check(p1.main([]) == 0, "P1 failed")
     print("    P2 (rgk_tpu_torch/tools/prof_sync.py):")
     check(p2.main([]) == 0, "P2 failed")
@@ -1731,15 +1782,17 @@ def phase_glass(d):
               and unused == {"closest": 0, "any": 0},
               f"glass render via {kernel}: K1 {k1}, K2 {k2}")
         check(tinted.n > 0, "the tint-thinglass render tinted nothing")
+        glass_graphs = graph_line()
         got[kernel] = used
         stats = card_vs_cpu(d, f"glass_{kernel}_64", 0, sphere, True)
-        print(f"[13/19 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
+        print(f"[13/20 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
               f" via {kernel}{f', + {sphere}-tri sphere' if sphere else ''}]"
               f" wall {wall:.3f} s, {rays} extension rays, "
               f"{rays / wall:.1f} rays/s, launches {kernel} {used} (the other "
               f"kernel none), {tinted.n} tinted segment sets, image mean "
               f"{float(img.mean()):.5f}; card vs CPU 64x64 4spp depth 3: "
               f"{fmt_parity(stats)}")
+        print(f"    {glass_graphs}")
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return got
 
@@ -1763,7 +1816,7 @@ def phase_bdpt_k1(d):
     t_phase = time.perf_counter()
     path = write_bdpt(d, "bdpt", BDPT_RES, BDPT_MS, BDPT_REVERSE)
     reset_launches()
-    with FirstCalls(isect, "intersect_flat") as first, EyeSteps() as steps, \
+    with FirstCalls(isect, "intersect_flat") as first, \
             FirstCalls(tpath, "_splat_image") as scat:
         t0 = time.perf_counter()
         img, rays = render(path, os.path.join(d, "bdpt_out"))
@@ -1775,16 +1828,20 @@ def phase_bdpt_k1(d):
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
     block = min((1 << 20) // BDPT_MS, BDPT_RES * BDPT_RES)  # the CLI's
     n_blocks = -(-BDPT_RES * BDPT_RES // block)
-    check(scat.n == n_blocks, f"{scat.n} splat scatters for {n_blocks} blocks")
+    st = tgraph.read_stats()
+    check(st["light_replays"] == st["blocks"] == n_blocks,
+          f"{st['light_replays']} light-phase replays, {st['blocks']} "
+          f"blocks, for {n_blocks} blocks")
     round_s = t1 - first.first_t
-    print(f"[14/19 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
+    print(f"[14/20 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} depth 4 via K1] CLI wall {t1 - t0:.3f} s, round "
           f"(first query to EXR) {round_s:.3f} s, {rays} extension rays "
           f"(light + eye), {rays / round_s:.1f} rays/s; {n_blocks} blocks of "
-          f"{block} pixels, {steps.n} host-loop iterations; K1 launches "
-          f"{launches}; image mean {float(img.mean()):.5f}")
+          f"{block} pixels, {st['iterations']} loop iterations; K1 "
+          f"launches {launches}; image mean {float(img.mean()):.5f}")
+    print(f"    {graph_line()}")
     prof = profiled_round(path, os.path.join(d, "bdpt_prof"), isect,
-                          "intersect_flat", ("flat_sweep",), force=True)
+                          "intersect_flat", ("flat_sweep",))
 
     args = first.args[True]
     r = args[1].shape[0]
@@ -1833,7 +1890,7 @@ def phase_bdpt_k2(d):
     path = write_bdpt(d, "bdpt_k2", K2_BDPT_RES, K2_BDPT_MS, BDPT_REVERSE,
                       BVH_SPHERE)
     reset_launches()
-    with FirstCalls(ci, "traverse") as first, EyeSteps() as steps:
+    with FirstCalls(ci, "traverse") as first:
         t0 = time.perf_counter()
         img, rays = render(path, os.path.join(d, "bdpt_k2_out"))
         t1 = time.perf_counter()
@@ -1843,11 +1900,13 @@ def phase_bdpt_k2(d):
           f"the BDPT render did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
     round_s = t1 - first.first_t
-    print(f"[15/19 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
+    print(f"[15/20 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} via K2, box + {BVH_SPHERE}-tri sphere] CLI wall "
           f"{t1 - t0:.3f} s, round {round_s:.3f} s, {rays} extension rays, "
-          f"{rays / round_s:.1f} rays/s, {steps.n} host-loop iterations; K2 "
+          f"{rays / round_s:.1f} rays/s, "
+          f"{tgraph.read_stats()['iterations']} loop iterations; K2 "
           f"launches {launches}; image mean {float(img.mean()):.5f}")
+    print(f"    {graph_line()}")
     args = first.args[True]
     cl, r = args[0], args[1].shape[0]
     check(r == K2_BDPT_RES * K2_BDPT_RES * K2_BDPT_MS * BDPT_REVERSE,
@@ -2057,7 +2116,7 @@ def phase_grad_k1(d):
     check(peak <= GRAD_PEAK_LIMIT, f"peak memory {peak} bytes")
     args = first.args[False]
     _, agree, err = compare(args, False)
-    print(f"[16/19 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
+    print(f"[16/20 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
           f"lanes, depth 4, 3870 tris + a point light, L2 against albedo "
           f"x 0.8] forward {fwd:.3f} ms, backward {bwd:.3f} ms (medians of "
           f"{GRAD_RUNS}), peak memory {peak / 2**30:.3f} GiB in one block "
@@ -2098,7 +2157,7 @@ def phase_grad_k2(d):
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the gradient runs did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
-    print(f"[17/19 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
+    print(f"[17/20 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
           f"{res}x{res} {ms}spp] forward {fwd:.3f} ms, backward {bwd:.3f} "
           f"ms, peak memory {peak / 2**30:.3f} GiB, loss {loss:.6g}; the "
           f"sphere's albedo mat_diffuse[{ball}] grad {g:.6g} central diff "
@@ -2151,6 +2210,7 @@ def phase_debug_rtc(d):
     check(cli.main([rtc, "-q", "-D", os.path.join(rtc_dir, "gpu")]) == 0,
           "the CLI failed on the .rtc scene")
     rtc_k1 = dict(fi.launches)
+    rtc_graphs = graph_line()
     check(rtc_k1["closest"] > 0 and rtc_k1["any"] > 0,
           f"the .rtc render did not go through K1: {rtc_k1}")
     check(cli.main([rtc, "-q", "--cpu", "-D",
@@ -2161,7 +2221,7 @@ def phase_debug_rtc(d):
     check_image(gpu_img, (RTC_RES[1], RTC_RES[0], 3))
     stats = image_parity(gpu_img, cpu_img)
     check(stats["ok"], f".rtc card vs CPU image parity failed: {stats}")
-    print(f"[18/19 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
+    print(f"[18/20 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
           f"scene; .rtc scene {RTC_RES[0]}x{RTC_RES[1]} 4spp depth 3] the "
           f"CLI printed {len(printed.splitlines())} lines; {len(recs['card'])}"
           f" bounces on the card, {len(recs['cpu'])} on the CPU; bounce 0 "
@@ -2169,6 +2229,7 @@ def phase_debug_rtc(d):
           f"{pos_err:.3g}; K1 launches {debug_k1}; .rtc render K1 launches "
           f"{rtc_k1}, card vs CPU: {fmt_parity(stats)} "
           f"({time.perf_counter() - t_phase:.1f} s)")
+    print(f"    the .rtc card render's {rtc_graphs}")
     return {m: debug_k1[m] + rtc_k1[m] for m in ("closest", "any")}
 
 
@@ -2221,12 +2282,260 @@ def phase_distribution(d):
     else:
         refused = False
     check(refused, "a mesh listing the card twice was built")
-    print(f"[19/19 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
+    print(f"[19/20 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
           f"--devices 1 and {backend} world size {world} (--coordinator "
           f"localhost) write the plain render's EXR and checkpoint bit for "
           f"bit; a mesh listing the card twice is refused; K1 launches "
           f"{launches} ({time.perf_counter() - t_phase:.1f} s)")
+    print(f"    the three renders' {graph_line()}")
     return launches
+
+
+# ------------------------------------------------ the queued loop as graphs
+
+
+def timed_round(drv, r):
+    """-> (seconds, rays) of `drv.render_round(r)`, host clock from a
+    synchronized card to the round's end on the card."""
+    n0 = int(drv._rays_dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drv.render_round(r)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dt, int(drv._rays_dev) - n0
+
+
+def counted_syncs(fn):
+    """-> the syncs that set_sync_debug_mode("warn") reports while fn()
+    runs (the process's own: an end-test read, a `.item()`, a copy to
+    the host)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def profiled(fn, names):
+    """fn() under torch.profiler (card activity): -> its ms on the host
+    clock, the kernels and their device ms (all, and those whose name
+    holds each of `names`), busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    total = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by = {n: sum(e.time_range.elapsed_us() for e in kern if n in e.name)
+          / 1e3 for n in names}
+    return {"wall_ms": wall, "kernels": len(kern), "kernel_ms": total,
+            "busy": total / wall, "by": by}
+
+
+def fmt_prof(p, wall_s):
+    """A profiled block: its kernels, device ms and busy share under the
+    profiler, and the device ms over `wall_s`, the unprofiled time of
+    the same work."""
+    if not p["kernels"]:
+        return "the profiler recorded no kernel (busy share not measured)"
+    return (f"{p['kernels']} kernels, {p['kernel_ms']:.3f} ms of device time "
+            f"in {p['wall_ms']:.3f} ms, busy {p['busy']:.4f} under the "
+            f"profiler, {p['kernel_ms'] / (wall_s * 1e3):.4f} over the "
+            f"unprofiled time (" + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in p["by"].items()) + ")")
+
+
+def graph_vs_eager(label, scene, names, k_sweep=False):
+    """Phase 20 on one scene (under the caller's RGK_BINNED): the CLI's
+    driver (CUDA graphs) against EagerDriver.  The graph driver's round 0
+    (it holds the capture) is dropped; block 0 of round 1 is traced by
+    the graph runner (with its accumulation) and by the eager loop (the
+    eager route's first work, dropped from the timing), each under
+    set_sync_debug_mode("warn") to count the syncs of a block, and must
+    be bit-equal (BDPT: the eye radiance; the splat image within rtol
+    1e-5); rounds 2 and 3 are timed in turns graph, eager, eager, graph,
+    and the two drivers' images of them must be equal (BDPT within rtol
+    1e-5); block 0 runs once more on each route under torch.profiler;
+    with `k_sweep` block 0 is timed through runners that read the end
+    test every k replays, k in GRAPH_KS.  -> a dict of the numbers."""
+    t_case = time.perf_counter()
+    s, arrays, meta, cam = scene
+    g, e = make_driver(scene), make_driver(scene, eager=True)
+    tgraph.reset_stats()
+    g.render_round(0)
+    build = tgraph.read_stats()
+    runner = g._runner()
+    bdpt = g.bdpt
+    eager = (tpath.trace_wavefront_queued_bdpt_eager if bdpt
+             else tpath.trace_wavefront_queued_eager)
+    px, py, pix = g._px[0], g._py[0], g._pix_idx[0]
+    s0 = g.ms  # round 1's first sample
+
+    def graph_block():
+        runner.block(px, py, s0, 42, cam)
+        runner.accumulate(g._acc_dev, g._rays_dev, pix)
+
+    def eager_block():
+        return eager(arrays, meta, s, cam, px, py, s0, g.ms, 42,
+                     smp.MODE_HALTON)
+
+    g_syncs = counted_syncs(graph_block)
+    outs = runner.state.radiance, runner.splat, runner.state.rays
+    got = [t.clone() for t in outs if t is not None]
+    syncs = {"graph": g_syncs}
+    after = tgraph.read_stats()
+    reads = after["flag_reads"] - build["flag_reads"]
+    iters = after["iterations"] - build["iterations"]  # block 0's loop
+    e_out = []
+    syncs["eager"] = counted_syncs(lambda: e_out.append(eager_block()))
+    want = e_out[0]
+    check(torch.equal(got[0], want[0]) and torch.equal(got[-1], want[-1]),
+          f"{label}: block 0's radiance or rays differ between the graph "
+          f"route and the eager loop")
+    splat_rel = 0.0
+    if bdpt:
+        diff = (got[1] - want[1]).abs()
+        check(bool((diff <= 1e-6 + 1e-5 * want[1].abs()).all()),
+              f"{label}: block 0's splat image beyond rtol 1e-5")
+        splat_rel = float((diff / want[1].abs().clamp(min=1e-30)).max())
+    check(g_syncs == reads and g_syncs <= -(-iters // runner.k),
+          f"{label}: {g_syncs} syncs in a graph block of {iters} "
+          f"iterations, {reads} end-test reads, k {runner.k}")
+
+    for drv in (g, e):
+        drv._acc_dev.zero_()
+    tgraph.reset_stats()
+    times = {"graph": [], "eager": []}
+    rays = {"graph": [], "eager": []}
+    for r, route in ((2, "graph"), (2, "eager"), (3, "eager"),
+                     (3, "graph")):
+        dt, n = timed_round(g if route == "graph" else e, r)
+        times[route].append(dt)
+        rays[route].append(n)
+    gst = tgraph.read_stats()
+    check(rays["graph"] == rays["eager"],
+          f"{label}: rays of rounds 2 and 3, graph {rays['graph']}, eager "
+          f"{rays['eager']}")
+    ga, ea = g._acc_dev[:-1], e._acc_dev[:-1]
+    if bdpt:
+        same = bool((ga - ea).abs().le(1e-6 + 1e-5 * ea.abs()).all())
+    else:
+        same = bool(torch.equal(ga, ea))
+    check(same, f"{label}: rounds 2-3's image differs between the graph "
+          f"route and the eager loop")
+    blocks = len(g._px)
+    check(gst["blocks"] == 2 * blocks and gst["replays"] == gst["steps"],
+          f"{label}: graph counters {gst}")
+    block_s = {"graph": [], "eager": []}
+    for route, fn in (("graph", graph_block), ("eager", eager_block),
+                      ("eager", eager_block), ("graph", graph_block)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        block_s[route].append(time.perf_counter() - t0)
+    prof = {"graph": profiled(graph_block, names),
+            "eager": profiled(eager_block, names)}
+
+    mean = {k: statistics.mean(v) for k, v in times.items()}
+    mean_block = {k: statistics.mean(v) for k, v in block_s.items()}
+    print(f"    {label}: block 0 ({px.shape[0]} lanes, {iters} iterations) "
+          f"radiance and rays bit-equal" + (
+              f", splat image max rel diff {splat_rel:.3g}" if bdpt else "")
+          + f"; rounds 2-3 image "
+          f"{'within rtol 1e-5' if bdpt else 'bit-equal'}; rounds (graph, "
+          f"eager, eager, graph) graph {times['graph'][0]:.4f} / "
+          f"{times['graph'][1]:.4f} s, eager {times['eager'][0]:.4f} / "
+          f"{times['eager'][1]:.4f} s (eager / graph "
+          f"{mean['eager'] / mean['graph']:.2f}x), {rays['graph'][0]} / "
+          f"{rays['graph'][1]} rays, {sum(rays['graph']) / 2 / mean['graph']:.1f}"
+          f" rays/s graph, {sum(rays['eager']) / 2 / mean['eager']:.1f} "
+          f"eager")
+    print(f"      syncs a block (block 0): graph {syncs['graph']} (its "
+          f"end-test reads, k {runner.k}), eager {syncs['eager']}; rounds "
+          f"2-3: {gst['blocks']} blocks, {gst['iterations']} iterations, "
+          f"{gst['replays']} replays ({gst['overshoot']} past the end), "
+          f"{gst['flag_reads']} end-test reads, {gst['light_replays']} "
+          f"light-phase replays; capture {build['capture_ms']:.1f} ms for "
+          f"{build['captures']} graphs, graph pool "
+          f"{build['pool_bytes'] / 2**20:.1f} MiB, max memory allocated "
+          f"{build['peak_before'] / 2**30:.3f} -> "
+          f"{build['peak_after'] / 2**30:.3f} GiB across the capture")
+    print(f"      block 0 (graph, eager, eager, graph) graph "
+          f"{mean_block['graph'] * 1e3:.3f} ms, eager "
+          f"{mean_block['eager'] * 1e3:.3f} ms; profiled: graph "
+          f"{fmt_prof(prof['graph'], mean_block['graph'])}; eager "
+          f"{fmt_prof(prof['eager'], mean_block['eager'])}")
+    out = {"times": times, "rays": rays, "syncs": syncs, "stats": gst,
+           "build": build, "prof": prof, "block_s": mean_block}
+    if k_sweep:
+        out["k"] = k_sweep_times(scene, g)
+    print(f"      ({time.perf_counter() - t_case:.1f} s)")
+    return out
+
+
+def k_sweep_times(scene, g):
+    """Block 0 of round 0 through one runner per k in GRAPH_KS, each
+    warmed by one block, then timed in turns k ascending, descending:
+    -> {k: mean seconds}; printed with the overshoot."""
+    s, arrays, meta, cam = scene
+    px, py = g._px[0], g._py[0]
+    runners = {k: tgraph.QueuedGraph(arrays, meta, s, cam, g.block, g.ms,
+                                     smp.MODE_HALTON, k=k, seed=42)
+               for k in GRAPH_KS}
+    got = {k: [] for k in GRAPH_KS}
+    over = {}
+    for k in GRAPH_KS:
+        runners[k].block(px, py, 0, 42, cam)
+    for k in GRAPH_KS + GRAPH_KS[::-1]:
+        tgraph.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runners[k].block(px, py, 0, 42, cam)
+        torch.cuda.synchronize()
+        got[k].append(time.perf_counter() - t0)
+        over[k] = tgraph.read_stats()["overshoot"]
+    mean = {k: statistics.mean(v) for k, v in got.items()}
+    print("      end test every k replays, block 0 (mean of 2, in turns): "
+          + ", ".join(f"k {k} {mean[k] * 1e3:.2f} ms ({over[k]} past the "
+                      f"end)" for k in GRAPH_KS))
+    return mean
+
+
+def phase_graph(flat_path, col_path, bdpt_path):
+    """Phase 20: the graph route against the eager loop on the flat
+    smoke scene (K1, with the k sweep), the colonnade (K2) with
+    RGK_BINNED off and all, and the BDPT box (K1)."""
+    t_phase = time.perf_counter()
+    print(f"[20/20 queued loop: CUDA graphs vs the eager loop] "
+          f"{clocks()}")
+    got = {"flat": graph_vs_eager(
+        f"flat smoke {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp", load_scene(
+            flat_path), ("flat_sweep",), k_sweep=True)}
+    col = load_scene(col_path)
+    for mode in ("off", "all"):
+        with binned_mode(mode):
+            got[f"colonnade {mode}"] = graph_vs_eager(
+                f"colonnade {COLONNADE_RES[0]}x{COLONNADE_RES[1]} "
+                f"{COLONNADE_MS}spp RGK_BINNED={mode}", col,
+                ("cluster_walk", "binned_walk", "binned_sweep"))
+    del col
+    got["bdpt"] = graph_vs_eager(
+        f"BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse {BDPT_REVERSE}",
+        load_scene(bdpt_path), ("flat_sweep",))
+    print(f"    ({time.perf_counter() - t_phase:.1f} s)")
+    return got
 
 
 def parse_args(argv=None):
@@ -2234,10 +2543,11 @@ def parse_args(argv=None):
     ap.add_argument("--parent", metavar="CSRC", help="an earlier version's "
                     "csrc/ directory: its K1-K4 are timed in turns with "
                     "this tree's in phases 3-5, 7, 9 and 10")
-    ap.add_argument("--profile", action="store_true", help="phases 5, 7 and "
-                    "10 (RGK_BINNED=all) render once more under "
+    ap.add_argument("--profile", action="store_true", help="phases 5, 7, "
+                    "10 (RGK_BINNED=all) and 14 render once more under "
                     "torch.profiler and print the round's kernel time and "
-                    "the device's busy share (phase 14 always does)")
+                    "the device's busy share (phase 20 always profiles a "
+                    "block of each scene on both routes)")
     return ap.parse_args(argv)
 
 
@@ -2268,6 +2578,8 @@ def main(argv=None):
         k2_grad = phase_grad_k2(d)
         k1_debug = phase_debug_rtc(d)
         k1_dist = phase_distribution(d)
+        phase_graph(os.path.join(d, f"box_sphere_{FLAT_RES}.json"),
+                    col_path, os.path.join(d, "bdpt.json"))
     # The K1 and K2 rows count every run of their kernel's paths.
     more = {"flat_intersect": (glass["K1"], k1_bdpt, k1_grad, k1_debug,
                                k1_dist),

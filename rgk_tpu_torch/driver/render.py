@@ -3,10 +3,14 @@
 
 Each round renders every pixel x multisample once.  The frame is cut
 into pixel blocks: unidirectional renders (`reverse == 0`) trace blocks
-of at most `chunk_lanes` pixels through `trace_wavefront_queued`;
+of at most `chunk_lanes` pixels through the queued NEE tracer;
 bidirectional ones blocks of `chunk_lanes // multisample` pixels through
-`trace_wavefront_queued_bdpt`, whose light-subpath phase runs on every
-(pixel, sample) of the block at once.  Each block's per-pixel radiance
+the queued BDPT tracer, whose light-subpath phase runs on every
+(pixel, sample) of the block at once.  The driver keeps one
+`integrator.graph.QueuedGraph` per `RGK_BINNED` mode: on a card a block
+is the replay of its CUDA graphs (light phase, the loop's step, the
+accumulation), as the reference runs a block as one device program; on
+the CPU the same runner steps eagerly.  Each block's per-pixel radiance
 sums (and BDPT splat image) are added into an accumulator of [H*W+1, 3]
 that stays on the scene's device (row H*W swallows the padding lanes
 of the last block and the missed splats) and crosses to the host only
@@ -34,8 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..integrator.path import (trace_wavefront_queued,
-                               trace_wavefront_queued_bdpt)
+from ..integrator.graph import QueuedGraph, binned_mode
 from ..io import AccumulationImage
 from ..parallel import multihost
 from ..utils import log as out
@@ -114,32 +117,37 @@ class RenderDriver:
                                     device=dev)
         self._rays_dev = torch.zeros((), dtype=torch.int64, device=dev)
 
-        if mesh is None:
-            tracer = (trace_wavefront_queued_bdpt if self.bdpt
-                      else trace_wavefront_queued)
+        # One block runner per RGK_BINNED mode (a capture freezes it).
+        self._runners = {}
+        if mesh is not None:
+            self._sharded = (mesh.make_queued_bdpt_fn if self.bdpt
+                             else mesh.make_queued_fn)(meta, settings,
+                                                       sampler_mode)
 
-            def trace(px, py, sample0):
-                return tracer(self.scene, meta, settings, self.camera, px,
-                              py, sample0, self.ms, self.seed,
-                              sampler_mode=sampler_mode)
-        else:
-            sharded = (mesh.make_queued_bdpt_fn if self.bdpt
-                       else mesh.make_queued_fn)(meta, settings, sampler_mode)
-
-            def trace(px, py, sample0):
-                return sharded(self.scene, self.camera, px, py, sample0,
-                               self.seed)
-        self._trace = trace
+    def _runner(self) -> QueuedGraph:
+        mode = binned_mode(self.meta)
+        if mode not in self._runners:
+            self._runners[mode] = QueuedGraph(
+                self.scene, self.meta, self.settings, self.camera,
+                self.block, self.ms, self.sampler_mode, seed=self.seed)
+        return self._runners[mode]
 
     def render_round(self, round_idx: int, monitor=None) -> None:
         """Render this process's blocks, every pixel x multisample once;
         accumulate on the device."""
+        sample0 = round_idx * self.ms
+        runner = self._runner() if self.mesh is None else None
         for px, py, pix_idx in zip(self._px, self._py, self._pix_idx):
-            out = self._trace(px, py, round_idx * self.ms)
-            self._acc_dev.index_add_(0, pix_idx, out[0])
-            if self.bdpt:
-                self._acc_dev += out[1]
-            self._rays_dev += out[-1]
+            if runner is not None:
+                runner.block(px, py, sample0, self.seed, self.camera)
+                runner.accumulate(self._acc_dev, self._rays_dev, pix_idx)
+            else:
+                out = self._sharded(self.scene, self.camera, px, py,
+                                    sample0, self.seed)
+                self._acc_dev.index_add_(0, pix_idx, out[0])
+                if self.bdpt:
+                    self._acc_dev += out[1]
+                self._rays_dev += out[-1]
             if monitor is not None:
                 monitor.add_blocks(1)
         self._lanes_done += self._local_lanes

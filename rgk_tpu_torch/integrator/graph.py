@@ -1,0 +1,365 @@
+"""The queued loop on the device: a block of the queued tracers as
+CUDA-graph replays (the reference runs a block as one jitted device
+program, `rgk_tpu/driver/render.py` `_round_block`, whose queued eye
+walk is a `jax.lax.while_loop`).
+
+`QueuedGraph` owns static buffers for a block's inputs
+(`path._QueuedInputs`), the loop's carry (`path._QueuedState`) and, for
+BDPT, the packed light vertices and the splat image.  On a card it
+captures, when it is built:
+* the light phase (BDPT): `path._light_phase` into the lpack and splat
+  buffers and the ray counter;
+* one step: `path._queued_step`, its results copied back into the state
+  buffers and the end test `path._queued_live` into a device flag;
+and at the first `accumulate` the tail: the block's radiance added into
+the caller's accumulator (`index_add_`), the splat image and the ray
+count (captured again if the accumulator moves).  A block loads its
+inputs with `copy_`/`fill_` (no sync), resets the state, replays the
+light graph, replays the step `k` times between two reads of the flag
+(one sync each), then the tail.  A step past the end changes no output
+(`path._queued_step`), so reading the end test late costs at most k-1
+replays and never the image.  A conditional WHILE node would move the
+test onto the device; it is left for later (ROADMAP.md).
+
+Where capture goes wrong, and what is done about it:
+* Python numbers are baked into a capture.  The sample range and the
+  seed are device tensors of `_QueuedInputs`, filled per block; the
+  camera's tensors are copied into the runner's own each block (its
+  resolution and lens, Python values, are fixed per runner and
+  checked); the samples a lane (`n_samples`) fix the lpack's shape.
+* Tensor addresses are baked into a capture.  The graphs read only the
+  runner's buffers, the scene and the runner's own setup (material
+  pack), all held by the runner: lpack is a runner buffer, not a new
+  allocation each block, and the pixel shards and camera that a mesh
+  makes anew on every call are copied in.
+* `RGK_BINNED` is read at every intersection call; a capture freezes
+  it.  A runner records the mode it was built under (`binned_mode`) and
+  callers key their runners by it.  The binned route has static shapes
+  ([R*K] sorted pairs) and captures like the others.
+* Hidden syncs.  The warm-up and the captures run under
+  `torch.cuda.set_sync_debug_mode("error")`, and a capture refuses a
+  sync in any case; the plain versions of the kernels (loops over
+  `nonzero`) run only on the CPU.  Build runners from one thread: the
+  debug mode is process-wide.
+* One-time setup (`kernels.load()`, K2's `launch_setup`) runs in the
+  eager warm-up steps on a side stream, outside the capture.
+* K2 resets its per-device work counter with a memset before each
+  launch; in a graph the memset and the kernel are ordered on one
+  stream.  Two graphs of one card must not replay at once: a runner
+  replays on its device's current stream, and a mesh lists a card once.
+* The launch counters of the kernel wrappers are Python and do not run
+  on replay: each capture's delta is recorded and added at every
+  replay.
+A failed capture or replay raises; there is no eager fallback on the
+card.  On the CPU the same buffers are stepped eagerly (the end test
+read every step): the buffer discipline without graphs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+
+import torch
+
+from ..ops import binned_intersect as bi
+from ..ops import cluster_intersect as ci
+from ..ops import flat_intersect as fi
+from ..scene.camera import TENSOR_FIELDS
+from ..utils import log as out
+from . import path as tpath
+
+K_READ = 4        # replays between two reads of the end test (PERF.md §6)
+WARMUP_STEPS = 2  # eager steps on a side stream before the capture
+_COUNTERS = (fi.launches, ci.launches, bi.launches)
+
+# Summed over every runner of the process; `reset_stats` zeroes them.
+# steps: steps issued (eager warm-up, replays, CPU steps); replays:
+# step-graph replays; flag_reads: end-test reads (one sync each);
+# iterations: the CPU's steps that found the loop live; peak_before /
+# peak_after: max memory allocated around the latest build's captures.
+stats = {"runners": 0, "blocks": 0, "captures": 0, "capture_ms": 0.0,
+         "pool_bytes": 0, "peak_before": 0, "peak_after": 0, "steps": 0,
+         "warmup_steps": 0, "replays": 0, "light_replays": 0,
+         "flag_reads": 0, "iterations": 0}
+# Per card: an int64 [] count of the steps that found the loop live,
+# kept on the device (a replay adds to it without a sync).
+_work = {}
+_lock = threading.Lock()
+
+
+def _bump(**deltas):
+    with _lock:
+        for key, v in deltas.items():
+            stats[key] += v
+
+
+def reset_stats() -> None:
+    with _lock:
+        for key in stats:
+            stats[key] = type(stats[key])()
+        for w in _work.values():
+            w.zero_()
+
+
+def read_stats() -> dict:
+    """`stats` plus `iterations`, the steps that found the loop live
+    (the reference's loop count; read from the devices, a sync), and
+    `overshoot`, the steps issued past the end."""
+    with _lock:
+        got = dict(stats)
+        got["iterations"] += sum(int(w) for w in _work.values())
+    got["overshoot"] = got["steps"] - got["iterations"]
+    return got
+
+
+def binned_mode(meta) -> str:
+    """The `RGK_BINNED` mode a BVH scene's card queries run under now
+    ("off" for a flat scene, which does not read it): part of a runner's
+    key."""
+    return os.environ.get("RGK_BINNED", "off") if meta.has_bvh else "off"
+
+
+@contextlib.contextmanager
+def _no_sync():
+    """Inside, an operation that makes the host wait for the card
+    raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _snapshot():
+    return [dict(c) for c in _COUNTERS]
+
+
+def _add_launches(delta, times: int = 1):
+    with _lock:
+        for counter, d in zip(_COUNTERS, delta):
+            for key, v in d.items():
+                counter[key] += v * times
+
+
+class QueuedGraph:
+    """A block of `lanes` pixels, `n_samples` samples each, of the queued
+    NEE tracer (`settings.reverse` == 0) or BDPT tracer, on the scene's
+    device (module doc).  Built once per (device, lanes, tracer,
+    `binned_mode`); on a card the graphs are captured here, after
+    warm-up steps on the frame's first `lanes` pixels, samples from 0,
+    under `seed` (for a driver: its first block)."""
+
+    def __init__(self, scene, meta, settings, cam, lanes: int,
+                 n_samples: int, sampler_mode: int = 1, k: int = K_READ,
+                 seed: int = 0):
+        if k < 1:
+            raise ValueError(f"k must be at least 1, got {k}")
+        self.scene, self.meta, self.settings = scene, meta, settings
+        self.device = dev = scene.tri_pack.device
+        self.lanes, self.n_samples = int(lanes), int(n_samples)
+        self.sampler_mode, self.k = sampler_mode, int(k)
+        self.bdpt = int(settings.reverse) > 0
+        self.mode = binned_mode(meta)
+        self.su = tpath._setup(scene, meta, settings)
+        self.cam = cam.to(dev, copy=True)
+        px = torch.zeros(self.lanes, dtype=torch.int32, device=dev)
+        lpack = None
+        self.splat = None
+        if self.bdpt:
+            lpack = torch.zeros(
+                (self.lanes, self.n_samples,
+                 int(settings.reverse) * tpath._LV_ROW),
+                dtype=torch.float32, device=dev)
+            self.splat = torch.zeros((cam.xres * cam.yres + 1, 3),
+                                     dtype=torch.float32, device=dev)
+        self.inp = tpath._queued_inputs(px, torch.zeros_like(px), cam.xres, 0,
+                                        self.n_samples, 0, lpack)
+        self.state = tpath._queued_init(self.inp)
+        self.live = torch.ones((), dtype=torch.bool, device=dev)
+        self.pix_idx = torch.zeros(self.lanes, dtype=torch.int64, device=dev)
+        self.work = None
+        self._graphs = {}      # name -> (CUDAGraph, launch-counter delta)
+        self._tail_for = None  # the accumulator the tail graph adds into
+        _bump(runners=1)
+        if dev.type == "cuda":
+            with _lock:
+                self.work = _work.setdefault(
+                    dev, torch.zeros((), dtype=torch.int64, device=dev))
+            self._stream = torch.cuda.Stream(dev)
+            self._pool = torch.cuda.graph_pool_handle()
+            with torch.no_grad(), torch.cuda.device(dev):
+                self._build(seed)
+        out.log(3, f"queued loop on {dev}: {self.lanes} lanes x "
+                   f"{self.n_samples} samples, "
+                   f"{'BDPT' if self.bdpt else 'NEE'}, RGK_BINNED="
+                   f"{self.mode}, " + (
+                       f"CUDA graphs, end test read every {self.k} replays"
+                       if dev.type == "cuda" else "eager steps"))
+
+    # ---- the bodies: run eagerly, or captured once
+
+    def _load(self, px, py, sample0: int, seed: int, cam) -> None:
+        """The block's inputs into the static buffers (`copy_`/`fill_`,
+        no sync) and the state reset."""
+        if px.shape[0] != self.lanes:
+            raise ValueError(f"a block of {px.shape[0]} lanes for a runner "
+                             f"of {self.lanes}")
+        if (cam.xres, cam.yres, cam.lens_size) != (
+                self.cam.xres, self.cam.yres, self.cam.lens_size):
+            raise ValueError("the camera's resolution or lens differs from "
+                             "the one the runner was built for")
+        i = self.inp
+        i.px.copy_(px)
+        i.py.copy_(py)
+        i.pixel_id.copy_(i.py.long() * self.cam.xres + i.px.long())
+        i.sample0.fill_(int(sample0))
+        i.s_end.fill_(int(sample0) + self.n_samples)
+        i.seed.fill_(int(seed) & 0xFFFFFFFF)
+        for f in TENSOR_FIELDS:
+            getattr(self.cam, f).copy_(getattr(cam, f))
+        for buf, v in zip(self.state, tpath._queued_init(i)):
+            buf.copy_(v)
+        self.live.copy_(tpath._queued_live(self.state, i))
+
+    def _light(self) -> None:
+        lpack, splat, rays = tpath._light_phase(
+            self.scene, self.meta, self.settings, self.su, self.cam,
+            self.inp, self.n_samples, self.sampler_mode)
+        self.inp.lpack.copy_(lpack)
+        self.splat.copy_(splat)
+        self.state.rays.copy_(rays)
+
+    def _step(self) -> None:
+        if self.work is not None:
+            self.work.add_(self.live)
+        q = tpath._queued_step(self.scene, self.meta, self.settings, self.su,
+                               self.cam, self.inp, self.state,
+                               self.sampler_mode)
+        for buf, v in zip(self.state, q):
+            buf.copy_(v)
+        self.live.copy_(tpath._queued_live(self.state, self.inp))
+
+    def _tail(self, acc, rays_acc) -> None:
+        acc.index_add_(0, self.pix_idx, self.state.radiance)
+        if self.bdpt:
+            acc += self.splat
+        rays_acc += self.state.rays
+
+    # ---- capture and replay (card)
+
+    def _build(self, seed: int) -> None:
+        """Warm up on the frame's first `lanes` pixels (class doc), then
+        capture the light phase and one step."""
+        dev = self.device
+        xres, yres = self.cam.xres, self.cam.yres
+        pix = torch.arange(self.lanes, device=dev) % (xres * yres)
+        px, py = (pix % xres).to(torch.int32), (pix // xres).to(torch.int32)
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream), _no_sync():
+            self._load(px, py, 0, seed, self.cam)
+            if self.bdpt:
+                self._light()
+            for _ in range(WARMUP_STEPS):
+                self._step()
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        _bump(steps=WARMUP_STEPS, warmup_steps=WARMUP_STEPS)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.perf_counter()
+        if self.bdpt:
+            self._capture("light", self._light)
+        self._capture("step", self._step)
+        ms = (time.perf_counter() - t0) * 1e3
+        pool = torch.cuda.memory_reserved(dev) - reserved
+        peak_after = torch.cuda.max_memory_allocated(dev)
+        _bump(capture_ms=ms, pool_bytes=pool)
+        with _lock:
+            stats["peak_before"], stats["peak_after"] = peak, peak_after
+        out.log(3, f"queued loop on {dev}: captured {len(self._graphs)} "
+                   f"graphs in {ms:.1f} ms; graph pool {pool} bytes; max "
+                   f"memory allocated {peak} -> {peak_after} bytes")
+
+    def _capture(self, name, body) -> None:
+        graph = torch.cuda.CUDAGraph()
+        before = _snapshot()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"), _no_sync():
+            body()
+        # The wrappers counted launches that the capture only recorded:
+        # take them back, and add them at every replay instead.
+        delta = [{key: c[key] - b[key] for key in c}
+                 for c, b in zip(_COUNTERS, before)]
+        _add_launches(delta, -1)
+        self._graphs[name] = (graph, delta)
+        _bump(captures=1)
+
+    def _replay(self, name, times: int = 1) -> None:
+        graph, delta = self._graphs[name]
+        for _ in range(times):
+            graph.replay()
+        _add_launches(delta, times)
+
+    def _device(self):
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    # ---- the block
+
+    def block(self, px, py, sample0: int, seed: int, cam) -> None:
+        """Trace the block of pixels (px, py) int32 [lanes], samples
+        sample0 .. sample0 + n_samples - 1, into the state buffers."""
+        with torch.no_grad(), self._device():
+            self._load(px, py, sample0, seed, cam)
+            if self.device.type != "cuda":
+                if self.bdpt:
+                    self._light()
+                n = 0
+                while bool(self.live):
+                    self._step()
+                    n += 1
+                _bump(blocks=1, steps=n, iterations=n, flag_reads=n + 1)
+                return
+            if self.bdpt:
+                self._replay("light")
+            n = reads = 0
+            while True:
+                self._replay("step", self.k)
+                n += self.k
+                reads += 1
+                if not bool(self.live):  # the end test: one sync
+                    break
+            _bump(blocks=1, steps=n, replays=n, flag_reads=reads,
+                  light_replays=int(self.bdpt))
+
+    def trace(self, px, py, sample0: int, seed: int, cam):
+        """`block`, then the outputs of `path.trace_wavefront_queued`
+        (NEE: radiance, rays) or `trace_wavefront_queued_bdpt` (BDPT:
+        radiance, splat image, rays).  They are the runner's buffers,
+        valid until its next block."""
+        self.block(px, py, sample0, seed, cam)
+        if self.bdpt:
+            return self.state.radiance, self.splat, self.state.rays
+        return self.state.radiance, self.state.rays
+
+    def accumulate(self, acc, rays_acc, pix_idx) -> None:
+        """The last block into the accumulator `acc` f32 [H*W+1, 3]
+        (radiance at rows `pix_idx` int64 [lanes], plus the splat image)
+        and the ray counter `rays_acc` int64 [].  On a card a captured
+        tail, captured again when the accumulator moves."""
+        with torch.no_grad(), self._device():
+            self.pix_idx.copy_(pix_idx)
+            if self.device.type != "cuda":
+                self._tail(acc, rays_acc)
+                return
+            key = (acc.data_ptr(), tuple(acc.shape), rays_acc.data_ptr())
+            if self._tail_for is None or self._tail_for[0] != key:
+                self._capture("tail", lambda: self._tail(acc, rays_acc))
+                self._tail_for = (key, acc, rays_acc)
+            self._replay("tail")

@@ -28,15 +28,26 @@ the thin-glass panes it crosses in every tracer, and the sky escape in
 escape of `trace_wavefront` or of the queued BDPT tracer, nor the BDPT
 connections; the port follows each function as it is.
 
-The loops run on the host: a queued loop's condition costs one
-device-to-host sync per iteration.  Every value is a pure function of
-(seed, pixel, sample), so a render is bitwise repeatable, except the
-splat sums of a BDPT render on the card (`_splat_image`).
+Where the loops run:
+* the queued tracers are split as the reference's `while_loop` is: the
+  carry `_QueuedState`, the block's inputs `_QueuedInputs` (device
+  tensors), the body `_queued_step` (no host sync) and the end test
+  `_queued_live` (a device bool).  On a CUDA tensor a block runs as
+  CUDA-graph replays of one captured step, the BDPT light phase as one
+  more graph, with the end test read every k replays
+  (`integrator/graph.py`); on the CPU as the plain host loop
+  `_queued_walk`, one sync an iteration;
+* `trace_wavefront`'s bounce loop runs on the host on either device
+  (one sync a bounce unless `differentiable`), so that autograd can
+  record it.
+Every value is a pure function of (seed, pixel, sample), so a render is
+bitwise repeatable, except the splat sums of a BDPT render on the card
+(`_splat_image`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -402,6 +413,177 @@ def _unpack_light_vertex(rows, k: int):
 
 # --------------------------------------------------------- queued tracers
 
+class _QueuedInputs(NamedTuple):
+    """What a block feeds the queued loop.  The values that change from
+    block to block or round to round are device tensors, not Python
+    numbers: a captured step (integrator/graph.py) reads them from
+    memory, where a Python number would be baked into the capture and
+    every replay would render the first block's samples again."""
+    px: torch.Tensor        # int32 [R]
+    py: torch.Tensor        # int32 [R]
+    pixel_id: torch.Tensor  # int64 [R] py * xres + px
+    sample0: torch.Tensor   # int64 [] the block's first sample index
+    s_end: torch.Tensor     # int64 [] sample0 + samples a lane
+    seed: torch.Tensor      # int64 [] the root seed, a u32 value
+    lpack: Optional[torch.Tensor] = None  # BDPT: f32 [R, S, K*22]
+
+
+class _QueuedState(NamedTuple):
+    """The queued loop's carry (the reference's `_Q`)."""
+    ro: torch.Tensor            # f32 [R,3]
+    rd: torch.Tensor            # f32 [R,3]
+    last_tri: torch.Tensor      # int32 [R]
+    contribution: torch.Tensor  # f32 [R,3]
+    alive: torch.Tensor         # bool [R]
+    bounce: torch.Tensor        # int64 [R] vertex index within the path
+    s: torch.Tensor             # int64 [R] the lane's current sample
+    sample_rad: torch.Tensor    # f32 [R,3] the in-flight sample's sum
+    radiance: torch.Tensor      # f32 [R,3] flushed over finished samples
+    rays: torch.Tensor          # int64 [] extension rays traced
+
+
+def _queued_inputs(px, py, xres: int, sample0: int, n_samples: int,
+                   seed: int, lpack=None) -> _QueuedInputs:
+    """The block's inputs on the pixels' device."""
+    def scalar(v):
+        return torch.full((), int(v), dtype=torch.int64, device=px.device)
+
+    return _QueuedInputs(
+        px=px, py=py, pixel_id=py.long() * xres + px.long(),
+        sample0=scalar(sample0), s_end=scalar(int(sample0) + int(n_samples)),
+        seed=scalar(int(seed) & 0xFFFFFFFF), lpack=lpack)
+
+
+def _queued_init(inp: _QueuedInputs) -> _QueuedState:
+    """Every lane idle at the block's first sample, each field its own
+    tensor (the graph runner copies them into its static buffers)."""
+    r, dev = inp.px.shape[0], inp.px.device
+
+    def zeros3():
+        return torch.zeros((r, 3), dtype=torch.float32, device=dev)
+
+    rd = zeros3()
+    rd[:, 2] = 1.0
+    return _QueuedState(
+        ro=zeros3(), rd=rd,
+        last_tri=torch.full((r,), -1, dtype=torch.int32, device=dev),
+        contribution=zeros3(),
+        alive=torch.zeros(r, dtype=torch.bool, device=dev),
+        bounce=torch.zeros(r, dtype=torch.int64, device=dev),
+        s=inp.sample0.expand(r).clone(), sample_rad=zeros3(),
+        radiance=zeros3(),
+        rays=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _queued_live(q: _QueuedState, inp: _QueuedInputs) -> torch.Tensor:
+    """The loop's end test, a bool [] on the device: some lane is on a
+    path or has samples left (the reference's `cond`)."""
+    return (q.alive | (q.s < inp.s_end)).any()
+
+
+def _queued_step(scene, meta, settings, su: _Setup, cam, inp: _QueuedInputs,
+                 q: _QueuedState, sampler_mode: int) -> _QueuedState:
+    """One iteration of the queued eye walk (the reference's `body`):
+    NEE when `inp.lpack` is None, else BDPT with connections to the
+    light vertices of the lane's sample.  No host sync: every value
+    that varies between blocks is read from `inp`.  On a state where no
+    lane is live it changes no output: `need` and `act` are false, so
+    ro, rd, contribution, radiance and rays keep their values (only the
+    dead lanes' bounce counters move)."""
+    # The reference tints the sky escape here only in the NEE tracer.
+    tint_sky = su.tint and inp.lpack is None
+
+    # 1) (Re)start lanes that are idle but still have samples.
+    need = ~q.alive & (q.s < inp.s_end)
+    ctx = smp.SampleCtx(seed=inp.seed, pixel=inp.pixel_id, sample=q.s,
+                        mode=sampler_mode, n_set=su.n_set)
+    jitter = smp.sample_2d(ctx, smp.DIM_PIXEL_JITTER)
+    lens = None if cam.is_simple else smp.sample_2d(ctx, smp.DIM_LENS)
+    ro0, rd0 = pixel_rays(cam, inp.px, inp.py, jitter, lens_sample=lens)
+    n3 = need[..., None]
+    ro = torch.where(n3, ro0, q.ro)
+    rd = torch.where(n3, rd0, q.rd)
+    last_tri = torch.where(need, -1, q.last_tri)
+    contribution = torch.where(n3, 1.0, q.contribution)
+    alive = q.alive | need
+    bounce = torch.where(need, 0, q.bounce)
+
+    # 2) This sample's light.
+    light = _sample_path_light(scene, ctx)
+
+    # 3) One extension step.
+    nxt, sp, p0, act, n_rays, sky_mask = _extend_path(
+        scene, meta, settings, su, ctx, ro, rd, last_tri, contribution,
+        alive, bounce, su.russian, TAG_EYE)
+
+    # 4) Radiance at this vertex: sky escape or NEE + emission
+    #    (+ the connections to this sample's light vertices).
+    sky = tex_ops.sky_radiance(scene, -rd, has_envmap=meta.has_envmap)
+    if tint_sky:
+        sky = _tinted(scene, sky, ro, rd, 0.0, RAY_FAR, rd)
+    sample_rad = q.sample_rad + torch.where(sky_mask[..., None],
+                                            contribution * sky, 0.0)
+    total_here = _vertex_radiance(scene, meta, su, light, sp, p0, active=act)
+    if inp.lpack is not None:
+        r = inp.px.shape[0]
+        # The slot of the lane's sample, from the block's first sample
+        # on the device (not a Python number, which a capture would bake).
+        s_rel = torch.clamp(q.s - inp.sample0, 0, inp.lpack.shape[1] - 1)
+        rows = inp.lpack[torch.arange(r, device=inp.px.device), s_rel]
+        for k in range(inp.lpack.shape[2] // _LV_ROW):
+            total_here = total_here + _connect_to_light_vertex(
+                scene, meta, su, _unpack_light_vertex(rows, k), sp, p0, act)
+    total_here = torch.clamp(total_here, max=su.clamp)
+    sample_rad = sample_rad + torch.where(act[..., None],
+                                          contribution * total_here, 0.0)
+
+    # 5) Depth termination; finished paths flush the sample with the
+    #    whole-sample clamp + NaN/negative scrub, then advance.
+    alive_after = nxt["alive"] & (bounce + 1 < su.depth)
+    ended = alive & ~alive_after
+    flushed = torch.clamp(sample_rad, max=su.clamp)
+    flushed = torch.where(torch.isnan(flushed) | (flushed < 0.0), 0.0,
+                          flushed)
+    e3 = ended[..., None]
+    return _QueuedState(
+        ro=nxt["ro"], rd=nxt["rd"], last_tri=nxt["last_tri"],
+        contribution=nxt["contribution"], alive=alive_after,
+        bounce=bounce + 1, s=torch.where(ended, q.s + 1, q.s),
+        sample_rad=torch.where(e3, 0.0, sample_rad),
+        radiance=q.radiance + torch.where(e3, flushed, 0.0),
+        rays=q.rays + n_rays)
+
+
+def _queued_walk(scene, meta, settings, su: _Setup, cam, inp: _QueuedInputs,
+                 q: _QueuedState, sampler_mode: int) -> _QueuedState:
+    """The queued eye walk driven from the host: the end test read
+    before every step (one device-to-host sync each)."""
+    while bool(_queued_live(q, inp)):
+        q = _queued_step(scene, meta, settings, su, cam, inp, q, sampler_mode)
+    return q
+
+
+def _light_phase(scene, meta, settings, su: _Setup, cam, inp: _QueuedInputs,
+                 n_samples: int, sampler_mode: int):
+    """Phase 1 of the queued BDPT tracer: every (pixel, sample) light
+    subpath of the block at once (R*S lanes, sample-outer), their camera
+    splats scattered into one [H*W+1, 3] image (the last row takes the
+    misses), and the vertex records packed per (lane, sample).  ->
+    (lpack f32 [R, S, K*22], splat image, light extension rays)."""
+    r = inp.px.shape[0]
+    # Lane j of the flat R*S lanes traces sample sample0 + j // R.
+    s_f = (torch.arange(n_samples * r, device=inp.px.device) // r
+           + inp.sample0)
+    ctx_f = smp.SampleCtx(seed=inp.seed, pixel=inp.pixel_id.repeat(n_samples),
+                          sample=s_f, mode=sampler_mode, n_set=su.n_set)
+    lrec, splat_pix, splat_val, rays = _trace_light_subpaths(
+        scene, meta, settings, cam, ctx_f, su, _sample_path_light(scene, ctx_f),
+        smp.sample_2d(ctx_f, smp.DIM_LIGHTDIR), int(settings.reverse))
+    splat_img = _splat_image(splat_pix.reshape(-1), splat_val.reshape(-1, 3),
+                             cam.xres * cam.yres)
+    return _pack_light_vertices(lrec, r, n_samples), splat_img, rays
+
+
 def trace_wavefront_queued(scene, meta, settings, cam, px, py,
                            sample0: int, n_samples: int, seed: int,
                            sampler_mode: int = 1):
@@ -409,12 +591,38 @@ def trace_wavefront_queued(scene, meta, settings, cam, px, py,
     (px, py), one lane per pixel, unidirectionally (`reverse` is not
     read).  `cam` and the pixel tensors live on the scene's device.
     Returns (radiance sum f32 [R,3] over the lane's samples, extension
-    rays traced as an int64 scalar tensor)."""
+    rays traced as an int64 scalar tensor).
+
+    On a CUDA tensor the loop runs as CUDA-graph replays
+    (`graph.QueuedGraph`, captured for this call); on the CPU as the
+    plain host loop `trace_wavefront_queued_eager`."""
+    if px.device.type == "cuda":
+        from .graph import QueuedGraph
+
+        return QueuedGraph(scene, meta, settings, cam, px.shape[0],
+                           n_samples, sampler_mode, seed=seed).trace(
+                               px, py, sample0, seed, cam)
+    return trace_wavefront_queued_eager(scene, meta, settings, cam, px, py,
+                                        sample0, n_samples, seed,
+                                        sampler_mode)
+
+
+def trace_wavefront_queued_eager(scene, meta, settings, cam, px, py,
+                                 sample0: int, n_samples: int, seed: int,
+                                 sampler_mode: int = 1):
+    """`trace_wavefront_queued` as the host loop of `_queued_walk` (one
+    sync per iteration for the end test), on any device."""
     su = _setup(scene, meta, settings)
-    return _queued_walk(scene, meta, settings, su, cam, px, py, sample0,
-                        n_samples, seed, sampler_mode, lpack=None,
-                        rays=torch.zeros((), dtype=torch.int64,
-                                         device=px.device))
+    inp = _queued_inputs(px, py, cam.xres, sample0, n_samples, seed)
+    q = _queued_walk(scene, meta, settings, su, cam, inp, _queued_init(inp),
+                     sampler_mode)
+    return q.radiance, q.rays
+
+
+def _check_reverse(settings):
+    if int(settings.reverse) <= 0:
+        raise ValueError(f"queued BDPT needs reverse > 0, got "
+                         f"{int(settings.reverse)}")
 
 
 def trace_wavefront_queued_bdpt(scene, meta, settings, cam, px, py,
@@ -422,10 +630,9 @@ def trace_wavefront_queued_bdpt(scene, meta, settings, cam, px, py,
                                 sampler_mode: int = 1):
     """Queued bidirectional tracer (`settings.reverse` > 0), one lane
     per pixel, in two phases:
-    1. every (pixel, sample) light subpath of the block at once (R*S
-       lanes, sample-outer), their camera splats scattered once into an
-       [H*W+1, 3] splat image (the last row takes the misses), and the
-       vertex records packed per (lane, sample);
+    1. `_light_phase`: every (pixel, sample) light subpath of the block
+       at once, their camera splats scattered once into an [H*W+1, 3]
+       splat image, and the vertex records packed per (lane, sample);
     2. the queued eye walk of `trace_wavefront_queued`, which gathers
        its sample's packed row once an iteration and connects every
        eye vertex to the `reverse` stored light vertices.
@@ -433,7 +640,9 @@ def trace_wavefront_queued_bdpt(scene, meta, settings, cam, px, py,
     sampling is a pure function of (seed, pixel, sample, dim); only the
     splat sums add in another order.  Returns (radiance f32 [R,3],
     splat image f32 [H*W+1, 3], rays int64 []: light-subpath plus eye
-    extensions).
+    extensions).  On a CUDA tensor both phases run as CUDA-graph
+    replays (`graph.QueuedGraph`), on the CPU as
+    `trace_wavefront_queued_bdpt_eager`.
 
     Sizes at the CLI's defaults (blocks of 2^20 // ms pixels): at 16 spp
     and reverse 4 a block's light phase runs on 1,048,576 lanes, its
@@ -442,121 +651,32 @@ def trace_wavefront_queued_bdpt(scene, meta, settings, cam, px, py,
     65,536 x 16 x 88 floats, 369 MB.  Each eye iteration adds `reverse`
     connections to the NEE loop's work, one any-hit query and two
     `eval_bxdf` calls each."""
-    reverse = int(settings.reverse)
-    if reverse <= 0:
-        raise ValueError(f"queued BDPT needs reverse > 0, got {reverse}")
+    _check_reverse(settings)
+    if px.device.type == "cuda":
+        from .graph import QueuedGraph
+
+        return QueuedGraph(scene, meta, settings, cam, px.shape[0],
+                           n_samples, sampler_mode, seed=seed).trace(
+                               px, py, sample0, seed, cam)
+    return trace_wavefront_queued_bdpt_eager(scene, meta, settings, cam, px,
+                                             py, sample0, n_samples, seed,
+                                             sampler_mode)
+
+
+def trace_wavefront_queued_bdpt_eager(scene, meta, settings, cam, px, py,
+                                      sample0: int, n_samples: int,
+                                      seed: int, sampler_mode: int = 1):
+    """`trace_wavefront_queued_bdpt` with the eye walk as the host loop
+    of `_queued_walk`, on any device."""
+    _check_reverse(settings)
     su = _setup(scene, meta, settings)
-    r = px.shape[0]
-    pixel_id = py.long() * cam.xres + px.long()
-
-    # Phase 1: all light subpaths, vectorized over samples.
-    s_f = (torch.arange(n_samples, device=px.device).repeat_interleave(r)
-           + int(sample0))
-    ctx_f = smp.SampleCtx(seed=int(seed) & 0xFFFFFFFF,
-                          pixel=pixel_id.repeat(n_samples), sample=s_f,
-                          mode=sampler_mode, n_set=su.n_set)
-    lrec, splat_pix, splat_val, rays = _trace_light_subpaths(
-        scene, meta, settings, cam, ctx_f, su, _sample_path_light(scene, ctx_f),
-        smp.sample_2d(ctx_f, smp.DIM_LIGHTDIR), reverse)
-    splat_img = _splat_image(splat_pix.reshape(-1), splat_val.reshape(-1, 3),
-                             cam.xres * cam.yres)
-    lpack = _pack_light_vertices(lrec, r, n_samples)
-    del lrec, splat_pix, splat_val
-
-    # Phase 2: the queued eye walk with connections.
-    radiance, rays = _queued_walk(scene, meta, settings, su, cam, px, py,
-                                  sample0, n_samples, seed, sampler_mode,
-                                  lpack=lpack, rays=rays)
-    return radiance, splat_img, rays
-
-
-def _queued_walk(scene, meta, settings, su: _Setup, cam, px, py, sample0,
-                 n_samples, seed, sampler_mode, lpack, rays):
-    """The queued eye walk: NEE when `lpack` is None, else BDPT with
-    connections to the light vertices of `lpack` [R, S, K*22].  `rays`
-    is the ray counter to continue."""
-    r, dev = px.shape[0], px.device
-    pixel_id = py.long() * cam.xres + px.long()
-    s0 = int(sample0)
-    s_end = s0 + int(n_samples)
-    seed = int(seed) & 0xFFFFFFFF
-    # The reference tints the sky escape here only in the NEE tracer.
-    tint_sky = su.tint and lpack is None
-
-    zeros3 = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-    ro = zeros3
-    rd = zeros3 + zeros3.new_tensor([0.0, 0.0, 1.0])
-    last_tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    contribution = zeros3
-    alive = torch.zeros(r, dtype=torch.bool, device=dev)
-    bounce = torch.zeros(r, dtype=torch.int64, device=dev)
-    s = torch.full((r,), s0, dtype=torch.int64, device=dev)
-    sample_rad = zeros3
-    radiance = zeros3
-
-    # Host loop: one device->host sync per iteration for its condition.
-    while bool((alive | (s < s_end)).any()):
-        # 1) (Re)start lanes that are idle but still have samples.
-        need = ~alive & (s < s_end)
-        ctx = smp.SampleCtx(seed=seed, pixel=pixel_id, sample=s,
-                            mode=sampler_mode, n_set=su.n_set)
-        jitter = smp.sample_2d(ctx, smp.DIM_PIXEL_JITTER)
-        lens = None if cam.is_simple else smp.sample_2d(ctx, smp.DIM_LENS)
-        ro0, rd0 = pixel_rays(cam, px, py, jitter, lens_sample=lens)
-        n3 = need[..., None]
-        ro = torch.where(n3, ro0, ro)
-        rd = torch.where(n3, rd0, rd)
-        last_tri = torch.where(need, -1, last_tri)
-        contribution = torch.where(n3, 1.0, contribution)
-        alive = alive | need
-        bounce = torch.where(need, 0, bounce)
-
-        # 2) This sample's light.
-        light = _sample_path_light(scene, ctx)
-
-        # 3) One extension step.
-        nxt, sp, p0, act, n_rays, sky_mask = _extend_path(
-            scene, meta, settings, su, ctx, ro, rd, last_tri, contribution,
-            alive, bounce, su.russian, TAG_EYE)
-        rays = rays + n_rays
-
-        # 4) Radiance at this vertex: sky escape or NEE + emission
-        #    (+ the connections to this sample's light vertices).
-        sky = tex_ops.sky_radiance(scene, -rd, has_envmap=meta.has_envmap)
-        if tint_sky:
-            sky = _tinted(scene, sky, ro, rd, 0.0, RAY_FAR, rd)
-        sample_rad = sample_rad + torch.where(sky_mask[..., None],
-                                              contribution * sky, 0.0)
-        total_here = _vertex_radiance(scene, meta, su, light, sp, p0,
-                                      active=act)
-        if lpack is not None:
-            s_rel = torch.clamp(s - s0, 0, n_samples - 1)
-            rows = lpack[torch.arange(r, device=dev), s_rel]
-            for k in range(lpack.shape[2] // _LV_ROW):
-                total_here = total_here + _connect_to_light_vertex(
-                    scene, meta, su, _unpack_light_vertex(rows, k), sp, p0,
-                    act)
-        total_here = torch.clamp(total_here, max=su.clamp)
-        sample_rad = sample_rad + torch.where(act[..., None],
-                                              contribution * total_here, 0.0)
-
-        # 5) Depth termination; finished paths flush the sample with the
-        #    whole-sample clamp + NaN/negative scrub, then advance.
-        alive_after = nxt["alive"] & (bounce + 1 < su.depth)
-        ended = alive & ~alive_after
-        flushed = torch.clamp(sample_rad, max=su.clamp)
-        flushed = torch.where(torch.isnan(flushed) | (flushed < 0.0), 0.0,
-                              flushed)
-        e3 = ended[..., None]
-        ro, rd = nxt["ro"], nxt["rd"]
-        last_tri = nxt["last_tri"]
-        contribution = nxt["contribution"]
-        alive = alive_after
-        bounce = bounce + 1
-        s = torch.where(ended, s + 1, s)
-        sample_rad = torch.where(e3, 0.0, sample_rad)
-        radiance = radiance + torch.where(e3, flushed, 0.0)
-    return radiance, rays
+    inp = _queued_inputs(px, py, cam.xres, sample0, n_samples, seed)
+    lpack, splat_img, rays = _light_phase(scene, meta, settings, su, cam, inp,
+                                          n_samples, sampler_mode)
+    inp = inp._replace(lpack=lpack)
+    q = _queued_walk(scene, meta, settings, su, cam, inp,
+                     _queued_init(inp)._replace(rays=rays), sampler_mode)
+    return q.radiance, splat_img, q.rays
 
 
 # ------------------------------------------------------ per-sample path

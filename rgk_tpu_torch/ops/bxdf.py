@@ -177,7 +177,10 @@ def _sample_base(tables, p: MatParams, vi, u2, has_ltc=True):
     Returns (dir, throughput, may_leak)."""
     viz = vi[..., 2]
     up = (viz > 0.0)[..., None]
-    y_axis = vi.new_tensor([0.0, 1.0, 0.0])
+    # Built on the device: a tensor from a Python list would be a
+    # host-to-device copy, a sync that a CUDA-graph capture refuses.
+    y_axis = torch.zeros_like(vi)
+    y_axis[..., 1] = 1.0
 
     cos_dir = warps.to_hemisphere_cosine_z(u2)
 

@@ -53,7 +53,10 @@ def safe_normalize(v, fallback=None):
 
 def reflect_z(v):
     """Mirror reflection about the local +Z axis: (x,y,z) -> (-x,-y,z)."""
-    return v * v.new_tensor([-1.0, -1.0, 1.0])
+    # Stacked on the device, not multiplied by a tensor from a Python
+    # list: that would be a host-to-device copy, a sync that a CUDA-graph
+    # capture refuses.  Negation is exact, as the product by -1 is.
+    return torch.stack([-v[..., 0], -v[..., 1], v[..., 2]], dim=-1)
 
 
 def build_onb(n):

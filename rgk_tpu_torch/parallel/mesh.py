@@ -4,8 +4,14 @@ rgk_tpu/parallel/mesh.py).
 A `MeshContext` holds a list of torch devices, by default every visible
 CUDA device.  The scene is copied to each (`shard_scene`); a block's
 lanes are split into `n` equal contiguous shards, each traced on its own
-device by its own host thread (the queued loops sync the host every
-iteration, so one thread would run the devices one after another).
+device by its own host thread (the queued loops sync the host to read
+their end test, so one thread would run the devices one after another).
+The queued tracers run each shard through its own
+`integrator.graph.QueuedGraph`, kept per (shard, `RGK_BINNED` mode) and
+built on the calling thread before the shard threads start (a build
+sets the process-wide sync debug mode); on a card each shard's graphs
+replay on its own device.  Only one card exists where the port was
+measured, so the path with n > 1 cards is unrun.
 Radiance comes back to the first device in shard order, ray counts add
 up, and BDPT splat images add in shard order: the reference's `psum`.
 
@@ -25,9 +31,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..integrator.path import (TraceResult, render_lanes,
-                               trace_wavefront_queued,
-                               trace_wavefront_queued_bdpt)
+from ..integrator.graph import QueuedGraph, binned_mode
+from ..integrator.path import TraceResult, render_lanes
 
 
 def scene_to(tree, device):
@@ -93,19 +98,37 @@ class MeshContext:
     def _first(self, xs):
         return [x.to(self.devices[0]) for x in xs]
 
+    def _queued_runners(self, meta, settings, sampler_mode):
+        """fn(scenes, cam, px, py, sample0, seed) -> each shard's outputs
+        of `QueuedGraph.trace`, in shard order."""
+        ms = max(1, int(settings.multisample))
+        runners = {}
+
+        def run(scenes, cam, px, py, sample0, seed):
+            mode = binned_mode(meta)
+            for i, dev in enumerate(self.devices):
+                if (i, mode) not in runners:
+                    runners[i, mode] = QueuedGraph(
+                        scenes[i], meta, settings, cam.to(dev),
+                        px.shape[0] // self.n, ms, sampler_mode,
+                        seed=seed)
+
+            def shard(i, dev, spx, spy):
+                return runners[i, mode].trace(spx, spy, sample0, seed,
+                                              cam.to(dev))
+
+            return self._run(shard, px, py)
+
+        return run
+
     def make_queued_fn(self, meta, settings, sampler_mode: int = 1):
         """Sharded `trace_wavefront_queued`: fn(scenes, cam, px, py,
         sample0, seed) -> (radiance [R,3], rays int64 []) on the first
         device; `scenes` from `shard_scene`."""
-        ms = max(1, int(settings.multisample))
+        shards = self._queued_runners(meta, settings, sampler_mode)
 
         def run(scenes, cam, px, py, sample0, seed):
-            def shard(i, dev, spx, spy):
-                return trace_wavefront_queued(
-                    scenes[i], meta, settings, cam.to(dev), spx, spy,
-                    sample0, ms, seed, sampler_mode=sampler_mode)
-
-            out = self._run(shard, px, py)
+            out = shards(scenes, cam, px, py, sample0, seed)
             rad = torch.cat(self._first(o[0] for o in out))
             return rad, sum(self._first(o[1] for o in out))
 
@@ -115,15 +138,10 @@ class MeshContext:
         """Sharded `trace_wavefront_queued_bdpt`: fn(...) as
         `make_queued_fn`'s -> (radiance, splat image [H*W+1, 3] summed
         in shard order, rays), on the first device."""
-        ms = max(1, int(settings.multisample))
+        shards = self._queued_runners(meta, settings, sampler_mode)
 
         def run(scenes, cam, px, py, sample0, seed):
-            def shard(i, dev, spx, spy):
-                return trace_wavefront_queued_bdpt(
-                    scenes[i], meta, settings, cam.to(dev), spx, spy,
-                    sample0, ms, seed, sampler_mode=sampler_mode)
-
-            out = self._run(shard, px, py)
+            out = shards(scenes, cam, px, py, sample0, seed)
             rad = torch.cat(self._first(o[0] for o in out))
             return (rad, sum(self._first(o[1] for o in out)),
                     sum(self._first(o[2] for o in out)))

@@ -11,8 +11,10 @@ checkpoint, decides the timed stop and loads a checkpoint to resume;
 `broadcast_scalar` carries its decisions to the others.
 
 The process group is set up by `initialize`: NCCL when the render
-device is CUDA (the reductions run on that device), gloo on the CPU
-(they run on the host), rendezvous over TCP at process 0's address.
+device is CUDA (the default; the reductions run on that device), gloo
+when it is the CPU (asked for with `device="cpu"`, as the CLI does under
+--cpu; they run on the host), rendezvous over TCP at process 0's
+address.
 It is destroyed at exit.
 """
 
@@ -27,10 +29,12 @@ from ..utils import log as out
 
 
 def initialize(coordinator: str = "", num_processes: int = 1,
-               process_id: int = 0, device="cpu") -> None:
+               process_id: int = 0, device="cuda") -> None:
     """Join the process group of `num_processes` processes, this one of
     rank `process_id`, with rendezvous at `coordinator` ("host:port" of
-    process 0).  A no-op for one process with no coordinator."""
+    process 0), for rendering on `device`: the card by default (NCCL),
+    the CPU on request (gloo).  A no-op for one process with no
+    coordinator."""
     if num_processes <= 1 and not coordinator:
         out.log(3, "multihost: single process, skipping distributed init")
         return

@@ -16,6 +16,11 @@ from ..ops import vecmath as vm
 from ..ops import warps
 
 
+# The camera's tensor fields (the others are Python numbers).
+TENSOR_FIELDS = ("origin", "viewscreen", "viewscreen_x", "viewscreen_y",
+                 "cameraleft", "cameraup", "direction")
+
+
 @dataclass(frozen=True)
 class Camera:
     origin: torch.Tensor        # [3]
@@ -33,11 +38,9 @@ class Camera:
     def is_simple(self) -> bool:
         return self.lens_size == 0.0
 
-    def to(self, device) -> "Camera":
-        return replace(self, **{
-            f: getattr(self, f).to(device)
-            for f in ("origin", "viewscreen", "viewscreen_x", "viewscreen_y",
-                      "cameraleft", "cameraup", "direction")})
+    def to(self, device, copy: bool = False) -> "Camera":
+        return replace(self, **{f: getattr(self, f).to(device, copy=copy)
+                                for f in TENSOR_FIELDS})
 
 
 def make_camera(position, lookat, up, yview: float, xview: float,

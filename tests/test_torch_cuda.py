@@ -869,3 +869,137 @@ def test_distributed_world_size_one_equals_plain(cuda_device, tmp_path):
         np.testing.assert_array_equal(out[name][0], out["plain"][0])
         for k, v in out["plain"][1].items():
             np.testing.assert_array_equal(out[name][1][k], v, err_msg=k)
+
+
+def test_initialize_defaults_to_nccl(cuda_device):
+    """`multihost.initialize` without a device joins an NCCL group."""
+    import socket
+
+    from rgk_tpu_torch.parallel import multihost
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    multihost.initialize(f"localhost:{port}", 1, 0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+# ---- the queued loop as CUDA graphs (integrator/graph.py)
+
+
+def _graph_scene(tmp_path, case):
+    """The box at 64x64, 4 spp: flat (K1), plus a 5000-triangle sphere
+    (K2), BDPT at reverse 2 (K1)."""
+    cfg = scenes.box_config(res=64, ms=4, reverse=2 if case == "bdpt" else 0)
+    if case == "sphere":
+        cfg = scenes.add_sphere(tmp_path, cfg, n_tris=5000)
+    arrays, meta, c = scenes.port_build(
+        scenes.write_config(tmp_path, cfg, f"{case}.json"), "cuda")
+    return arrays, meta, c.settings, c.get_camera().to("cuda")
+
+
+def _graph_block(n=1024, first=300):
+    pix = torch.arange(first, first + n, device="cuda")
+    return (pix % 64).to(torch.int32), (pix // 64).to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["flat", "sphere", "bdpt"])
+def test_queued_graph_equals_eager(cuda_device, tmp_path, case):
+    """Graph replays against the eager loop on the card, two blocks
+    through one runner: radiance and rays bit-equal, the BDPT splat
+    image within rtol 1e-5 (its scatter adds with atomics)."""
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.integrator import path as tpath
+
+    arrays, meta, s, cam = _graph_scene(tmp_path, case)
+    eager = (tpath.trace_wavefront_queued_bdpt_eager if case == "bdpt"
+             else tpath.trace_wavefront_queued_eager)
+    runner = graph.QueuedGraph(arrays, meta, s, cam, 1024, 4)
+    for first, s0, seed in ((300, 0, 42), (2000, 8, 9)):
+        px, py = _graph_block(first=first)
+        got = [t.clone() for t in runner.trace(px, py, s0, seed, cam)]
+        want = eager(arrays, meta, s, cam, px, py, s0, 4, seed)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[-1], want[-1])
+        if case == "bdpt":
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+
+
+def test_queued_graph_replay_does_not_sync(cuda_device, tmp_path):
+    """A block's replays under set_sync_debug_mode("error") raise only at
+    the end-test reads: with the reads themselves allowed, nothing in a
+    replay or the tail syncs."""
+    import warnings
+
+    from rgk_tpu_torch.integrator import graph
+
+    arrays, meta, s, cam = _graph_scene(tmp_path, "sphere")
+    runner = graph.QueuedGraph(arrays, meta, s, cam, 1024, 4, k=2)
+    px, py = _graph_block()
+    acc = torch.zeros((64 * 64 + 1, 3), device="cuda")
+    rays = torch.zeros((), dtype=torch.int64, device="cuda")
+    runner.accumulate(acc, rays, torch.arange(1024, device="cuda"))
+    graph.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runner.block(px, py, 0, 42, cam)
+            runner.accumulate(acc, rays, torch.arange(1024, device="cuda"))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    st = graph.read_stats()
+    assert len(syncs) == st["flag_reads"] == -(-st["replays"] // 2)
+    assert 0 <= st["overshoot"] < 2
+
+
+def test_queued_graph_launch_counts(cuda_device, tmp_path):
+    """The launch counters after graph replays equal the eager loop's
+    for the same block, minus the launches of the steps past the end."""
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.integrator import path as tpath
+
+    arrays, meta, s, cam = _graph_scene(tmp_path, "flat")
+    runner = graph.QueuedGraph(arrays, meta, s, cam, 1024, 4, k=1)
+    px, py = _graph_block()
+    n0 = dict(fi.launches)
+    tpath.trace_wavefront_queued_eager(arrays, meta, s, cam, px, py, 0, 4, 42)
+    eager = {m: fi.launches[m] - n0[m] for m in n0}
+    graph.reset_stats()
+    n0 = dict(fi.launches)
+    runner.block(px, py, 0, 42, cam)
+    got = {m: fi.launches[m] - n0[m] for m in n0}
+    st = graph.read_stats()
+    assert st["replays"] == st["iterations"] and st["overshoot"] == 0
+    # One closest-hit and one any-hit query an iteration.
+    assert got == eager == {"closest": st["iterations"],
+                            "any": st["iterations"]}
+
+
+def test_queued_graph_tail_follows_the_accumulator(cuda_device, tmp_path):
+    """A driver whose accumulator is replaced (as a checkpoint load
+    replaces it) captures its accumulation again: two rounds through the
+    graphs, the second into a new accumulator, add up to the eager
+    loop's image bit for bit."""
+    from rgk_tpu_torch.driver.render import RenderDriver
+    from rgk_tpu_torch.integrator import path as tpath
+
+    arrays, meta, s, cam = _graph_scene(tmp_path, "flat")
+    drv = RenderDriver(s, arrays, meta, cam, chunk_lanes=1500)
+    drv.render_round(0)
+    drv._acc_dev = drv._acc_dev.clone()
+    drv._rays_dev = drv._rays_dev.clone()
+    drv.render_round(1)
+    acc = torch.zeros_like(drv._acc_dev)
+    for r in (0, 1):
+        for px, py, pix in zip(drv._px, drv._py, drv._pix_idx):
+            rad, _ = tpath.trace_wavefront_queued_eager(
+                arrays, meta, s, cam, px, py, r * 4, 4, 42)
+            acc.index_add_(0, pix, rad)
+    assert len(drv._px) == 3
+    assert torch.equal(drv._acc_dev[:-1], acc[:-1])

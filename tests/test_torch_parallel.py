@@ -240,3 +240,14 @@ def test_two_process_bdpt(tmp_path):
     _, cb = _outputs(tmp_path / "two", "bd")
     np.testing.assert_allclose(cb["sum"], ca["sum"], rtol=1e-5, atol=1e-7)
     assert int(ca["rays"]) == int(cb["rays"]) > 0
+
+
+def test_initialize_on_the_cpu_picks_gloo():
+    """`device="cpu"` (the CLI's --cpu) joins a gloo group; the card is
+    the default (tests/test_torch_cuda.py checks that it picks NCCL)."""
+    multihost.initialize(f"localhost:{_free_port()}", 1, 0, device="cpu")
+    try:
+        assert torch.distributed.get_backend() == "gloo"
+        assert multihost.process_count() == 1
+    finally:
+        torch.distributed.destroy_process_group()
