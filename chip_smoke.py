@@ -15,7 +15,7 @@ colonnade once more with RGK_BINNED=all, and print the round's device
 time per
 kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
 busy share.  It drives
-rgk_tpu_torch, never JAX, through twenty phases and exits non-zero at
+rgk_tpu_torch, never JAX, through twenty-one phases and exits non-zero at
 the first that fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -97,22 +97,32 @@ the first that fails:
    light, 512x512, 4 spp (1,048,576 lanes), depth 4, no roulette, the L2
    loss of `diff.params.make_loss_fn` against a target rendered with the
    diffuse albedo scaled by 0.8: forward and backward ms (medians of 3),
-   peak memory, K1 launches, central differences on the card for
+   peak memory, K1 launches; one eager step under torch.profiler (the
+   forward's and the backward's kernels, device ms and busy share over
+   the unprofiled medians, the backward's 10 autograd nodes and 5
+   kernels with the most device time); the step as one CUDA graph
+   (`diff.graph.make_value_and_grad`) against the eager step, timed in
+   turns (graph, eager, eager, graph) after one dropped step each, its
+   build (warm-up and capture) apart, graph pool and peak memory, its
+   loss within rtol 1e-5 of the eager step's and each leaf's gradient
+   within 1e-5 x the leaf's largest; central differences on the card for
    `mat_diffuse`, `mat_emission` and `light_intensity` (eps 1e-3, rtol
    0.03, as tests/test_grad.py) of the loss with the light-pick tables
    held at the base parameters (the gradient detaches them; with the
    tables free, a change of intensity or emission moves some of the 1M
    lanes between the point and the areal light, a jump the central
    difference of the full loss also reports, printed beside it), one
-   `torch.optim.SGD` step that must lower the loss, and the first
+   `torch.optim.SGD` step that must lower the loss (the central
+   differences hold the eager and the graph gradients), and the first
    closest-hit query replayed through K1 and flat_plain; then
    tests/test_grad.py's scene (8x8, 4 spp, a glossy cube): the gradient
    of `mat_roughness`, which moves the glossy bounce's rays, against
    central differences (eps 2e-4, rtol 0.08, as tests/test_grad.py) and
    against the CPU's gradient (rtol 5e-3);
 17. gradients through K2: the box plus the 5,000-triangle sphere (its
-   own material), 256x256, 4 spp: the sphere's albedo by central
-   difference, K2 launches, no K1 launch;
+   own material), 256x256, 4 spp: the graph step against the eager
+   step as in phase 16, the sphere's albedo by central difference (eager
+   and graph gradients), K2 launches, no K1 launch;
 18. the debug replay and `.rtc`: the CLI with `-d 256 256` on the flat
    scene (bounce 0's triangle and material as the CPU replay's, its
    position within rtol 1e-4), and a line-based `.rtc` scene (a floor
@@ -134,7 +144,17 @@ the first that fails:
    capture, round wall time and rays/s in paired turns (graph, eager,
    eager, graph; each driver's first round dropped), and the busy share
    of one round each under torch.profiler; on the flat scene also the
-   block's time with the end test read every k = 1, 2, 4, 8 replays.
+   block's time with the end test read every k = 1, 2, 4, 8 replays; and
+   whether the card's torch binds conditional graph nodes (the end test
+   stays on the host while it does not);
+21. the per-sample path as one CUDA graph: `render_image_round`
+   through a `LaneGraph` against `render_image_round_eager` (the host
+   bounce loop) on phase 5's flat scene at 512x512, 4 spp (1,048,576
+   lanes, K1) and on phase 7's colonnade (960x540, 8 spp, 4,147,200
+   lanes, K2): the build apart, round 1 with the syncs of each route
+   counted (the graph's must be 0) and the images equal (bit for bit),
+   rounds 2-3 in turns (graph, eager, eager, graph), one round of each
+   under torch.profiler, graph pool and peak memory.
 
 Every CLI render on the card runs the queued loop as CUDA graphs
 (`rgk_tpu_torch/integrator/graph.py`): the render phases print the
@@ -171,9 +191,9 @@ averaged over warps.
 Prints one line per phase with its wall seconds, then a JSON line of
 the kernels (launch counts from the renders, each render's counts set
 to 0 just before it and read just after: K1 the sum of phases 5, 13,
-14 and 16-19, K2 of phases 7, 13, 15 and 17, K3/K4 of the two binned renders, the
-BDPT splat-query rows those of phases 14 and 15, the probes their tool
-runs; ms, plain_ms,
+14, 16-19 and 21, K2 of phases 7, 13, 15, 17 and 21, K3/K4 of the two
+binned renders, the BDPT splat-query rows those of phases 14 and 15,
+the probes their tool runs; ms, plain_ms,
 bound_ms, bound_by, share, library_ms null, parent_ms for K1-K4 with
 --parent), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
@@ -209,6 +229,7 @@ from bdpt_scene import scene_dict  # noqa: E402
 from torch_port_scenes import GRAD_SCENE, write_rtc_scene  # noqa: E402
 
 from rgk_tpu_torch import kernels  # noqa: E402
+from rgk_tpu_torch.diff import graph as dgraph  # noqa: E402
 from rgk_tpu_torch.diff import params as dparams  # noqa: E402
 from rgk_tpu_torch.driver import cli  # noqa: E402
 from rgk_tpu_torch.driver.render import RenderDriver  # noqa: E402
@@ -293,6 +314,12 @@ DEBUG_PIXEL = (256, 256)
 RTC_RES = (96, 72)
 DIST_RES = 64
 GRAPH_KS = (1, 2, 4, 8)  # end-test read intervals timed in phase 20
+# What the port would need of torch to move the loops' tests onto the
+# device (conditional graph nodes); phase 20 prints whether it has them.
+IF_NODE_METHODS = ("get_currently_capturing_graph",
+                   "begin_capture_to_if_node",
+                   "end_capture_to_conditional_node")
+LANE_MS = 4  # phase 21's flat scene: 512x512 x 4 spp = 1,048,576 lanes
 CUDA = torch.device("cuda", 0)  # the card of phases 16-19
 
 
@@ -604,7 +631,7 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(f"[1/20 device] {torch.cuda.get_device_name(0)} | torch "
+    print(f"[1/21 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | "
           f"devices {torch.cuda.device_count()}")
 
@@ -624,7 +651,7 @@ def phase_build(parent_csrc=None):
         else:
             info, lib = kernels.build(), kernels.load()
         secs = time.perf_counter() - t0
-        print(f"[2/20 build] {who}{os.path.relpath(info['path'], ROOT)} "
+        print(f"[2/21 build] {who}{os.path.relpath(info['path'], ROOT)} "
               f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -688,7 +715,7 @@ def phase_k1(dev):
         times.append(f"{'any' if m else 'closest'} "
                      f"{fmt_ab(parent, new, k1_bound(window, m)[0])}, "
                      f"plain {plain:.3f}")
-    print(f"[3/20 K1 {n_tris} tris x {n_rays} rays] closest agree "
+    print(f"[3/21 K1 {n_tris} tris x {n_rays} rays] closest agree "
           f"{agree1:.6f} (excl pass {agree2:.6f}) max|err| "
           f"{max(err1, err2):.3g}; any-hit agree {agree3:.6f}; median ms "
           + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs); "
@@ -742,7 +769,7 @@ def phase_k2(dev):
             times.append(f"{'any' if m else 'closest'} "
                          f"{fmt_ab(parent, new, b)}, plain {plain:.3f}")
         tpc = max(1, halves // 2)
-        print(f"[4/20 K2 {n_tris} tris x {n_rays} rays, {layout}: "
+        print(f"[4/21 K2 {n_tris} tris x {n_rays} rays, {layout}: "
               f"chunk_halves {halves}, tpc {tpc}, "
               f"{cl.boxes_q.shape[0] // 3} nodes, host build {build_s:.3f} s]"
               f" closest agree {s1['agree']:.6f} (excl pass "
@@ -1013,7 +1040,7 @@ def phase_render(d):
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
     n_tris = first.args[False][0].shape[0]
     check(n_tris == 3870, f"scene has {n_tris} triangles, not 3870")
-    print(f"[5/20 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
+    print(f"[5/21 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
           f"{wall:.3f} s, "
           f"{rays} extension rays, {rays / wall:.1f} rays/s, K1 launches "
           f"{launches}, image mean {float(img.mean()):.5f}")
@@ -1049,7 +1076,7 @@ def phase_cpu_parity(d):
     cpu, _ = render(path, os.path.join(d, "cpu64"), "--cpu")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"card vs CPU image parity failed: {stats}")
-    print(f"[6/20 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
+    print(f"[6/21 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
           f" trimmed {stats['corr_trim']:.6f} mean rel diff "
           f"{stats['mean_rel_diff']:.3g} max|diff| {stats['max_abs_diff']:.3g}"
           f" outlier pixels {stats['outlier_pixels']}, max per tile "
@@ -1103,7 +1130,7 @@ def phase_colonnade(d):
           f"SAH builder {builder.sah_builder}")
     host = builder.timings
     round_s = t1 - first.first_t
-    print(f"[7/20 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
+    print(f"[7/21 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
           f"{n_tris} tris]"
           f" CLI wall {t1 - t0:.3f} s, of which host build "
           f"{sum(host.values()):.3f} s ({builder.sah_builder} SAH builder: "
@@ -1297,7 +1324,7 @@ def phase_colonnade_parity(d):
         gpu_plain, _ = render_eager(path, os.path.join(d, "col_gpu_plain"))
     check(ci.launches == {"closest": 0, "any": 0},
           f"the plain-K2 card render launched K2: {ci.launches}")
-    print(f"[8/20 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
+    print(f"[8/21 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
           f"card (eager loop; the CLI's CUDA-graph image equal bit for "
           f"bit) vs CPU: "
           f"{fmt_parity(stats)}; card with cluster_plain vs CPU: "
@@ -1458,7 +1485,7 @@ def phase_binned_soup(dev, trees):
             k2, af = compare_front(args, False, K)
             _, ax = compare_front(args[:6] + [k2[1].contiguous()], False, K)
             _, aa = compare_front(args, True, K)
-            line = (f"[9/20 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
+            line = (f"[9/21 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
                     f"K={K}] K3 lists agree {a3:.6f} (lanes overflowing "
                     f"{over:.4f}); K4 ids agree {a4:.6f}, t within rtol "
                     f"{t4:.6f}, {c4:.6f} of the {s4:.6f} well-conditioned "
@@ -1563,7 +1590,7 @@ def phase_binned_colonnade(d, path, k2_img):
         stats = image_parity(img, k2_img)
         check(stats["ok"], f"RGK_BINNED={mode} image against the K2 image: "
               f"{stats}")
-        print(f"[10/20 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
+        print(f"[10/21 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
               f"{COLONNADE_MS}spp] CLI wall {st['wall']:.3f} s, round "
               f"(first query to EXR) {st['round']:.3f} s, {rays} extension "
               f"rays, {rays / st['round']:.1f} rays/s; launches K3 "
@@ -1643,7 +1670,7 @@ def phase_binned_small(d, path, cpu):
           f"K2 {ci.launches}")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"binned colonnade card vs CPU parity failed: {stats}")
-    print(f"[11/20 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
+    print(f"[11/21 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
           f"4spp depth 2] launches K3/K4 {dict(bi.launches)}, K2 "
           f"{dict(ci.launches)}; corr {stats['corr']:.6f} trimmed "
           f"{stats['corr_trim']:.6f} mean rel diff "
@@ -1659,7 +1686,7 @@ def phase_probes(dev):
     there), then one kernel of each timed against its plain version."""
     t_phase = time.perf_counter()
     reset_launches()
-    print("[12/20 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
+    print("[12/21 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
     check(p1.main([]) == 0, "P1 failed")
     print("    P2 (rgk_tpu_torch/tools/prof_sync.py):")
     check(p2.main([]) == 0, "P2 failed")
@@ -1785,7 +1812,7 @@ def phase_glass(d):
         glass_graphs = graph_line()
         got[kernel] = used
         stats = card_vs_cpu(d, f"glass_{kernel}_64", 0, sphere, True)
-        print(f"[13/20 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
+        print(f"[13/21 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
               f" via {kernel}{f', + {sphere}-tri sphere' if sphere else ''}]"
               f" wall {wall:.3f} s, {rays} extension rays, "
               f"{rays / wall:.1f} rays/s, launches {kernel} {used} (the other "
@@ -1833,7 +1860,7 @@ def phase_bdpt_k1(d):
           f"{st['light_replays']} light-phase replays, {st['blocks']} "
           f"blocks, for {n_blocks} blocks")
     round_s = t1 - first.first_t
-    print(f"[14/20 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
+    print(f"[14/21 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} depth 4 via K1] CLI wall {t1 - t0:.3f} s, round "
           f"(first query to EXR) {round_s:.3f} s, {rays} extension rays "
           f"(light + eye), {rays / round_s:.1f} rays/s; {n_blocks} blocks of "
@@ -1900,7 +1927,7 @@ def phase_bdpt_k2(d):
           f"the BDPT render did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
     round_s = t1 - first.first_t
-    print(f"[15/20 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
+    print(f"[15/21 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} via K2, box + {BVH_SPHERE}-tri sphere] CLI wall "
           f"{t1 - t0:.3f} s, round {round_s:.3f} s, {rays} extension rays, "
           f"{rays / round_s:.1f} rays/s, "
@@ -1955,9 +1982,11 @@ def grad_setup(path, dev, res, ms):
     """The scene at `path` on `dev`, its lanes (every pixel x `ms`
     samples), and make_loss_fn's L2 loss against a target rendered with
     the diffuse albedo scaled by 0.8.  -> (loss_fn, held_loss, params,
-    meta): `held_loss` is the same loss with the light-pick tables held
-    at the base parameters', the function whose derivative the gradient
-    is (the sampling distribution is detached)."""
+    meta, make_graph): `held_loss` is the same loss with the light-pick
+    tables held at the base parameters', the function whose derivative
+    the gradient is (the sampling distribution is detached);
+    `make_graph()` builds the same loss's gradient step as one CUDA
+    graph (`diff.graph.make_value_and_grad`), capture included."""
     cfg = tconfig.load_config(path)
     arrays, meta, _ = tconfig.build_scene(cfg, dev)
     pix = torch.arange(res * res, device=dev)
@@ -1973,6 +2002,11 @@ def grad_setup(path, dev, res, ms):
             px, py, si, 42, differentiable=True).radiance
     loss_fn = dparams.make_loss_fn(arrays, meta, cfg.settings, cam, px, py,
                                    si, 42, target)
+
+    def make_graph():
+        return dgraph.make_value_and_grad(arrays, meta, cfg.settings, cam,
+                                          px, py, si, 42, target)
+
     base = dparams.apply_params(arrays, dparams.extract_params(arrays))
     held = {f: getattr(base.lights, f).detach() for f in PICK_TABLES}
 
@@ -1983,7 +2017,7 @@ def grad_setup(path, dev, res, ms):
                                   differentiable=True).radiance - target
         return torch.mean(diff * diff)
 
-    return loss_fn, held_loss, dparams.extract_params(arrays), meta
+    return loss_fn, held_loss, dparams.extract_params(arrays), meta, make_graph
 
 
 def central_diff(loss_fn, params, key, idx, eps=1e-3):
@@ -2002,16 +2036,23 @@ def central_diff(loss_fn, params, key, idx, eps=1e-3):
             - loss_at(float(flat[idx]) - eps)) / (2 * eps)
 
 
+def fd_agrees(grads, key, idx, fd, rtol=0.03, route="eager"):
+    """The gradient of leaf `key` at flat `idx` against the central
+    difference `fd` (tests/test_grad.py's bound).  -> the gradient."""
+    g = float(grads[key].reshape(-1)[idx])
+    check(np.isfinite(g), f"{key}[{idx}]: {route} gradient {g}")
+    check(abs(g - fd) <= rtol * max(abs(fd), abs(g)) + 1e-6,
+          f"{key}[{idx}]: {route} gradient {g} against central difference "
+          f"{fd}")
+    return g
+
+
 def fd_check(loss_fn, params, grads, key, idx, eps=1e-3, rtol=0.03):
     """tests/test_grad.py's check on the card: the gradient of leaf
     `key` at flat `idx` against central differences of `loss_fn`.
     -> (gradient, finite difference)."""
-    g = float(grads[key].reshape(-1)[idx])
     fd = central_diff(loss_fn, params, key, idx, eps)
-    check(np.isfinite(g), f"{key}[{idx}]: gradient {g}")
-    check(abs(g - fd) <= rtol * max(abs(fd), abs(g)) + 1e-6,
-          f"{key}[{idx}]: gradient {g} against central difference {fd}")
-    return g, fd
+    return fd_agrees(grads, key, idx, fd, rtol), fd
 
 
 def timed_grads(loss_fn, params, runs=GRAD_RUNS):
@@ -2036,6 +2077,149 @@ def timed_grads(loss_fn, params, runs=GRAD_RUNS):
         check(bool(torch.isfinite(g).all()), f"non-finite gradient of {k}")
     return (statistics.median(fwd), statistics.median(bwd),
             torch.cuda.max_memory_allocated(), float(loss.detach()), grads)
+
+
+def eager_step(loss_fn, params):
+    """One eager gradient step: -> (loss, {key: gradient or None})."""
+    loss = loss_fn(params)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return loss.detach(), dict(zip(params, grads))
+
+
+def profile_grad_step(loss_fn, params, fwd_ms, bwd_ms):
+    """One eager step under torch.profiler (host and card activity): the
+    forward, then torch.autograd.grad, each in its own window.  Prints
+    each one's kernels and device ms, its busy share over `fwd_ms` /
+    `bwd_ms` (the unprofiled medians of the same work), and the 10
+    backward nodes (autograd functions) and 5 kernels of the backward
+    with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as pf:
+        loss = loss_fn(params)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as pb:
+        torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        torch.cuda.synchronize()
+
+    def kernels(prof):
+        return [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset"))]
+
+    def device_us(e):
+        v = getattr(e, "device_time_total", None)
+        return v if v is not None else e.cuda_time_total
+
+    got = {}
+    for name, prof, wall in (("forward", pf, fwd_ms), ("backward", pb,
+                                                      bwd_ms)):
+        kern = kernels(prof)
+        ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        got[name] = {"kernels": len(kern), "ms": ms, "busy": ms / wall}
+    prefix = "autograd::engine::evaluate_function: "
+    nodes = sorted((e for e in pb.key_averages()
+                    if e.key.startswith(prefix)), key=device_us,
+                   reverse=True)[:10]
+    got["top_nodes"] = [(e.key[len(prefix):], e.count, device_us(e) / 1e3)
+                        for e in nodes]
+    by_kernel = {}
+    for e in kernels(pb):
+        n, ms = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    got["top_kernels"] = sorted(by_kernel.items(), key=lambda kv: -kv[1][1]
+                                )[:5]
+    if not got["backward"]["kernels"]:
+        print("    profiled step: the profiler recorded no kernel; device "
+              "time not measured")
+        return
+    f, b = got["forward"], got["backward"]
+    print(f"    eager step under torch.profiler: forward {f['kernels']} "
+          f"kernels, {f['ms']:.3f} ms of device time (busy {f['busy']:.4f} "
+          f"over the unprofiled {fwd_ms:.3f} ms); backward {b['kernels']} "
+          f"kernels, {b['ms']:.3f} ms (busy {b['busy']:.4f} over "
+          f"{bwd_ms:.3f} ms)")
+    print("    backward's top 10 autograd nodes by device time: " + "; ".join(
+        f"{k} x{n} {ms:.3f} ms" for k, n, ms in got["top_nodes"]))
+    print("    backward's top 5 kernels: " + "; ".join(
+        f"{k[:90]} x{n} {ms:.3f} ms" for k, (n, ms) in got["top_kernels"]))
+
+
+def max_gap(got, want):
+    """-> {key: (max |got - want|, max |want|)} over the gradients that
+    are not None; fails if one side has a gradient and the other not."""
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        check((g is None) == (w is None), f"gradient of {k}: {g} vs {w}")
+        if w is not None:
+            out[k] = (float((g - w).abs().max()), float(w.abs().max()))
+    return out
+
+
+def graph_step_vs_eager(label, make_graph, loss_fn, params):
+    """The gradient step as one CUDA graph (`make_graph()`) against the
+    eager step, in one process: the build (warm-up and capture) timed
+    and reported apart with the graph pool and the peak memory; one
+    step of each dropped; then steps timed in turns graph, eager, eager,
+    graph on the host clock from a synchronized card.  The graph's loss
+    must lie within rtol 1e-5 of the eager step's and each leaf's
+    gradient within 1e-5 x its largest eager gradient (the backward's
+    scatter-adds use atomics; two eager steps' gap is printed beside
+    it).  -> (graph's loss, graph's gradients), copies."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tgraph.reset_stats()
+    t0 = time.perf_counter()
+    vg = make_graph()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build = tgraph.read_stats()
+    vg(params)
+    eager_step(loss_fn, params)
+    times = {"graph": [], "eager": []}
+    outs = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "graph":
+            loss, grads = vg(params)
+        else:
+            loss, grads = eager_step(loss_fn, params)
+        torch.cuda.synchronize()
+        times[route].append((time.perf_counter() - t0) * 1e3)
+        outs[route].append((loss.clone(), {
+            k: None if g is None else g.clone() for k, g in grads.items()}))
+    peak = torch.cuda.max_memory_allocated()
+    (g_loss, g_grads), (e_loss, e_grads) = outs["graph"][-1], \
+        outs["eager"][-1]
+    rel = abs(float(g_loss) - float(e_loss)) / abs(float(e_loss))
+    check(rel <= 1e-5, f"{label}: graph loss {float(g_loss)} against eager "
+          f"{float(e_loss)}")
+    gaps = max_gap(g_grads, e_grads)
+    for k, (gap, top) in gaps.items():
+        check(gap <= 1e-5 * top + 1e-12, f"{label}: {k}'s graph gradient "
+              f"{gap} from the eager step's (largest {top})")
+    noise = max_gap(outs["eager"][0][1], e_grads)
+    worst = max(gaps, key=lambda k: gaps[k][0] / max(gaps[k][1], 1e-30))
+    nworst = max(noise, key=lambda k: noise[k][0] / max(noise[k][1], 1e-30))
+    mean = {k: statistics.mean(v) for k, v in times.items()}
+    print(f"    gradient step as one CUDA graph: build {build_s * 1e3:.1f} "
+          f"ms ({tgraph.WARMUP_STEPS} eager warm-up steps and the capture, "
+          f"{build['capture_ms']:.1f} ms of it), graph pool "
+          f"{build['pool_bytes'] / 2**30:.3f} GiB, max memory allocated "
+          f"{peak / 2**30:.3f} GiB with the pool; steps (graph, eager, "
+          f"eager, graph) graph {times['graph'][0]:.3f} / "
+          f"{times['graph'][1]:.3f} ms, eager {times['eager'][0]:.3f} / "
+          f"{times['eager'][1]:.3f} ms (eager / graph "
+          f"{mean['eager'] / mean['graph']:.3f}x); loss rel diff "
+          f"{rel:.3g}; largest gradient gap {worst} "
+          f"{gaps[worst][0]:.3g} of {gaps[worst][1]:.3g} (eager vs eager: "
+          f"{nworst} {noise[nworst][0]:.3g} of {noise[nworst][1]:.3g})")
+    return g_loss, g_grads
 
 
 def sgd_step_lowers(loss_fn, params, grads):
@@ -2095,18 +2279,28 @@ def phase_grad_k1(d):
     sub = os.path.join(d, "grad_k1")
     os.makedirs(sub)
     path = write_box(sub, res=res, ms=ms, lights=[GRAD_LIGHT])
-    loss_fn, held_loss, params, meta = grad_setup(path, CUDA, res, ms)
+    loss_fn, held_loss, params, meta, make_graph = grad_setup(path, CUDA,
+                                                              res, ms)
     check(not meta.has_bvh and meta.n_triangles == 3870,
           f"phase 16's scene: {meta.n_triangles} triangles, bvh "
           f"{meta.has_bvh}")
     reset_launches()
     index = {k: 0 if m is None else 3 * meta.material_names.index(m)
              for k, m in GRAD_K1_CHECKS}
+    print(f"[16/21 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
+          f"lanes, depth 4, 3870 tris + a point light, L2 against albedo "
+          f"x 0.8] {clocks()}")
     with FirstCalls(isect, "intersect_flat") as first:
         fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params)
-        checks = [(k, i, *fd_check(held_loss, params, grads, k, i),
-                   central_diff(loss_fn, params, k, i))
-                  for k, i in index.items()]
+        profile_grad_step(loss_fn, params, fwd, bwd)
+        g_loss, g_grads = graph_step_vs_eager("phase 16", make_graph,
+                                              loss_fn, params)
+        checks = []
+        for k, i in index.items():
+            fd = central_diff(held_loss, params, k, i)
+            checks.append((k, i, fd_agrees(grads, k, i, fd),
+                           fd_agrees(g_grads, k, i, fd, route="graph"), fd,
+                           central_diff(loss_fn, params, k, i)))
         before, after = sgd_step_lowers(loss_fn, params, grads)
     rough_g, rough_fd, rough_cpu = grad_roughness(sub)
     launches, k2 = dict(fi.launches), dict(ci.launches)
@@ -2116,14 +2310,13 @@ def phase_grad_k1(d):
     check(peak <= GRAD_PEAK_LIMIT, f"peak memory {peak} bytes")
     args = first.args[False]
     _, agree, err = compare(args, False)
-    print(f"[16/20 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
-          f"lanes, depth 4, 3870 tris + a point light, L2 against albedo "
-          f"x 0.8] forward {fwd:.3f} ms, backward {bwd:.3f} ms (medians of "
-          f"{GRAD_RUNS}), peak memory {peak / 2**30:.3f} GiB in one block "
-          f"(no split), loss {loss:.6g}, K1 launches {launches}; "
-          + "; ".join(f"{k}[{i}] grad {g:.6g} central diff {fd:.6g} "
-                      f"(tables free: {fd_free:.6g})"
-                      for k, i, g, fd, fd_free in checks)
+    print(f"    eager: forward {fwd:.3f} ms, backward {bwd:.3f} ms (medians "
+          f"of {GRAD_RUNS}), peak memory {peak / 2**30:.3f} GiB in one block "
+          f"(no split), loss {loss:.6g}, graph loss {float(g_loss):.6g}, K1 "
+          f"launches {launches}; "
+          + "; ".join(f"{k}[{i}] grad {g:.6g} (graph {gg:.6g}) central diff "
+                      f"{fd:.6g} (tables free: {fd_free:.6g})"
+                      for k, i, g, gg, fd, fd_free in checks)
           + f"; SGD step loss {before:.6g} -> {after:.6g}; test_grad's "
           f"scene {GRAD_ROUGHNESS[0]}[{GRAD_ROUGHNESS[1]}] grad {rough_g:.6g}"
           f" central diff {rough_fd:.6g} (CPU grad {rough_cpu:.6g}); first "
@@ -2146,22 +2339,29 @@ def phase_grad_k2(d):
     path = os.path.join(d, "grad_k2.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
-    loss_fn, held_loss, params, meta = grad_setup(path, CUDA, res, ms)
+    loss_fn, held_loss, params, meta, make_graph = grad_setup(path, CUDA,
+                                                              res, ms)
     check(meta.has_bvh, "phase 17's scene has no BVH")
     ball = 3 * meta.material_names.index("ball")
     reset_launches()
+    print(f"[17/21 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
+          f"{res}x{res} {ms}spp]")
     fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params, runs=1)
-    g, fd = fd_check(held_loss, params, grads, "mat_diffuse", ball)
+    g_loss, g_grads = graph_step_vs_eager("phase 17", make_graph, loss_fn,
+                                          params)
+    fd = central_diff(held_loss, params, "mat_diffuse", ball)
+    g = fd_agrees(grads, "mat_diffuse", ball, fd)
+    gg = fd_agrees(g_grads, "mat_diffuse", ball, fd, route="graph")
     check(abs(g) > 1e-7, "no gradient reaches the sphere's albedo")
     launches, k1 = dict(ci.launches), dict(fi.launches)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the gradient runs did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
-    print(f"[17/20 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
-          f"{res}x{res} {ms}spp] forward {fwd:.3f} ms, backward {bwd:.3f} "
-          f"ms, peak memory {peak / 2**30:.3f} GiB, loss {loss:.6g}; the "
-          f"sphere's albedo mat_diffuse[{ball}] grad {g:.6g} central diff "
-          f"{fd:.6g}; K2 launches {launches}, K1 none "
+    print(f"    eager: forward {fwd:.3f} ms, backward {bwd:.3f} ms, peak "
+          f"memory {peak / 2**30:.3f} GiB, loss {loss:.6g}, graph loss "
+          f"{float(g_loss):.6g}; the sphere's albedo mat_diffuse[{ball}] "
+          f"grad {g:.6g} (graph {gg:.6g}) central diff {fd:.6g}; K2 "
+          f"launches {launches}, K1 none "
           f"({time.perf_counter() - t_phase:.1f} s)")
     return launches
 
@@ -2221,7 +2421,7 @@ def phase_debug_rtc(d):
     check_image(gpu_img, (RTC_RES[1], RTC_RES[0], 3))
     stats = image_parity(gpu_img, cpu_img)
     check(stats["ok"], f".rtc card vs CPU image parity failed: {stats}")
-    print(f"[18/20 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
+    print(f"[18/21 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
           f"scene; .rtc scene {RTC_RES[0]}x{RTC_RES[1]} 4spp depth 3] the "
           f"CLI printed {len(printed.splitlines())} lines; {len(recs['card'])}"
           f" bounces on the card, {len(recs['cpu'])} on the CPU; bounce 0 "
@@ -2282,7 +2482,7 @@ def phase_distribution(d):
     else:
         refused = False
     check(refused, "a mesh listing the card twice was built")
-    print(f"[19/20 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
+    print(f"[19/21 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
           f"--devices 1 and {backend} world size {world} (--coordinator "
           f"localhost) write the plain render's EXR and checkpoint bit for "
           f"bit; a mesh listing the card twice is refused; K1 launches "
@@ -2518,8 +2718,18 @@ def phase_graph(flat_path, col_path, bdpt_path):
     smoke scene (K1, with the k sweep), the colonnade (K2) with
     RGK_BINNED off and all, and the BDPT box (K1)."""
     t_phase = time.perf_counter()
-    print(f"[20/20 queued loop: CUDA graphs vs the eager loop] "
+    print(f"[20/21 queued loop: CUDA graphs vs the eager loop] "
           f"{clocks()}")
+    missing = [m for m in IF_NODE_METHODS
+               if not hasattr(torch.cuda.CUDAGraph, m)]
+    raw = hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph")
+    print(f"    conditional graph nodes: torch {torch.__version__} binds "
+          + (f"none (torch.cuda.CUDAGraph has no {', '.join(missing)}): the "
+             f"end test stays on the host, read every {tgraph.K_READ} "
+             f"replays" if missing else "them; the port does not use them "
+             "yet (ROADMAP.md)")
+          + f"; CUDAGraph.raw_cuda_graph (a captured graph for the runtime "
+          f"API) {'bound' if raw else 'absent'}")
     got = {"flat": graph_vs_eager(
         f"flat smoke {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp", load_scene(
             flat_path), ("flat_sweep",), k_sweep=True)}
@@ -2536,6 +2746,131 @@ def phase_graph(flat_path, col_path, bdpt_path):
         load_scene(bdpt_path), ("flat_sweep",))
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return got
+
+
+def lane_round_vs_eager(label, scene, names):
+    """Phase 21 on one scene: `render_image_round` through a LaneGraph
+    (the per-sample path as one CUDA graph) against
+    `render_image_round_eager` (the host bounce loop) in one process.
+    The runner's build is timed apart; round 0 of each route is dropped;
+    round 1 runs on each route under set_sync_debug_mode("warn") (the
+    graph route must make no sync) and the two images must be equal
+    (radiance bit for bit; with splats, which add with atomics, within
+    rtol 1e-5), as must the counts and rays; rounds 2 and 3 are timed
+    in turns graph, eager, eager, graph, images held the same way; one
+    round of each runs under torch.profiler."""
+    t_case = time.perf_counter()
+    s, arrays, meta, cam = scene
+    ms = int(s.multisample)
+    lanes = cam.xres * cam.yres * ms
+    splats = int(s.reverse) > 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tgraph.reset_stats()
+    t0 = time.perf_counter()
+    runner = tgraph.LaneGraph(arrays, meta, s, cam, lanes, smp.MODE_HALTON,
+                              seed=42)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build = tgraph.read_stats()
+
+    def graph_round(r):
+        return tpath.render_image_round(arrays, meta, s, cam, r, 42,
+                                        smp.MODE_HALTON, runner=runner)
+
+    def eager_round(r):
+        return tpath.render_image_round_eager(arrays, meta, s, cam, r, 42,
+                                              smp.MODE_HALTON)
+
+    def same(a, b, what):
+        if splats:
+            ok = bool((a[0] - b[0]).abs().le(1e-6 + 1e-5 * b[0].abs()).all())
+        else:
+            ok = torch.equal(a[0], b[0])
+        check(ok and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]),
+              f"{label}: {what}'s image, counts or rays differ between the "
+              f"graph and the eager route")
+
+    graph_round(0)
+    eager_round(0)
+    got, want = [], []
+    syncs = {"graph": counted_syncs(lambda: got.append(graph_round(1))),
+             "eager": counted_syncs(lambda: want.append(eager_round(1)))}
+    check(syncs["graph"] == 0, f"{label}: {syncs['graph']} syncs in a graph "
+          f"round")
+    same(got[0], want[0], "round 1")
+    times = {"graph": [], "eager": []}
+    images = {"graph": {}, "eager": {}}
+    for r, route in ((2, "graph"), (2, "eager"), (3, "eager"),
+                     (3, "graph")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (graph_round if route == "graph" else eager_round)(r)
+        torch.cuda.synchronize()
+        times[route].append(time.perf_counter() - t0)
+        images[route][r] = out
+    for r in (2, 3):
+        same(images["graph"][r], images["eager"][r], f"round {r}")
+    peak = torch.cuda.max_memory_allocated()
+    rays = int(want[0][2])
+    mean = {k: statistics.mean(v) for k, v in times.items()}
+    prof = {"graph": profiled(lambda: graph_round(4), names),
+            "eager": profiled(lambda: eager_round(4), names)}
+    st = tgraph.read_stats()
+    img = got[0][0]
+    check(img.shape == (cam.yres, cam.xres, 3)
+          and bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
+          f"{label}: image {tuple(img.shape)} mean {float(img.mean())}")
+    print(f"    {label} ({lanes} lanes, depth {int(s.recursion_max)}): "
+          f"round 1 image {'within rtol 1e-5' if splats else 'bit-equal'}, "
+          f"counts and {rays} rays equal; syncs a round: graph "
+          f"{syncs['graph']}, eager {syncs['eager']} (its all-dead reads); "
+          f"no IF node, so no bounce is skipped: the graph runs all "
+          f"{int(s.recursion_max)}; rounds 2-3 equal; rounds (graph, eager, "
+          f"eager, graph) graph {times['graph'][0]:.4f} / "
+          f"{times['graph'][1]:.4f} s, eager {times['eager'][0]:.4f} / "
+          f"{times['eager'][1]:.4f} s (eager / graph "
+          f"{mean['eager'] / mean['graph']:.2f}x), {rays / mean['graph']:.1f}"
+          f" rays/s graph, {rays / mean['eager']:.1f} eager")
+    print(f"      build {build_s * 1e3:.1f} ms ({tgraph.WARMUP_STEPS} eager "
+          f"warm-up runs and the capture, {build['capture_ms']:.1f} ms of "
+          f"it), graph pool {build['pool_bytes'] / 2**30:.3f} GiB, max "
+          f"memory allocated {peak / 2**30:.3f} GiB; {st['lane_replays']} "
+          f"replays; profiled round: graph "
+          f"{fmt_prof(prof['graph'], mean['graph'])}; eager "
+          f"{fmt_prof(prof['eager'], mean['eager'])} "
+          f"({time.perf_counter() - t_case:.1f} s)")
+
+
+def phase_lane_graph(d, col_path):
+    """Phase 21: the per-sample path's round as one CUDA graph against
+    the eager route, on the flat smoke scene at 512x512 4 spp (K1) and
+    the colonnade at its config's 960x540 and phase 7's 8 spp (K2).
+    -> {"K1": launches, "K2": launches} of the phase's renders."""
+    t_phase = time.perf_counter()
+    print(f"[21/21 per-sample path: one CUDA graph vs the eager bounce "
+          f"loop] {clocks()}")
+    sub = os.path.join(d, "lanes")
+    os.makedirs(sub)
+    flat = write_box(sub, res=FLAT_RES, ms=LANE_MS)
+    reset_launches()
+    lane_round_vs_eager(f"flat smoke {FLAT_RES}x{FLAT_RES} {LANE_MS}spp",
+                        load_scene(flat), ("flat_sweep",))
+    k1, k2_flat = dict(fi.launches), dict(ci.launches)
+    check(k1["closest"] > 0 and k1["any"] > 0 and k2_flat == {
+        "closest": 0, "any": 0}, f"flat rounds: K1 {k1}, K2 {k2_flat}")
+    torch.cuda.empty_cache()
+    reset_launches()
+    lane_round_vs_eager(f"colonnade {COLONNADE_RES[0]}x{COLONNADE_RES[1]} "
+                        f"{COLONNADE_MS}spp", load_scene(col_path),
+                        ("cluster_walk",))
+    k2, k1_col = dict(ci.launches), dict(fi.launches)
+    check(k2["closest"] > 0 and k2["any"] > 0 and k1_col == {
+        "closest": 0, "any": 0}, f"colonnade rounds: K2 {k2}, K1 {k1_col}")
+    torch.cuda.empty_cache()
+    print(f"    K1 launches {k1} (flat), K2 launches {k2} (colonnade) "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    return {"K1": k1, "K2": k2}
 
 
 def parse_args(argv=None):
@@ -2580,10 +2915,12 @@ def main(argv=None):
         k1_dist = phase_distribution(d)
         phase_graph(os.path.join(d, f"box_sphere_{FLAT_RES}.json"),
                     col_path, os.path.join(d, "bdpt.json"))
+        lanes = phase_lane_graph(d, col_path)
     # The K1 and K2 rows count every run of their kernel's paths.
     more = {"flat_intersect": (glass["K1"], k1_bdpt, k1_grad, k1_debug,
-                               k1_dist),
-            "cluster_intersect": (glass["K2"], k2_bdpt, k2_grad)}
+                               k1_dist, lanes["K1"]),
+            "cluster_intersect": (glass["K2"], k2_bdpt, k2_grad,
+                                  lanes["K2"])}
     for e in entries:
         for kernel, mode in (("flat_intersect", "closest"),
                              ("flat_intersect", "any"),

@@ -25,7 +25,9 @@ On the CPU the kernels' plain versions run, and BVH scenes walk
 `ops/intersect.intersect_bvh`, the reference's own non-TPU route.
 
 Also ported: line-based `.rtc` configs (`scene/rtc.py`); gradients
-(`diff/params.py`: autograd through `render_lanes`, hits detached);
+(`diff/params.py`: autograd through `render_lanes`, hits detached;
+`diff/graph.py`: the forward and backward as one CUDA graph on the
+card);
 the `-d X Y` per-bounce replay (`integrator/debug.py`); lanes sharded
 over several devices of one process (`parallel/mesh.py`) and rendering
 in several processes over `torch.distributed`, NCCL on the card and
@@ -37,6 +39,7 @@ Public entry points:
     rgk_tpu_torch.driver.render.RenderDriver
     rgk_tpu_torch.driver.cli.main   (python -m rgk_tpu_torch.driver.cli)
     rgk_tpu_torch.diff.params.extract_params / apply_params / make_loss_fn
+    rgk_tpu_torch.diff.graph.make_value_and_grad
     rgk_tpu_torch.integrator.debug.trace_pixel_debug
     rgk_tpu_torch.parallel.mesh.MeshContext
     python -m rgk_tpu_torch.tools.prof_smem_probe   (probe P1, on a card)

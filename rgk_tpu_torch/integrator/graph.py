@@ -1,7 +1,13 @@
-"""The queued loop on the device: a block of the queued tracers as
-CUDA-graph replays (the reference runs a block as one jitted device
-program, `rgk_tpu/driver/render.py` `_round_block`, whose queued eye
-walk is a `jax.lax.while_loop`).
+"""The port's device loops as CUDA graphs: a block of the queued
+tracers, the per-sample path and (`diff/graph.py`) the gradient step
+(the reference runs each as one jitted device program: a block's queued
+eye walk is a `jax.lax.while_loop`, `rgk_tpu/driver/render.py`
+`_round_block`; the per-sample path a `lax.scan` or `while_loop`,
+`rgk_tpu/integrator/path.py` `trace_wavefront`).
+
+`_Runner` holds what the three share: a side stream and a graph pool
+per runner, warm-up on the side stream, captures timed and measured,
+replays that add each capture's launch counts.
 
 `QueuedGraph` owns static buffers for a block's inputs
 (`path._QueuedInputs`), the loop's carry (`path._QueuedState`) and, for
@@ -18,13 +24,29 @@ inputs with `copy_`/`fill_` (no sync), resets the state, replays the
 light graph, replays the step `k` times between two reads of the flag
 (one sync each), then the tail.  A step past the end changes no output
 (`path._queued_step`), so reading the end test late costs at most k-1
-replays and never the image.  A conditional WHILE node would move the
-test onto the device; it is left for later (ROADMAP.md).
+replays and never the image.
+
+`LaneGraph` owns static lane buffers (pixels, sample indices, the seed
+as a device scalar), a copy of the camera and the `TraceResult`
+buffers, and captures one call of `path.trace_wavefront` over them: the
+camera rays, the light subpaths and splats, and every one of the
+`recursion_max` bounces (the reference's differentiable form, the
+`lax.scan`; no read of the all-dead test).
+
+The end test stays on the host, and the per-sample path runs all its
+bounces, because the torch the port was measured with (2.11.0+cu128)
+binds no conditional graph node: `torch.cuda.CUDAGraph` there has no
+`get_currently_capturing_graph`, `begin_capture_to_if_node` or
+`end_capture_to_conditional_node` (PERF.md §6).  Either loop is bounded
+(a queued block ends within `n_samples * depth` steps, the per-sample
+path within `recursion_max` bounces), so IF-guarded steps would move
+both tests onto the device (ROADMAP.md).
 
 Where capture goes wrong, and what is done about it:
 * Python numbers are baked into a capture.  The sample range and the
-  seed are device tensors of `_QueuedInputs`, filled per block; the
-  camera's tensors are copied into the runner's own each block (its
+  seed are device tensors (`_QueuedInputs`; `LaneGraph`'s seed, which
+  `SampleCtx` takes as a tensor), filled per block or call; the
+  camera's tensors are copied into the runner's own each time (its
   resolution and lens, Python values, are fixed per runner and
   checked); the samples a lane (`n_samples`) fix the lpack's shape.
 * Tensor addresses are baked into a capture.  The graphs read only the
@@ -41,8 +63,9 @@ Where capture goes wrong, and what is done about it:
   sync in any case; the plain versions of the kernels (loops over
   `nonzero`) run only on the CPU.  Build runners from one thread: the
   debug mode is process-wide.
-* One-time setup (`kernels.load()`, K2's `launch_setup`) runs in the
-  eager warm-up steps on a side stream, outside the capture.
+* One-time setup (`kernels.load()`, K2's `launch_setup`, the autograd
+  engine's streams) runs in the eager warm-up steps on a side stream,
+  outside the capture.
 * K2 resets its per-device work counter with a memset before each
   launch; in a graph the memset and the kernel are ordered on one
   stream.  Two graphs of one card must not replay at once: a runner
@@ -67,23 +90,26 @@ import torch
 from ..ops import binned_intersect as bi
 from ..ops import cluster_intersect as ci
 from ..ops import flat_intersect as fi
+from ..ops import sampler as smp
 from ..scene.camera import TENSOR_FIELDS
 from ..utils import log as out
 from . import path as tpath
 
 K_READ = 4        # replays between two reads of the end test (PERF.md §6)
-WARMUP_STEPS = 2  # eager steps on a side stream before the capture
+WARMUP_STEPS = 2  # eager runs of a captured body, on a side stream
 _COUNTERS = (fi.launches, ci.launches, bi.launches)
 
 # Summed over every runner of the process; `reset_stats` zeroes them.
-# steps: steps issued (eager warm-up, replays, CPU steps); replays:
-# step-graph replays; flag_reads: end-test reads (one sync each);
-# iterations: the CPU's steps that found the loop live; peak_before /
-# peak_after: max memory allocated around the latest build's captures.
+# steps: queued steps issued (replays, CPU steps); replays: step-graph
+# replays; warmup_steps: eager runs of a body before its capture;
+# flag_reads: end-test reads (one sync each); iterations: the CPU's
+# steps that found the loop live; lane_replays: per-sample path
+# replays; peak_before / peak_after: max memory allocated around the
+# latest build's captures.
 stats = {"runners": 0, "blocks": 0, "captures": 0, "capture_ms": 0.0,
          "pool_bytes": 0, "peak_before": 0, "peak_after": 0, "steps": 0,
          "warmup_steps": 0, "replays": 0, "light_replays": 0,
-         "flag_reads": 0, "iterations": 0}
+         "flag_reads": 0, "iterations": 0, "lane_replays": 0}
 # Per card: an int64 [] count of the steps that found the loop live,
 # kept on the device (a replay adds to it without a sync).
 _work = {}
@@ -145,7 +171,89 @@ def _add_launches(delta, times: int = 1):
                 counter[key] += v * times
 
 
-class QueuedGraph:
+class _Runner:
+    """Graphs of one device: a side stream and a graph pool of their own
+    (module doc).  `_build` warms a body up and captures; `_replay`
+    replays and adds the capture's launches.  On the CPU neither runs:
+    the subclasses call their bodies eagerly."""
+
+    def __init__(self, device, what: str):
+        self.device = device
+        self.what = what           # for the log
+        self._graphs = {}          # name -> (CUDAGraph, launch-counter delta)
+        _bump(runners=1)
+        if device.type == "cuda":
+            self._stream = torch.cuda.Stream(device)
+            self._pool = torch.cuda.graph_pool_handle()
+
+    def _device(self):
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _build(self, warm, captures) -> None:
+        """`warm()` on the side stream (no sync allowed; its
+        `WARMUP_STEPS` eager runs count as launched), then each
+        (name, body) of `captures` captured, timed and measured."""
+        dev = self.device
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream), _no_sync():
+            warm()
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.perf_counter()
+        for name, body in captures:
+            self._capture(name, body)
+        ms = (time.perf_counter() - t0) * 1e3
+        pool = torch.cuda.memory_reserved(dev) - reserved
+        peak_after = torch.cuda.max_memory_allocated(dev)
+        _bump(capture_ms=ms, pool_bytes=pool, warmup_steps=WARMUP_STEPS)
+        with _lock:
+            stats["peak_before"], stats["peak_after"] = peak, peak_after
+        out.log(3, f"{self.what} on {dev}: captured {len(self._graphs)} "
+                   f"graphs in {ms:.1f} ms; graph pool {pool} bytes; max "
+                   f"memory allocated {peak} -> {peak_after} bytes")
+
+    def _capture(self, name, body) -> None:
+        graph = torch.cuda.CUDAGraph()
+        before = _snapshot()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode="thread_local"), _no_sync():
+            body()
+        # The wrappers counted launches that the capture only recorded:
+        # take them back, and add them at every replay instead.
+        delta = [{key: c[key] - b[key] for key in c}
+                 for c, b in zip(_COUNTERS, before)]
+        _add_launches(delta, -1)
+        self._graphs[name] = (graph, delta)
+        _bump(captures=1)
+
+    def _replay(self, name, times: int = 1) -> None:
+        graph, delta = self._graphs[name]
+        for _ in range(times):
+            graph.replay()
+        _add_launches(delta, times)
+
+    def _first_pixels(self):
+        """(px, py) int32 [lanes] of the frame's first `lanes` pixels
+        (wrapping), the warm-up's block."""
+        xres, yres = self.cam.xres, self.cam.yres
+        pix = torch.arange(self.lanes, device=self.device) % (xres * yres)
+        return (pix % xres).to(torch.int32), (pix // xres).to(torch.int32)
+
+    def _check_camera(self, cam) -> None:
+        if (cam.xres, cam.yres, cam.lens_size) != (
+                self.cam.xres, self.cam.yres, self.cam.lens_size):
+            raise ValueError("the camera's resolution or lens differs from "
+                             "the one the runner was built for")
+        for f in TENSOR_FIELDS:
+            getattr(self.cam, f).copy_(getattr(cam, f))
+
+
+class QueuedGraph(_Runner):
     """A block of `lanes` pixels, `n_samples` samples each, of the queued
     NEE tracer (`settings.reverse` == 0) or BDPT tracer, on the scene's
     device (module doc).  Built once per (device, lanes, tracer,
@@ -158,8 +266,9 @@ class QueuedGraph:
                  seed: int = 0):
         if k < 1:
             raise ValueError(f"k must be at least 1, got {k}")
+        dev = scene.tri_pack.device
+        super().__init__(dev, "queued loop")
         self.scene, self.meta, self.settings = scene, meta, settings
-        self.device = dev = scene.tri_pack.device
         self.lanes, self.n_samples = int(lanes), int(n_samples)
         self.sampler_mode, self.k = sampler_mode, int(k)
         self.bdpt = int(settings.reverse) > 0
@@ -182,17 +291,15 @@ class QueuedGraph:
         self.live = torch.ones((), dtype=torch.bool, device=dev)
         self.pix_idx = torch.zeros(self.lanes, dtype=torch.int64, device=dev)
         self.work = None
-        self._graphs = {}      # name -> (CUDAGraph, launch-counter delta)
         self._tail_for = None  # the accumulator the tail graph adds into
-        _bump(runners=1)
         if dev.type == "cuda":
             with _lock:
                 self.work = _work.setdefault(
                     dev, torch.zeros((), dtype=torch.int64, device=dev))
-            self._stream = torch.cuda.Stream(dev)
-            self._pool = torch.cuda.graph_pool_handle()
             with torch.no_grad(), torch.cuda.device(dev):
-                self._build(seed)
+                self._build(lambda: self._warm(seed),
+                            ([("light", self._light)] if self.bdpt else [])
+                            + [("step", self._step)])
         out.log(3, f"queued loop on {dev}: {self.lanes} lanes x "
                    f"{self.n_samples} samples, "
                    f"{'BDPT' if self.bdpt else 'NEE'}, RGK_BINNED="
@@ -208,10 +315,7 @@ class QueuedGraph:
         if px.shape[0] != self.lanes:
             raise ValueError(f"a block of {px.shape[0]} lanes for a runner "
                              f"of {self.lanes}")
-        if (cam.xres, cam.yres, cam.lens_size) != (
-                self.cam.xres, self.cam.yres, self.cam.lens_size):
-            raise ValueError("the camera's resolution or lens differs from "
-                             "the one the runner was built for")
+        self._check_camera(cam)
         i = self.inp
         i.px.copy_(px)
         i.py.copy_(py)
@@ -219,8 +323,6 @@ class QueuedGraph:
         i.sample0.fill_(int(sample0))
         i.s_end.fill_(int(sample0) + self.n_samples)
         i.seed.fill_(int(seed) & 0xFFFFFFFF)
-        for f in TENSOR_FIELDS:
-            getattr(self.cam, f).copy_(getattr(cam, f))
         for buf, v in zip(self.state, tpath._queued_init(i)):
             buf.copy_(v)
         self.live.copy_(tpath._queued_live(self.state, i))
@@ -249,66 +351,15 @@ class QueuedGraph:
             acc += self.splat
         rays_acc += self.state.rays
 
-    # ---- capture and replay (card)
-
-    def _build(self, seed: int) -> None:
-        """Warm up on the frame's first `lanes` pixels (class doc), then
-        capture the light phase and one step."""
-        dev = self.device
-        xres, yres = self.cam.xres, self.cam.yres
-        pix = torch.arange(self.lanes, device=dev) % (xres * yres)
-        px, py = (pix % xres).to(torch.int32), (pix // xres).to(torch.int32)
-        self._stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self._stream), _no_sync():
-            self._load(px, py, 0, seed, self.cam)
-            if self.bdpt:
-                self._light()
-            for _ in range(WARMUP_STEPS):
-                self._step()
-        torch.cuda.current_stream(dev).wait_stream(self._stream)
-        _bump(steps=WARMUP_STEPS, warmup_steps=WARMUP_STEPS)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        peak = torch.cuda.max_memory_allocated(dev)
-        t0 = time.perf_counter()
+    def _warm(self, seed: int) -> None:
+        """The frame's first `lanes` pixels (class doc): the light phase
+        and `WARMUP_STEPS` steps."""
+        self._load(*self._first_pixels(), 0, seed, self.cam)
         if self.bdpt:
-            self._capture("light", self._light)
-        self._capture("step", self._step)
-        ms = (time.perf_counter() - t0) * 1e3
-        pool = torch.cuda.memory_reserved(dev) - reserved
-        peak_after = torch.cuda.max_memory_allocated(dev)
-        _bump(capture_ms=ms, pool_bytes=pool)
-        with _lock:
-            stats["peak_before"], stats["peak_after"] = peak, peak_after
-        out.log(3, f"queued loop on {dev}: captured {len(self._graphs)} "
-                   f"graphs in {ms:.1f} ms; graph pool {pool} bytes; max "
-                   f"memory allocated {peak} -> {peak_after} bytes")
-
-    def _capture(self, name, body) -> None:
-        graph = torch.cuda.CUDAGraph()
-        before = _snapshot()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"), _no_sync():
-            body()
-        # The wrappers counted launches that the capture only recorded:
-        # take them back, and add them at every replay instead.
-        delta = [{key: c[key] - b[key] for key in c}
-                 for c, b in zip(_COUNTERS, before)]
-        _add_launches(delta, -1)
-        self._graphs[name] = (graph, delta)
-        _bump(captures=1)
-
-    def _replay(self, name, times: int = 1) -> None:
-        graph, delta = self._graphs[name]
-        for _ in range(times):
-            graph.replay()
-        _add_launches(delta, times)
-
-    def _device(self):
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
+            self._light()
+        for _ in range(WARMUP_STEPS):
+            self._step()
+        _bump(steps=WARMUP_STEPS)  # `work` counts them too
 
     # ---- the block
 
@@ -363,3 +414,85 @@ class QueuedGraph:
                 self._capture("tail", lambda: self._tail(acc, rays_acc))
                 self._tail_for = (key, acc, rays_acc)
             self._replay("tail")
+
+
+class LaneGraph(_Runner):
+    """The per-sample path (`path.trace_wavefront`) over `lanes` lanes of
+    (pixel, sample) on the scene's device as one CUDA graph (module
+    doc): every bounce runs, so a call makes no sync.  Built once per
+    (device, lanes, `binned_mode`); on a card captured here after
+    warm-up runs on the frame's first `lanes` pixels, sample 0, under
+    `seed`.  On the CPU `trace` runs the same body eagerly.  Its values
+    are `render_lanes`'s bit for bit (a dead lane adds nothing)."""
+
+    def __init__(self, scene, meta, settings, cam, lanes: int,
+                 sampler_mode: int = 1, seed: int = 0):
+        dev = scene.tri_pack.device
+        super().__init__(dev, "per-sample path")
+        self.scene, self.meta, self.settings = scene, meta, settings
+        self.lanes, self.sampler_mode = int(lanes), sampler_mode
+        self.mode = binned_mode(meta)
+        self.cam = cam.to(dev, copy=True)
+        r, k = self.lanes, max(0, int(settings.reverse))
+        self.px = torch.zeros(r, dtype=torch.int32, device=dev)
+        self.py = torch.zeros_like(self.px)
+        self.sample = torch.zeros(r, dtype=torch.int64, device=dev)
+        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out = tpath.TraceResult(
+            radiance=torch.zeros((r, 3), dtype=torch.float32, device=dev),
+            rays=torch.zeros((), dtype=torch.int64, device=dev),
+            splat_pix=torch.full((r, k), -1, dtype=torch.int32, device=dev),
+            splat_val=torch.zeros((r, k, 3), dtype=torch.float32,
+                                  device=dev))
+        if dev.type == "cuda":
+            with torch.no_grad(), torch.cuda.device(dev):
+                self._build(lambda: self._warm(seed),
+                            [("trace", self._trace)])
+        out.log(3, f"per-sample path on {dev}: {r} lanes, depth "
+                   f"{int(settings.recursion_max)}, reverse {k}, "
+                   f"RGK_BINNED={self.mode}, " + (
+                       "one CUDA graph" if dev.type == "cuda"
+                       else "eager"))
+
+    def _load(self, px, py, sample_idx, seed: int, cam) -> None:
+        if px.shape[0] != self.lanes:
+            raise ValueError(f"{px.shape[0]} lanes for a runner of "
+                             f"{self.lanes}")
+        self._check_camera(cam)
+        self.px.copy_(px)
+        self.py.copy_(py)
+        self.sample.copy_(sample_idx)
+        self.seed.fill_(int(seed) & 0xFFFFFFFF)
+
+    def _trace(self) -> None:
+        ctx = smp.SampleCtx(
+            seed=self.seed,
+            pixel=self.py.long() * self.cam.xres + self.px.long(),
+            sample=self.sample, mode=self.sampler_mode,
+            n_set=max(1, int(self.settings.multisample)))
+        # differentiable: every bounce, no read of the all-dead test.
+        got = tpath.trace_wavefront(self.scene, self.meta, self.settings,
+                                    self.cam, ctx, self.px, self.py,
+                                    differentiable=True)
+        for buf, v in zip(self.out, got):
+            buf.copy_(v)
+
+    def _warm(self, seed: int) -> None:
+        self._load(*self._first_pixels(), torch.zeros_like(self.sample),
+                   seed, self.cam)
+        for _ in range(WARMUP_STEPS):
+            self._trace()
+
+    def trace(self, px, py, sample_idx, seed: int, cam) -> tpath.TraceResult:
+        """`render_lanes(scene, meta, settings, cam, px, py, sample_idx,
+        seed, sampler_mode)`: px, py int32 [lanes], sample_idx int
+        [lanes].  The result is the runner's buffers, valid until its
+        next call."""
+        with torch.no_grad(), self._device():
+            self._load(px, py, sample_idx, seed, cam)
+            if self.device.type == "cuda":
+                self._replay("trace")
+                _bump(lane_replays=1)
+            else:
+                self._trace()
+        return self.out

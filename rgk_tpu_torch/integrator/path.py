@@ -37,9 +37,12 @@ Where the loops run:
   more graph, with the end test read every k replays
   (`integrator/graph.py`); on the CPU as the plain host loop
   `_queued_walk`, one sync an iteration;
-* `trace_wavefront`'s bounce loop runs on the host on either device
-  (one sync a bounce unless `differentiable`), so that autograd can
-  record it.
+* `trace_wavefront`'s bounce loop is a host loop (one sync a bounce
+  unless `differentiable`), so that autograd records it.  On the card
+  `render_image_round` and the mesh's render function replay it as one
+  CUDA graph of every bounce (`graph.LaneGraph`, no sync), and the
+  gradient step replays forward and backward as one graph
+  (`diff/graph.py`).
 Every value is a pure function of (seed, pixel, sample), so a render is
 bitwise repeatable, except the splat sums of a BDPT render on the card
 (`_splat_image`).
@@ -687,9 +690,9 @@ def trace_wavefront(scene, meta, settings, cam, ctx, px, py,
     per lane; `ctx` gives each lane's (seed, pixel, sample).
 
     `differentiable` keeps the reference's meaning: True runs all
-    `recursion_max` bounces; False stops once every lane is dead (one
-    device-to-host sync a bounce).  The values are the same either way:
-    a dead lane adds nothing."""
+    `recursion_max` bounces (what `graph.LaneGraph` captures); False
+    stops once every lane is dead (one device-to-host sync a bounce).
+    The values are the same either way: a dead lane adds nothing."""
     su = _setup(scene, meta, settings)
     reverse = int(settings.reverse)
 
@@ -760,29 +763,69 @@ def render_lanes(scene, meta, settings, cam, px, py, sample_idx, seed,
                            differentiable=differentiable)
 
 
-def render_image_round(scene, meta, settings, cam, round_idx: int,
-                       seed: int = 42, sampler_mode: int = 1):
-    """Render one full round (all pixels x multisample) on the scene's
-    device in one batch of lanes.  Returns (radiance sum f32 [H,W,3],
-    counts f32 [H,W], rays).  Splats (weight-0 side effects) are added
-    into the sum.  For small and medium images; the driver blocks
-    larger frames."""
+def _round_lanes(cam, ms: int, round_idx: int, dev):
+    """One round's lanes, every pixel x `ms` samples, sample-outer:
+    (px, py int32 [H*W*ms], sample_idx int64)."""
     xres, yres = cam.xres, cam.yres
-    ms = int(settings.multisample)
-    dev = scene.tri_pack.device
-    cam = cam.to(dev)
     pix = torch.arange(xres * yres, device=dev)
     px = (pix % xres).to(torch.int32).repeat(ms)
     py = (pix // xres).to(torch.int32).repeat(ms)
     sample_idx = (torch.arange(ms, device=dev).repeat_interleave(xres * yres)
                   + round_idx * ms)
-    result = render_lanes(scene, meta, settings, cam, px, py, sample_idx,
-                          seed, sampler_mode)
+    return px, py, sample_idx
+
+
+def _round_image(result: TraceResult, cam, ms: int):
+    """A round's TraceResult -> (radiance sum f32 [H,W,3] with the
+    splats added, counts f32 [H,W], rays)."""
+    xres, yres = cam.xres, cam.yres
     rad = result.radiance.reshape(ms, yres, xres, 3).sum(dim=0)
     if result.splat_pix.shape[1] > 0:
         flat = _splat_image(result.splat_pix.reshape(-1),
                             result.splat_val.reshape(-1, 3), xres * yres)
         rad = rad + flat[:-1].reshape(yres, xres, 3)
     counts = torch.full((yres, xres), float(ms), dtype=torch.float32,
-                        device=dev)
-    return rad, counts, result.rays
+                        device=rad.device)
+    # A copy: a runner's buffer is rewritten by its next call.
+    return rad, counts, result.rays.clone()
+
+
+def render_image_round(scene, meta, settings, cam, round_idx: int,
+                       seed: int = 42, sampler_mode: int = 1, runner=None):
+    """Render one full round (all pixels x multisample) on the scene's
+    device in one batch of lanes.  Returns (radiance sum f32 [H,W,3],
+    counts f32 [H,W], rays).  Splats (weight-0 side effects) are added
+    into the sum.  For small and medium images; the driver blocks
+    larger frames.
+
+    On a CUDA tensor the lanes go through `runner`, a
+    `graph.LaneGraph` of H*W*multisample lanes (one is built for this
+    call when None; pass one to render many rounds without capturing
+    again): one graph replay, no sync.  On the CPU the same as
+    `render_image_round_eager`."""
+    dev = scene.tri_pack.device
+    if dev.type != "cuda":
+        return render_image_round_eager(scene, meta, settings, cam,
+                                        round_idx, seed, sampler_mode)
+    from .graph import LaneGraph
+
+    ms = int(settings.multisample)
+    cam = cam.to(dev)
+    px, py, sample_idx = _round_lanes(cam, ms, round_idx, dev)
+    if runner is None:
+        runner = LaneGraph(scene, meta, settings, cam, px.shape[0],
+                           sampler_mode, seed=seed)
+    return _round_image(runner.trace(px, py, sample_idx, seed, cam), cam, ms)
+
+
+def render_image_round_eager(scene, meta, settings, cam, round_idx: int,
+                             seed: int = 42, sampler_mode: int = 1):
+    """`render_image_round` through `render_lanes` (the host bounce
+    loop, one sync a bounce), on any device."""
+    ms = int(settings.multisample)
+    dev = scene.tri_pack.device
+    cam = cam.to(dev)
+    px, py, sample_idx = _round_lanes(cam, ms, round_idx, dev)
+    result = render_lanes(scene, meta, settings, cam, px, py, sample_idx,
+                          seed, sampler_mode)
+    return _round_image(result, cam, ms)

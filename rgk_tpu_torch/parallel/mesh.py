@@ -7,11 +7,12 @@ lanes are split into `n` equal contiguous shards, each traced on its own
 device by its own host thread (the queued loops sync the host to read
 their end test, so one thread would run the devices one after another).
 The queued tracers run each shard through its own
-`integrator.graph.QueuedGraph`, kept per (shard, `RGK_BINNED` mode) and
-built on the calling thread before the shard threads start (a build
-sets the process-wide sync debug mode); on a card each shard's graphs
-replay on its own device.  Only one card exists where the port was
-measured, so the path with n > 1 cards is unrun.
+`integrator.graph.QueuedGraph`, kept per (shard, `RGK_BINNED` mode), the
+per-sample path through a `LaneGraph`, each built on the calling thread
+before the shard threads start (a build sets the process-wide sync
+debug mode); on a card each shard's graphs replay on its own device.
+Only one card exists where the port was measured, so the path with
+n > 1 cards is unrun.
 Radiance comes back to the first device in shard order, ray counts add
 up, and BDPT splat images add in shard order: the reference's `psum`.
 
@@ -31,8 +32,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..integrator.graph import QueuedGraph, binned_mode
-from ..integrator.path import TraceResult, render_lanes
+from ..integrator.graph import LaneGraph, QueuedGraph, binned_mode
+from ..integrator.path import TraceResult
 
 
 def scene_to(tree, device):
@@ -151,13 +152,28 @@ class MeshContext:
     def make_render_fn(self, meta, settings, sampler_mode: int = 1):
         """Sharded `render_lanes`: fn(scenes, cam, px, py, sample_idx,
         seed) -> a TraceResult on the first device.  Lane counts must
-        divide into the mesh size."""
+        divide into the mesh size.  Each shard runs through its own
+        `integrator.graph.LaneGraph`, kept per (shard, `RGK_BINNED`
+        mode, shard lanes) and built on the calling thread (as
+        `_queued_runners` builds theirs): on a card one graph replay, no
+        sync."""
+        runners = {}
+
         def run(scenes, cam, px, py, sample_idx, seed):
+            mode, lanes = binned_mode(meta), px.shape[0] // self.n
+            for i, dev in enumerate(self.devices):
+                if (i, mode, lanes) not in runners:
+                    runners[i, mode, lanes] = LaneGraph(
+                        scenes[i], meta, settings, cam.to(dev), lanes,
+                        sampler_mode, seed=seed)
+
             def shard(i, dev, spx, spy, ssi):
-                return render_lanes(scenes[i], meta, settings, cam.to(dev),
-                                    spx, spy, ssi, seed, sampler_mode)
+                return runners[i, mode, lanes].trace(spx, spy, ssi, seed,
+                                                     cam.to(dev))
 
             out = self._run(shard, px, py, sample_idx)
+            # cat and sum copy out of the runners' buffers, which their
+            # next call rewrites.
             return TraceResult(
                 radiance=torch.cat(self._first(o.radiance for o in out)),
                 rays=sum(self._first(o.rays for o in out)),
@@ -165,4 +181,3 @@ class MeshContext:
                 splat_val=torch.cat(self._first(o.splat_val for o in out)))
 
         return run
-

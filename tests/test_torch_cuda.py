@@ -1003,3 +1003,101 @@ def test_queued_graph_tail_follows_the_accumulator(cuda_device, tmp_path):
             acc.index_add_(0, pix, rad)
     assert len(drv._px) == 3
     assert torch.equal(drv._acc_dev[:-1], acc[:-1])
+
+
+# ---- the per-sample path and the gradient step as CUDA graphs
+
+
+def _lanes_on_card(n=2048, first=300, s0=0):
+    pix = (torch.arange(first, first + n, device="cuda") % 4096)
+    return ((pix % 64).to(torch.int32), (pix // 64).to(torch.int32),
+            torch.arange(n, device="cuda") % 4 + s0)
+
+
+@pytest.mark.parametrize("case", ["flat", "sphere", "bdpt"])
+def test_lane_graph_equals_eager(cuda_device, tmp_path, case):
+    """The per-sample path as one graph (every bounce) against
+    render_lanes (the host loop with its early exit) on the card, two
+    calls through one runner: radiance, rays and each lane's splats
+    bit-equal (a dead lane adds nothing)."""
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.integrator import path as tpath
+
+    arrays, meta, s, cam = _graph_scene(tmp_path, case)
+    runner = graph.LaneGraph(arrays, meta, s, cam, 2048)
+    for first, s0, seed in ((300, 0, 42), (2000, 8, 9)):
+        px, py, si = _lanes_on_card(first=first, s0=s0)
+        got = [t.clone() for t in runner.trace(px, py, si, seed, cam)]
+        want = tpath.render_lanes(arrays, meta, s, cam, px, py, si, seed)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_lane_graph_round_does_not_sync(cuda_device, tmp_path):
+    """Two rounds of render_image_round through one LaneGraph under
+    set_sync_debug_mode("error"): no sync from the lanes' set-up to the
+    image, and each round's image, counts and rays (not the runner's
+    buffers, which the next round rewrites) equal
+    render_image_round_eager's."""
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.integrator import path as tpath
+
+    arrays, meta, s, cam = _graph_scene(tmp_path, "bdpt")
+    runner = graph.LaneGraph(arrays, meta, s, cam, 64 * 64 * 4, seed=42)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tpath.render_image_round(arrays, meta, s, cam, r,
+                                        runner=runner) for r in (1, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for r, g in zip((1, 2), got):
+        want = tpath.render_image_round_eager(arrays, meta, s, cam, r)
+        assert torch.equal(g[1], want[1]) and torch.equal(g[2], want[2])
+        # The splats add with atomics on the card (path._splat_image).
+        torch.testing.assert_close(g[0], want[0], rtol=1e-5, atol=1e-6)
+
+
+def _vg_case(tmp_path, dev):
+    from rgk_tpu_torch.diff.graph import make_value_and_grad
+    from rgk_tpu_torch.diff.params import extract_params, make_loss_fn
+    from rgk_tpu_torch.scene import config as tconfig
+
+    cfg = tconfig.load_config(scenes.write_config(tmp_path,
+                                                  scenes.GRAD_SCENE))
+    arrays, meta, _ = tconfig.build_scene(cfg, dev, build_bvh=False)
+    i = torch.arange(64)
+    args = (arrays, meta, cfg.settings, cfg.get_camera(),
+            (i % 8).to(torch.int32), (i // 8).to(torch.int32),
+            torch.zeros(64, dtype=torch.int64), 3, torch.zeros(64, 3))
+    return make_value_and_grad(*args), make_loss_fn(*args), \
+        extract_params(arrays)
+
+
+def test_value_and_grad_graph_equals_eager(cuda_device, tmp_path):
+    """The gradient step as one graph against the eager step on the
+    card, two parameter values through one runner: the loss within rtol
+    1e-5, each leaf's gradient within 1e-5 * max|eager| + 1e-9 (the
+    backward's scatter-adds use atomics); the replay makes no sync and
+    adds its capture's K1 launches."""
+    fn, loss_fn, params = _vg_case(tmp_path, cuda_device)
+    for f in (1.0, 1.25):
+        p = {k: (v.detach() * f).requires_grad_(True)
+             for k, v in params.items()}
+        n0 = fi.launches["closest"] + fi.launches["any"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, grads = fn(p)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert fi.launches["closest"] + fi.launches["any"] > n0
+        want_l = loss_fn(p)
+        want = torch.autograd.grad(want_l, list(p.values()),
+                                   allow_unused=True)
+        torch.testing.assert_close(loss, want_l.detach(), rtol=1e-5, atol=0)
+        for k, w in zip(p, want):
+            assert (grads[k] is None) == (w is None), k
+            if w is not None:
+                tol = 1e-5 * float(w.abs().max()) + 1e-9
+                assert float((grads[k] - w).abs().max()) <= tol, k
