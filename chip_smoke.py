@@ -15,7 +15,7 @@ colonnade once more with RGK_BINNED=all, and print the round's device
 time per
 kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
 busy share.  It drives
-rgk_tpu_torch, never JAX, through twenty-one phases and exits non-zero at
+rgk_tpu_torch, never JAX, through twenty-two phases and exits non-zero at
 the first that fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -32,7 +32,8 @@ the first that fails:
    median times (plain over fewer runs);
 5. the flat render: the bdpt_scene box plus a sphere, 3870 triangles,
    at 512x512, 16 spp, one round, through the port's CLI on the card;
-   every K1 launch of that run is counted (no K2 launch), and the first
+   every K1 launch of that run is counted (no K2 launch; K5's forward
+   fetches the material rows, its backward never runs), and the first
    closest-hit and any-hit queries are replayed through kernel and plain
    version at the render's shapes;
 6. the flat card image against the port's CPU image (64x64, 4 spp,
@@ -100,12 +101,14 @@ the first that fails:
    peak memory, K1 launches; one eager step under torch.profiler (the
    forward's and the backward's kernels, device ms and busy share over
    the unprofiled medians, the backward's 10 autograd nodes and 5
-   kernels with the most device time); the step as one CUDA graph
+   kernels with the most device time, and its gather nodes (K5's and
+   any plain indexing's) by the forward line that made them); K1 and K5
+   launches (forward and backward); the step as one CUDA graph
    (`diff.graph.make_value_and_grad`) against the eager step, timed in
    turns (graph, eager, eager, graph) after one dropped step each, its
    build (warm-up and capture) apart, graph pool and peak memory, its
-   loss within rtol 1e-5 of the eager step's and each leaf's gradient
-   within 1e-5 x the leaf's largest; central differences on the card for
+   loss and every leaf's gradient equal to the eager step's bit for bit
+   (K5's backward sums in a fixed order); central differences on the card for
    `mat_diffuse`, `mat_emission` and `light_intensity` (eps 1e-3, rtol
    0.03, as tests/test_grad.py) of the loss with the light-pick tables
    held at the base parameters (the gradient detaches them; with the
@@ -120,9 +123,10 @@ the first that fails:
    central differences (eps 2e-4, rtol 0.08, as tests/test_grad.py) and
    against the CPU's gradient (rtol 5e-3);
 17. gradients through K2: the box plus the 5,000-triangle sphere (its
-   own material), 256x256, 4 spp: the graph step against the eager
-   step as in phase 16, the sphere's albedo by central difference (eager
-   and graph gradients), K2 launches, no K1 launch;
+   own material), 256x256, 4 spp: the eager step under torch.profiler
+   and the graph step against the eager step as in phase 16, the
+   sphere's albedo by central difference (eager and graph gradients), K2
+   and K5 launches, no K1 launch;
 18. the debug replay and `.rtc`: the CLI with `-d 256 256` on the flat
    scene (bounce 0's triangle and material as the CPU replay's, its
    position within rtol 1e-4), and a line-based `.rtc` scene (a floor
@@ -153,8 +157,22 @@ the first that fails:
    lanes, K1) and on phase 7's colonnade (960x540, 8 spp, 4,147,200
    lanes, K2): the build apart, round 1 with the syncs of each route
    counted (the graph's must be 0) and the images equal (bit for bit),
-   rounds 2-3 in turns (graph, eager, eager, graph), one round of each
-   under torch.profiler, graph pool and peak memory.
+   and equal to an eager round 1 with plain indexing in place of
+   `take_rows` (the route before K5), rounds 2-3 in turns (graph, eager,
+   eager, graph), one round of each under torch.profiler, graph pool and
+   peak memory;
+22. K5 (`ops/vecmath.take_rows`, `csrc/take_rows.cu`) at phase 16's
+   gathers: its material pack [NM, 20], point pack [1, 8] and areal rows
+   [NA, 15] with the ids of phase 16's first step (1,048,576 lanes): the
+   rows against take_rows_plain bit for bit, the backward run twice bit
+   for bit and within 1e-5 x max of a float64 sum; kernel, plain and
+   library ms (forward: index_select; backward: index_add_,
+   index_put_(accumulate=True) and the one-hot matmul with TF32 off,
+   K5 no slower than the slower deterministic one) beside the bound;
+   then phase 16's eager step through K5 and with plain indexing in
+   turns (plain, K5, K5, plain), each one's peak memory: the loss
+   bit-equal, the gradients within 1e-3 x the leaf's largest (the plain
+   route's backward adds each row's lanes serially in float32).
 
 Every CLI render on the card runs the queued loop as CUDA graphs
 (`rgk_tpu_torch/integrator/graph.py`): the render phases print the
@@ -193,9 +211,10 @@ the kernels (launch counts from the renders, each render's counts set
 to 0 just before it and read just after: K1 the sum of phases 5, 13,
 14, 16-19 and 21, K2 of phases 7, 13, 15, 17 and 21, K3/K4 of the two
 binned renders, the BDPT splat-query rows those of phases 14 and 15,
-the probes their tool runs; ms, plain_ms,
-bound_ms, bound_by, share, library_ms null, parent_ms for K1-K4 with
---parent), and last
+the probes their tool runs, K5 of phases 5, 7, 13-19 and 21, phase
+22's comparisons left out; ms, plain_ms,
+bound_ms, bound_by, share, library_ms null but for K5's rows, parent_ms
+for K1-K4 with --parent), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
 result.
 """
@@ -242,6 +261,7 @@ from rgk_tpu_torch.ops import cluster_intersect as ci  # noqa: E402
 from rgk_tpu_torch.ops import flat_intersect as fi  # noqa: E402
 from rgk_tpu_torch.ops import intersect as isect  # noqa: E402
 from rgk_tpu_torch.ops import sampler as smp  # noqa: E402
+from rgk_tpu_torch.ops import vecmath as vm  # noqa: E402
 from rgk_tpu_torch.parallel.mesh import MeshContext  # noqa: E402
 from rgk_tpu_torch.parity import image_parity  # noqa: E402
 from rgk_tpu_torch.scene import config as tconfig  # noqa: E402
@@ -258,6 +278,8 @@ K3_SOURCE = "rgk_tpu_torch/csrc/binned_walk.cu"
 K3_REPLACES = "rgk_tpu/ops/pallas_binned.py:80"
 K4_SOURCE = "rgk_tpu_torch/csrc/binned_sweep.cu"
 K4_REPLACES = "rgk_tpu/ops/pallas_binned.py:323"
+K5_SOURCE = "rgk_tpu_torch/csrc/take_rows.cu"
+K5_REPLACES = "rgk_tpu/ops/vecmath.py:39"
 PROBE_SOURCE = "rgk_tpu_torch/csrc/probes.cu"
 P1_REPLACES = "tools/prof_smem_probe.py:23"
 P2_REPLACES = "tools/prof_sync.py:24"
@@ -279,6 +301,7 @@ RAY_BYTES = 36       # ro, rd, t_min, t_max, exclude
 PARENT = None        # --parent: the earlier kernels' library, timed in turns
 PROFILE = False      # --profile: one more round of phases 5 and 7, profiled
 TIMED_RUNS = 20
+SLEEP_CYCLES = 100_000_000  # ~50 ms at 1.98 GHz: queued_ms's cover
 PLAIN_RUNS = 3
 K1_SOUP = (4000, 1 << 20)            # triangles, rays
 K2_SOUP = (200_000, 1 << 20)
@@ -350,12 +373,25 @@ def median_ms(fn, runs=TIMED_RUNS, warmup=True):
 
 
 def reset_launches():
+    vm.launches.update(forward=0, backward=0)
     fi.launches.update(closest=0, any=0)
     ci.launches.update(closest=0, any=0)
     bi.launches.update(walk=0, sweep=0)
     p1.launches.update(smem=0, unpack=0, row_copy=0)
     p2.launches.update(sync=0, fetch=0)
     tgraph.reset_stats()
+
+
+def check_k5_render(k5, what):
+    """A render's row fetches go through K5's forward; nothing in a
+    render runs its backward."""
+    check(k5["forward"] > 0 and k5["backward"] == 0,
+          f"{what}'s row fetches did not go through K5 alone: {k5}")
+
+
+def add_counts(*counts):
+    """The sum of launch-count dicts with the same keys."""
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 def compare(args, any_hit):
@@ -503,6 +539,64 @@ def library(lib):
         kernels.load = saved
 
 
+def queued_ms(fn, runs=TIMED_RUNS):
+    """Mean ms of `fn` over `runs` calls launched back to back behind a
+    sleeping kernel, so that the host's launch work hides under it and
+    the CUDA events measure the card's time for the calls (for kernels of
+    ~0.1 ms, which `median_ms` would time with the host's work); a call
+    that syncs ends the cover and then counts its host time too."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def profiled_kernels(prof):
+    """The kernels that a torch.profiler window recorded on the card
+    (copies and memsets left out)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def kernels_by_name(prof):
+    """-> {kernel name: (launches recorded, device ms in all)} of a
+    torch.profiler window."""
+    got = {}
+    for e in profiled_kernels(prof):
+        n, ms = got.get(e.name, (0, 0.0))
+        got[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return got
+
+
+def device_kernels(fn, runs=3):
+    """`runs` calls of `fn` under torch.profiler, as `name xN us` by
+    kernel (launches recorded, mean device us a launch), or "not
+    recorded" when the profiler saw no kernel.  (The profiler may miss
+    the first kernel of its window, so launches are counted, not
+    assumed.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    got = kernels_by_name(prof)
+    if not got:
+        return "not recorded (the profiler saw no kernel)"
+    return ", ".join(f"{name[:60]} x{n} {ms * 1e3 / n:.1f}"
+                     for name, (n, ms) in got.items())
+
+
 def ab_ms(fn, runs=TIMED_RUNS):
     """-> (parent ms or None, new ms): median CUDA-event ms of `fn`
     through the parent's library and this tree's, in turns parent, new,
@@ -527,7 +621,8 @@ def fmt_ab(parent, new, bound_ms):
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
                  bound_ms, bound_by, parent_ms=None):
     """One kernel of the kernels line.  No single PyTorch call computes
-    any of these functions, so library_ms is null for every one."""
+    K1-K4's or the probes' functions, so library_ms is null here; phase
+    22 sets K5's."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -631,7 +726,7 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(f"[1/21 device] {torch.cuda.get_device_name(0)} | torch "
+    print(f"[1/22 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | "
           f"devices {torch.cuda.device_count()}")
 
@@ -651,7 +746,7 @@ def phase_build(parent_csrc=None):
         else:
             info, lib = kernels.build(), kernels.load()
         secs = time.perf_counter() - t0
-        print(f"[2/21 build] {who}{os.path.relpath(info['path'], ROOT)} "
+        print(f"[2/22 build] {who}{os.path.relpath(info['path'], ROOT)} "
               f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -715,7 +810,7 @@ def phase_k1(dev):
         times.append(f"{'any' if m else 'closest'} "
                      f"{fmt_ab(parent, new, k1_bound(window, m)[0])}, "
                      f"plain {plain:.3f}")
-    print(f"[3/21 K1 {n_tris} tris x {n_rays} rays] closest agree "
+    print(f"[3/22 K1 {n_tris} tris x {n_rays} rays] closest agree "
           f"{agree1:.6f} (excl pass {agree2:.6f}) max|err| "
           f"{max(err1, err2):.3g}; any-hit agree {agree3:.6f}; median ms "
           + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs); "
@@ -769,7 +864,7 @@ def phase_k2(dev):
             times.append(f"{'any' if m else 'closest'} "
                          f"{fmt_ab(parent, new, b)}, plain {plain:.3f}")
         tpc = max(1, halves // 2)
-        print(f"[4/21 K2 {n_tris} tris x {n_rays} rays, {layout}: "
+        print(f"[4/22 K2 {n_tris} tris x {n_rays} rays, {layout}: "
               f"chunk_halves {halves}, tpc {tpc}, "
               f"{cl.boxes_q.shape[0] // 3} nodes, host build {build_s:.3f} s]"
               f" closest agree {s1['agree']:.6f} (excl pass "
@@ -949,6 +1044,24 @@ class FirstCalls:
         setattr(self.module, self.name, self._orig)
 
 
+class GatherCalls(FirstCalls):
+    """Wraps `vm.take_rows`: keeps a copy of the table and the ids, flat
+    int32 as K5 takes them, of the first call for each table width that
+    K5 serves (at most MATMUL_GATHER_MAX_ROWS rows), outside captures:
+    phase 16's material pack (20 columns), point pack (8) and areal-light
+    rows (15)."""
+
+    def __call__(self, table, idx):
+        self.n += 1
+        if (table.shape[0] <= vm.MATMUL_GATHER_MAX_ROWS
+                and table.shape[1] not in self.args
+                and not torch.cuda.is_current_stream_capturing()):
+            self.args[table.shape[1]] = (
+                table.detach().clone(),
+                idx.detach().reshape(-1).to(torch.int32).clone())
+        return self._orig(table, idx)
+
+
 def graph_line():
     """The queued-loop runners' counters since the last reset_launches():
     what a render's blocks did as CUDA graphs."""
@@ -1032,18 +1145,21 @@ def phase_render(d):
         img, rays = render(path, out_dir)
         wall = time.perf_counter() - t0
     launches, k2 = dict(fi.launches), dict(ci.launches)
+    k5 = dict(vm.launches)
     check(img.shape == (res, res, 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()), "the image has non-finite pixels")
     check(float(img.mean()) > 0.0, "the image is black")
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the render did not go through K1: launches {launches}")
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
+    check_k5_render(k5, "the render")
     n_tris = first.args[False][0].shape[0]
     check(n_tris == 3870, f"scene has {n_tris} triangles, not 3870")
-    print(f"[5/21 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
+    print(f"[5/22 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
           f"{wall:.3f} s, "
           f"{rays} extension rays, {rays / wall:.1f} rays/s, K1 launches "
-          f"{launches}, image mean {float(img.mean()):.5f}")
+          f"{launches}, K5 launches {k5}, image mean "
+          f"{float(img.mean()):.5f}")
     print(f"    {graph_line()}")
 
     entries = []
@@ -1066,7 +1182,7 @@ def phase_render(d):
     profiled_round(path, os.path.join(d, "render_prof"), isect,
                    "intersect_flat", ("flat_sweep",))
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
-    return entries
+    return entries, k5
 
 
 def phase_cpu_parity(d):
@@ -1076,7 +1192,7 @@ def phase_cpu_parity(d):
     cpu, _ = render(path, os.path.join(d, "cpu64"), "--cpu")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"card vs CPU image parity failed: {stats}")
-    print(f"[6/21 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
+    print(f"[6/22 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
           f" trimmed {stats['corr_trim']:.6f} mean rel diff "
           f"{stats['mean_rel_diff']:.3g} max|diff| {stats['max_abs_diff']:.3g}"
           f" outlier pixels {stats['outlier_pixels']}, max per tile "
@@ -1119,25 +1235,28 @@ def phase_colonnade(d):
     finally:
         cli.build_scene = build_scene
     launches, k1 = dict(ci.launches), dict(fi.launches)
+    k5 = dict(vm.launches)
     check(img.shape == (res[1], res[0], 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()), "the image has non-finite pixels")
     check(float(img.mean()) > 0.0, "the image is black")
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the render did not go through K2: launches {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"the colonnade launched K1: {k1}")
+    check_k5_render(k5, "the colonnade")
     arrays, _, builder = built[0]
     check(builder.sah_builder == "native",
           f"SAH builder {builder.sah_builder}")
     host = builder.timings
     round_s = t1 - first.first_t
-    print(f"[7/21 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
+    print(f"[7/22 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
           f"{n_tris} tris]"
           f" CLI wall {t1 - t0:.3f} s, of which host build "
           f"{sum(host.values()):.3f} s ({builder.sah_builder} SAH builder: "
           + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
           + f"); round (first query to EXR) {round_s:.3f} s, {rays} "
           f"extension rays, {rays / round_s:.1f} rays/s; K2 launches "
-          f"{launches}; image mean {float(img.mean()):.5f}")
+          f"{launches}, K5 launches {k5}; image mean "
+          f"{float(img.mean()):.5f}")
     print(f"    {graph_line()}")
 
     entries = []
@@ -1172,7 +1291,7 @@ def phase_colonnade(d):
     profiled_round(path, os.path.join(d, "colonnade_prof"), ci, "traverse",
                    ("cluster_walk",))
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
-    return entries, path, img
+    return entries, path, img, k5
 
 
 @contextlib.contextmanager
@@ -1324,7 +1443,7 @@ def phase_colonnade_parity(d):
         gpu_plain, _ = render_eager(path, os.path.join(d, "col_gpu_plain"))
     check(ci.launches == {"closest": 0, "any": 0},
           f"the plain-K2 card render launched K2: {ci.launches}")
-    print(f"[8/21 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
+    print(f"[8/22 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
           f"card (eager loop; the CLI's CUDA-graph image equal bit for "
           f"bit) vs CPU: "
           f"{fmt_parity(stats)}; card with cluster_plain vs CPU: "
@@ -1485,7 +1604,7 @@ def phase_binned_soup(dev, trees):
             k2, af = compare_front(args, False, K)
             _, ax = compare_front(args[:6] + [k2[1].contiguous()], False, K)
             _, aa = compare_front(args, True, K)
-            line = (f"[9/21 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
+            line = (f"[9/22 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
                     f"K={K}] K3 lists agree {a3:.6f} (lanes overflowing "
                     f"{over:.4f}); K4 ids agree {a4:.6f}, t within rtol "
                     f"{t4:.6f}, {c4:.6f} of the {s4:.6f} well-conditioned "
@@ -1590,7 +1709,7 @@ def phase_binned_colonnade(d, path, k2_img):
         stats = image_parity(img, k2_img)
         check(stats["ok"], f"RGK_BINNED={mode} image against the K2 image: "
               f"{stats}")
-        print(f"[10/21 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
+        print(f"[10/22 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
               f"{COLONNADE_MS}spp] CLI wall {st['wall']:.3f} s, round "
               f"(first query to EXR) {st['round']:.3f} s, {rays} extension "
               f"rays, {rays / st['round']:.1f} rays/s; launches K3 "
@@ -1670,7 +1789,7 @@ def phase_binned_small(d, path, cpu):
           f"K2 {ci.launches}")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"binned colonnade card vs CPU parity failed: {stats}")
-    print(f"[11/21 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
+    print(f"[11/22 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
           f"4spp depth 2] launches K3/K4 {dict(bi.launches)}, K2 "
           f"{dict(ci.launches)}; corr {stats['corr']:.6f} trimmed "
           f"{stats['corr_trim']:.6f} mean rel diff "
@@ -1686,7 +1805,7 @@ def phase_probes(dev):
     there), then one kernel of each timed against its plain version."""
     t_phase = time.perf_counter()
     reset_launches()
-    print("[12/21 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
+    print("[12/22 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
     check(p1.main([]) == 0, "P1 failed")
     print("    P2 (rgk_tpu_torch/tools/prof_sync.py):")
     check(p2.main([]) == 0, "P2 failed")
@@ -1791,9 +1910,10 @@ def check_image(img, shape):
 
 
 def phase_glass(d):
-    """-> {"K1": launches, "K2": launches} of the two glass renders."""
+    """-> {"K1": launches, "K2": launches, "K5": launches} of the two
+    glass renders."""
     t_phase = time.perf_counter()
-    got = {}
+    got = {"K5": {"forward": 0, "backward": 0}}
     for kernel, sphere in (("K1", 0), ("K2", BVH_SPHERE)):
         path = write_bdpt(d, f"glass_{kernel}", FLAT_RES, FLAT_MS, 0, sphere,
                           glass=True)
@@ -1803,22 +1923,25 @@ def phase_glass(d):
             img, rays = render(path, os.path.join(d, f"glass_{kernel}_out"))
             wall = time.perf_counter() - t0
         k1, k2 = dict(fi.launches), dict(ci.launches)
+        k5 = dict(vm.launches)
         check_image(img, (FLAT_RES, FLAT_RES, 3))
         used, unused = (k1, k2) if kernel == "K1" else (k2, k1)
         check(used["closest"] > 0 and used["any"] > 0
               and unused == {"closest": 0, "any": 0},
               f"glass render via {kernel}: K1 {k1}, K2 {k2}")
         check(tinted.n > 0, "the tint-thinglass render tinted nothing")
+        check_k5_render(k5, f"the glass render via {kernel}")
         glass_graphs = graph_line()
         got[kernel] = used
+        got["K5"] = add_counts(got["K5"], k5)
         stats = card_vs_cpu(d, f"glass_{kernel}_64", 0, sphere, True)
-        print(f"[13/21 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
+        print(f"[13/22 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
               f" via {kernel}{f', + {sphere}-tri sphere' if sphere else ''}]"
               f" wall {wall:.3f} s, {rays} extension rays, "
               f"{rays / wall:.1f} rays/s, launches {kernel} {used} (the other "
-              f"kernel none), {tinted.n} tinted segment sets, image mean "
-              f"{float(img.mean()):.5f}; card vs CPU 64x64 4spp depth 3: "
-              f"{fmt_parity(stats)}")
+              f"kernel none), K5 {k5}, {tinted.n} tinted segment sets, "
+              f"image mean {float(img.mean()):.5f}; card vs CPU 64x64 4spp "
+              f"depth 3: {fmt_parity(stats)}")
         print(f"    {glass_graphs}")
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
     return got
@@ -1839,7 +1962,8 @@ def splat_contract(splats):
 
 
 def phase_bdpt_k1(d):
-    """-> kernel entries of the splat query and the render's launches."""
+    """-> kernel entries of the splat query, the render's K1 launches and
+    its K5 launches."""
     t_phase = time.perf_counter()
     path = write_bdpt(d, "bdpt", BDPT_RES, BDPT_MS, BDPT_REVERSE)
     reset_launches()
@@ -1849,10 +1973,12 @@ def phase_bdpt_k1(d):
         img, rays = render(path, os.path.join(d, "bdpt_out"))
         t1 = time.perf_counter()
     launches, k2 = dict(fi.launches), dict(ci.launches)
+    k5 = dict(vm.launches)
     check_image(img, (BDPT_RES, BDPT_RES, 3))
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the BDPT render did not go through K1: {launches}")
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
+    check_k5_render(k5, "the BDPT render")
     block = min((1 << 20) // BDPT_MS, BDPT_RES * BDPT_RES)  # the CLI's
     n_blocks = -(-BDPT_RES * BDPT_RES // block)
     st = tgraph.read_stats()
@@ -1860,12 +1986,13 @@ def phase_bdpt_k1(d):
           f"{st['light_replays']} light-phase replays, {st['blocks']} "
           f"blocks, for {n_blocks} blocks")
     round_s = t1 - first.first_t
-    print(f"[14/21 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
+    print(f"[14/22 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} depth 4 via K1] CLI wall {t1 - t0:.3f} s, round "
           f"(first query to EXR) {round_s:.3f} s, {rays} extension rays "
           f"(light + eye), {rays / round_s:.1f} rays/s; {n_blocks} blocks of "
           f"{block} pixels, {st['iterations']} loop iterations; K1 "
-          f"launches {launches}; image mean {float(img.mean()):.5f}")
+          f"launches {launches}, K5 launches {k5}; image mean "
+          f"{float(img.mean()):.5f}")
     print(f"    {graph_line()}")
     prof = profiled_round(path, os.path.join(d, "bdpt_prof"), isect,
                           "intersect_flat", ("flat_sweep",))
@@ -1908,11 +2035,12 @@ def phase_bdpt_k1(d):
     entry = kernel_entry("flat_intersect_any_bdpt_splat", K1_SOURCE,
                          K1_REPLACES, launches["any"], 0.0 if bool(same.all())
                          else 1.0, kms, pms, bms, by, parent)
-    return [entry], launches
+    return [entry], launches, k5
 
 
 def phase_bdpt_k2(d):
-    """-> kernel entries of the splat query and the render's launches."""
+    """-> kernel entries of the splat query, the render's K2 launches and
+    its K5 launches."""
     t_phase = time.perf_counter()
     path = write_bdpt(d, "bdpt_k2", K2_BDPT_RES, K2_BDPT_MS, BDPT_REVERSE,
                       BVH_SPHERE)
@@ -1922,17 +2050,20 @@ def phase_bdpt_k2(d):
         img, rays = render(path, os.path.join(d, "bdpt_k2_out"))
         t1 = time.perf_counter()
     launches, k1 = dict(ci.launches), dict(fi.launches)
+    k5 = dict(vm.launches)
     check_image(img, (K2_BDPT_RES, K2_BDPT_RES, 3))
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the BDPT render did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
+    check_k5_render(k5, "the BDPT render")
     round_s = t1 - first.first_t
-    print(f"[15/21 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
+    print(f"[15/22 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} via K2, box + {BVH_SPHERE}-tri sphere] CLI wall "
           f"{t1 - t0:.3f} s, round {round_s:.3f} s, {rays} extension rays, "
           f"{rays / round_s:.1f} rays/s, "
           f"{tgraph.read_stats()['iterations']} loop iterations; K2 "
-          f"launches {launches}; image mean {float(img.mean()):.5f}")
+          f"launches {launches}, K5 launches {k5}; image mean "
+          f"{float(img.mean()):.5f}")
     print(f"    {graph_line()}")
     args = first.args[True]
     cl, r = args[0], args[1].shape[0]
@@ -1966,7 +2097,7 @@ def phase_bdpt_k2(d):
     entry = kernel_entry("cluster_intersect_any_bdpt_splat", K2_SOURCE,
                          K2_REPLACES, launches["any"], 0.0 if bool(same.all())
                          else 1.0, kms, pms, bms, by, parent)
-    return [entry], launches
+    return [entry], launches, k5
 
 
 # ------------------------------------------ gradients, replay, distribution
@@ -2093,22 +2224,22 @@ def profile_grad_step(loss_fn, params, fwd_ms, bwd_ms):
     each one's kernels and device ms, its busy share over `fwd_ms` /
     `bwd_ms` (the unprofiled medians of the same work), and the 10
     backward nodes (autograd functions) and 5 kernels of the backward
-    with the most device time."""
+    with the most device time, and the backward's gather nodes by the
+    forward line that made them (the forward runs under anomaly mode,
+    which keeps each node's traceback)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=acts) as pf:
-        loss = loss_fn(params)
+    with profile(activities=acts) as pf, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # anomaly mode announces itself
+        with torch.autograd.detect_anomaly(check_nan=False):
+            loss = loss_fn(params)
         torch.cuda.synchronize()
+    sites = gather_sites(loss)
     with profile(activities=acts) as pb:
         torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         torch.cuda.synchronize()
-
-    def kernels(prof):
-        return [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith(("Memcpy", "Memset"))]
 
     def device_us(e):
         v = getattr(e, "device_time_total", None)
@@ -2117,7 +2248,7 @@ def profile_grad_step(loss_fn, params, fwd_ms, bwd_ms):
     got = {}
     for name, prof, wall in (("forward", pf, fwd_ms), ("backward", pb,
                                                       bwd_ms)):
-        kern = kernels(prof)
+        kern = profiled_kernels(prof)
         ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
         got[name] = {"kernels": len(kern), "ms": ms, "busy": ms / wall}
     prefix = "autograd::engine::evaluate_function: "
@@ -2126,12 +2257,14 @@ def profile_grad_step(loss_fn, params, fwd_ms, bwd_ms):
                    reverse=True)[:10]
     got["top_nodes"] = [(e.key[len(prefix):], e.count, device_us(e) / 1e3)
                         for e in nodes]
-    by_kernel = {}
-    for e in kernels(pb):
-        n, ms = by_kernel.get(e.name, (0, 0.0))
-        by_kernel[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
-    got["top_kernels"] = sorted(by_kernel.items(), key=lambda kv: -kv[1][1]
-                                )[:5]
+    got["top_kernels"] = sorted(kernels_by_name(pb).items(),
+                                key=lambda kv: -kv[1][1])[:5]
+    by_site = {}
+    for e in pb.events():
+        if e.name.startswith(prefix) and e.sequence_nr in sites:
+            key = sites[e.sequence_nr]
+            n, ms = by_site.get(key, (0, 0.0))
+            by_site[key] = (n + 1, ms + device_us(e) / 1e3)
     if not got["backward"]["kernels"]:
         print("    profiled step: the profiler recorded no kernel; device "
               "time not measured")
@@ -2146,6 +2279,43 @@ def profile_grad_step(loss_fn, params, fwd_ms, bwd_ms):
         f"{k} x{n} {ms:.3f} ms" for k, n, ms in got["top_nodes"]))
     print("    backward's top 5 kernels: " + "; ".join(
         f"{k[:90]} x{n} {ms:.3f} ms" for k, (n, ms) in got["top_kernels"]))
+    print("    backward's gathers by the forward line that made them: "
+          + "; ".join(f"{node} at {site} x{n} {ms:.3f} ms"
+                      for (node, site), (n, ms) in sorted(
+                          by_site.items(), key=lambda kv: -kv[1][1])))
+
+
+GATHER_NODES = ("IndexBackward0", "_TakeRowsBackward")
+
+
+def gather_sites(loss):
+    """{sequence number: (node, "file:line function")} of every gather's
+    backward node (`GATHER_NODES`) in `loss`'s graph, the line being the
+    innermost frame of the port outside ops/vecmath.py in the traceback
+    that anomaly mode kept of the forward that made the node."""
+    pkg = os.path.join(ROOT, "rgk_tpu_torch") + os.sep
+    vecmath = os.path.join(pkg, "ops", "vecmath.py")
+    sites, seen, todo = {}, set(), [loss.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or (fn.name(), fn._sequence_nr()) in seen:
+            continue
+        seen.add((fn.name(), fn._sequence_nr()))
+        todo.extend(f for f, _ in fn.next_functions)
+        if fn.name() not in GATHER_NODES:
+            continue
+        site = "not recorded"
+        for frame in reversed(fn.metadata.get("traceback_", [])):
+            head = frame.strip().splitlines()[0]  # File "f", line n, in fn
+            parts = head.split('"')
+            if len(parts) < 3 or not parts[1].startswith(pkg) \
+                    or parts[1] == vecmath:
+                continue
+            line, func = parts[2].split(", line ")[1].split(", in ")
+            site = f"{os.path.relpath(parts[1], ROOT)}:{line} {func}"
+            break
+        sites[fn._sequence_nr()] = (fn.name(), site)
+    return sites
 
 
 def max_gap(got, want):
@@ -2166,10 +2336,9 @@ def graph_step_vs_eager(label, make_graph, loss_fn, params):
     and reported apart with the graph pool and the peak memory; one
     step of each dropped; then steps timed in turns graph, eager, eager,
     graph on the host clock from a synchronized card.  The graph's loss
-    must lie within rtol 1e-5 of the eager step's and each leaf's
-    gradient within 1e-5 x its largest eager gradient (the backward's
-    scatter-adds use atomics; two eager steps' gap is printed beside
-    it).  -> (graph's loss, graph's gradients), copies."""
+    and every leaf's gradient must equal the eager step's bit for bit
+    (K5's backward sums in a fixed order; two eager steps' gap is
+    printed beside it).  -> (graph's loss, graph's gradients), copies."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tgraph.reset_stats()
@@ -2197,12 +2366,12 @@ def graph_step_vs_eager(label, make_graph, loss_fn, params):
     (g_loss, g_grads), (e_loss, e_grads) = outs["graph"][-1], \
         outs["eager"][-1]
     rel = abs(float(g_loss) - float(e_loss)) / abs(float(e_loss))
-    check(rel <= 1e-5, f"{label}: graph loss {float(g_loss)} against eager "
-          f"{float(e_loss)}")
+    check(bool(torch.equal(g_loss, e_loss)), f"{label}: graph loss "
+          f"{float(g_loss)} against eager {float(e_loss)}")
     gaps = max_gap(g_grads, e_grads)
     for k, (gap, top) in gaps.items():
-        check(gap <= 1e-5 * top + 1e-12, f"{label}: {k}'s graph gradient "
-              f"{gap} from the eager step's (largest {top})")
+        check(bool(torch.equal(g_grads[k], e_grads[k])), f"{label}: {k}'s "
+              f"graph gradient {gap} from the eager step's (largest {top})")
     noise = max_gap(outs["eager"][0][1], e_grads)
     worst = max(gaps, key=lambda k: gaps[k][0] / max(gaps[k][1], 1e-30))
     nworst = max(noise, key=lambda k: noise[k][0] / max(noise[k][1], 1e-30))
@@ -2273,7 +2442,8 @@ def grad_roughness(d):
 
 
 def phase_grad_k1(d):
-    """-> K1 launches of the gradient runs."""
+    """-> K1 and K5 launches of the gradient runs, the scene's path, and
+    K5's first call for each table width."""
     t_phase = time.perf_counter()
     res, ms = GRAD_RES, GRAD_MS
     sub = os.path.join(d, "grad_k1")
@@ -2287,10 +2457,11 @@ def phase_grad_k1(d):
     reset_launches()
     index = {k: 0 if m is None else 3 * meta.material_names.index(m)
              for k, m in GRAD_K1_CHECKS}
-    print(f"[16/21 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
+    print(f"[16/22 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
           f"lanes, depth 4, 3870 tris + a point light, L2 against albedo "
           f"x 0.8] {clocks()}")
-    with FirstCalls(isect, "intersect_flat") as first:
+    with FirstCalls(isect, "intersect_flat") as first, \
+            GatherCalls(vm, "take_rows") as gathers:
         fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params)
         profile_grad_step(loss_fn, params, fwd, bwd)
         g_loss, g_grads = graph_step_vs_eager("phase 16", make_graph,
@@ -2304,16 +2475,21 @@ def phase_grad_k1(d):
         before, after = sgd_step_lowers(loss_fn, params, grads)
     rough_g, rough_fd, rough_cpu = grad_roughness(sub)
     launches, k2 = dict(fi.launches), dict(ci.launches)
+    k5 = dict(vm.launches)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the gradient runs did not go through K1: {launches}")
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
+    check(k5["forward"] > 0 and k5["backward"] > 0,
+          f"the gradient runs did not go through K5: {k5}")
+    check(sorted(gathers.args) == [8, 15, 20], f"phase 16's K5 tables: "
+          f"widths {sorted(gathers.args)}")
     check(peak <= GRAD_PEAK_LIMIT, f"peak memory {peak} bytes")
     args = first.args[False]
     _, agree, err = compare(args, False)
     print(f"    eager: forward {fwd:.3f} ms, backward {bwd:.3f} ms (medians "
           f"of {GRAD_RUNS}), peak memory {peak / 2**30:.3f} GiB in one block "
           f"(no split), loss {loss:.6g}, graph loss {float(g_loss):.6g}, K1 "
-          f"launches {launches}; "
+          f"launches {launches}, K5 launches {k5}; "
           + "; ".join(f"{k}[{i}] grad {g:.6g} (graph {gg:.6g}) central diff "
                       f"{fd:.6g} (tables free: {fd_free:.6g})"
                       for k, i, g, gg, fd, fd_free in checks)
@@ -2323,11 +2499,11 @@ def phase_grad_k1(d):
           f"closest query ({args[1].shape[0]} rays) K1 vs flat_plain agree "
           f"{agree:.6f} max|err| {err:.3g} "
           f"({time.perf_counter() - t_phase:.1f} s)")
-    return launches
+    return launches, k5, path, gathers.args
 
 
 def phase_grad_k2(d):
-    """-> K2 launches of the gradient runs."""
+    """-> K2 and K5 launches of the gradient runs."""
     t_phase = time.perf_counter()
     res, ms = K2_GRAD_RES, K2_GRAD_MS
     cfg = scene_dict(res=res, ms=ms, reverse=0)
@@ -2344,9 +2520,10 @@ def phase_grad_k2(d):
     check(meta.has_bvh, "phase 17's scene has no BVH")
     ball = 3 * meta.material_names.index("ball")
     reset_launches()
-    print(f"[17/21 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
+    print(f"[17/22 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
           f"{res}x{res} {ms}spp]")
     fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params, runs=1)
+    profile_grad_step(loss_fn, params, fwd, bwd)
     g_loss, g_grads = graph_step_vs_eager("phase 17", make_graph, loss_fn,
                                           params)
     fd = central_diff(held_loss, params, "mat_diffuse", ball)
@@ -2354,20 +2531,23 @@ def phase_grad_k2(d):
     gg = fd_agrees(g_grads, "mat_diffuse", ball, fd, route="graph")
     check(abs(g) > 1e-7, "no gradient reaches the sphere's albedo")
     launches, k1 = dict(ci.launches), dict(fi.launches)
+    k5 = dict(vm.launches)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the gradient runs did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
+    check(k5["forward"] > 0 and k5["backward"] > 0,
+          f"the gradient runs did not go through K5: {k5}")
     print(f"    eager: forward {fwd:.3f} ms, backward {bwd:.3f} ms, peak "
           f"memory {peak / 2**30:.3f} GiB, loss {loss:.6g}, graph loss "
           f"{float(g_loss):.6g}; the sphere's albedo mat_diffuse[{ball}] "
           f"grad {g:.6g} (graph {gg:.6g}) central diff {fd:.6g}; K2 "
-          f"launches {launches}, K1 none "
+          f"launches {launches}, K1 none, K5 launches {k5} "
           f"({time.perf_counter() - t_phase:.1f} s)")
-    return launches
+    return launches, k5
 
 
 def phase_debug_rtc(d):
-    """-> K1 launches of the CLI runs on the card."""
+    """-> K1 and K5 launches of the CLI runs on the card."""
     t_phase = time.perf_counter()
     sub = os.path.join(d, "debug")
     os.makedirs(sub)
@@ -2401,7 +2581,8 @@ def phase_debug_rtc(d):
                            / np.maximum(np.abs(cpu["pos"]), 1e-30)))
     check(np.allclose(gpu["pos"], cpu["pos"], rtol=1e-4, atol=0.0),
           f"bounce 0 position: card {gpu['pos']}, CPU {cpu['pos']}")
-    debug_k1 = dict(fi.launches)
+    debug_k1, debug_k5 = dict(fi.launches), dict(vm.launches)
+    check_k5_render(debug_k5, "the debug replay")
 
     rtc_dir = os.path.join(d, "rtc")
     os.makedirs(rtc_dir)
@@ -2409,10 +2590,11 @@ def phase_debug_rtc(d):
     reset_launches()
     check(cli.main([rtc, "-q", "-D", os.path.join(rtc_dir, "gpu")]) == 0,
           "the CLI failed on the .rtc scene")
-    rtc_k1 = dict(fi.launches)
+    rtc_k1, rtc_k5 = dict(fi.launches), dict(vm.launches)
     rtc_graphs = graph_line()
     check(rtc_k1["closest"] > 0 and rtc_k1["any"] > 0,
           f"the .rtc render did not go through K1: {rtc_k1}")
+    check_k5_render(rtc_k5, "the .rtc render")
     check(cli.main([rtc, "-q", "--cpu", "-D",
                     os.path.join(rtc_dir, "cpu")]) == 0,
           "the CLI failed on the .rtc scene on the CPU")
@@ -2421,16 +2603,17 @@ def phase_debug_rtc(d):
     check_image(gpu_img, (RTC_RES[1], RTC_RES[0], 3))
     stats = image_parity(gpu_img, cpu_img)
     check(stats["ok"], f".rtc card vs CPU image parity failed: {stats}")
-    print(f"[18/21 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
+    print(f"[18/22 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
           f"scene; .rtc scene {RTC_RES[0]}x{RTC_RES[1]} 4spp depth 3] the "
           f"CLI printed {len(printed.splitlines())} lines; {len(recs['card'])}"
           f" bounces on the card, {len(recs['cpu'])} on the CPU; bounce 0 "
           f"tri {gpu['tri']} mat '{name}' on both, position max rel diff "
-          f"{pos_err:.3g}; K1 launches {debug_k1}; .rtc render K1 launches "
-          f"{rtc_k1}, card vs CPU: {fmt_parity(stats)} "
+          f"{pos_err:.3g}; K1 launches {debug_k1}, K5 {debug_k5}; .rtc "
+          f"render K1 launches {rtc_k1}, K5 {rtc_k5}, card vs CPU: "
+          f"{fmt_parity(stats)} "
           f"({time.perf_counter() - t_phase:.1f} s)")
     print(f"    the .rtc card render's {rtc_graphs}")
-    return {m: debug_k1[m] + rtc_k1[m] for m in ("closest", "any")}
+    return add_counts(debug_k1, rtc_k1), add_counts(debug_k5, rtc_k5)
 
 
 def free_port():
@@ -2448,7 +2631,7 @@ def outputs(out_dir, name):
 
 
 def phase_distribution(d):
-    """-> K1 launches of the distributed renders."""
+    """-> K1 and K5 launches of the distributed renders."""
     t_phase = time.perf_counter()
     path = write_bdpt(d, "dist", DIST_RES, 4, 0)
     runs = (("plain", []), ("devices", ["--devices", "1"]),
@@ -2464,9 +2647,10 @@ def phase_distribution(d):
     world = torch.distributed.get_world_size()
     backend = torch.distributed.get_backend()
     torch.distributed.destroy_process_group()
-    launches = dict(fi.launches)
+    launches, k5 = dict(fi.launches), dict(vm.launches)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the distributed renders did not go through K1: {launches}")
+    check_k5_render(k5, "the distributed renders")
     for name in ("devices", "nccl"):
         check(np.array_equal(got[name][0], got["plain"][0]),
               f"--{name} EXR differs from the plain render's")
@@ -2482,13 +2666,14 @@ def phase_distribution(d):
     else:
         refused = False
     check(refused, "a mesh listing the card twice was built")
-    print(f"[19/21 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
+    print(f"[19/22 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
           f"--devices 1 and {backend} world size {world} (--coordinator "
           f"localhost) write the plain render's EXR and checkpoint bit for "
           f"bit; a mesh listing the card twice is refused; K1 launches "
-          f"{launches} ({time.perf_counter() - t_phase:.1f} s)")
+          f"{launches}, K5 launches {k5} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
     print(f"    the three renders' {graph_line()}")
-    return launches
+    return launches, k5
 
 
 # ------------------------------------------------ the queued loop as graphs
@@ -2718,7 +2903,7 @@ def phase_graph(flat_path, col_path, bdpt_path):
     smoke scene (K1, with the k sweep), the colonnade (K2) with
     RGK_BINNED off and all, and the BDPT box (K1)."""
     t_phase = time.perf_counter()
-    print(f"[20/21 queued loop: CUDA graphs vs the eager loop] "
+    print(f"[20/22 queued loop: CUDA graphs vs the eager loop] "
           f"{clocks()}")
     missing = [m for m in IF_NODE_METHODS
                if not hasattr(torch.cuda.CUDAGraph, m)]
@@ -2782,14 +2967,14 @@ def lane_round_vs_eager(label, scene, names):
         return tpath.render_image_round_eager(arrays, meta, s, cam, r, 42,
                                               smp.MODE_HALTON)
 
-    def same(a, b, what):
+    def same(a, b, what, routes="the graph and the eager route"):
         if splats:
             ok = bool((a[0] - b[0]).abs().le(1e-6 + 1e-5 * b[0].abs()).all())
         else:
             ok = torch.equal(a[0], b[0])
         check(ok and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]),
-              f"{label}: {what}'s image, counts or rays differ between the "
-              f"graph and the eager route")
+              f"{label}: {what}'s image, counts or rays differ between "
+              f"{routes}")
 
     graph_round(0)
     eager_round(0)
@@ -2799,6 +2984,9 @@ def lane_round_vs_eager(label, scene, names):
     check(syncs["graph"] == 0, f"{label}: {syncs['graph']} syncs in a graph "
           f"round")
     same(got[0], want[0], "round 1")
+    with plain_rows():
+        same(eager_round(1), want[0], "round 1",
+             "K5 and plain indexing (the route before K5)")
     times = {"graph": [], "eager": []}
     images = {"graph": {}, "eager": {}}
     for r, route in ((2, "graph"), (2, "eager"), (3, "eager"),
@@ -2822,7 +3010,9 @@ def lane_round_vs_eager(label, scene, names):
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
           f"{label}: image {tuple(img.shape)} mean {float(img.mean())}")
     print(f"    {label} ({lanes} lanes, depth {int(s.recursion_max)}): "
-          f"round 1 image {'within rtol 1e-5' if splats else 'bit-equal'}, "
+          f"round 1 image {'within rtol 1e-5' if splats else 'bit-equal'} "
+          f"(and bit-equal to the eager round with plain indexing in place "
+          f"of take_rows), "
           f"counts and {rays} rays equal; syncs a round: graph "
           f"{syncs['graph']}, eager {syncs['eager']} (its all-dead reads); "
           f"no IF node, so no bounce is skipped: the graph runs all "
@@ -2846,9 +3036,10 @@ def phase_lane_graph(d, col_path):
     """Phase 21: the per-sample path's round as one CUDA graph against
     the eager route, on the flat smoke scene at 512x512 4 spp (K1) and
     the colonnade at its config's 960x540 and phase 7's 8 spp (K2).
-    -> {"K1": launches, "K2": launches} of the phase's renders."""
+    -> {"K1": launches, "K2": launches, "K5": launches} of the phase's
+    renders."""
     t_phase = time.perf_counter()
-    print(f"[21/21 per-sample path: one CUDA graph vs the eager bounce "
+    print(f"[21/22 per-sample path: one CUDA graph vs the eager bounce "
           f"loop] {clocks()}")
     sub = os.path.join(d, "lanes")
     os.makedirs(sub)
@@ -2857,20 +3048,175 @@ def phase_lane_graph(d, col_path):
     lane_round_vs_eager(f"flat smoke {FLAT_RES}x{FLAT_RES} {LANE_MS}spp",
                         load_scene(flat), ("flat_sweep",))
     k1, k2_flat = dict(fi.launches), dict(ci.launches)
+    k5_flat = dict(vm.launches)
     check(k1["closest"] > 0 and k1["any"] > 0 and k2_flat == {
         "closest": 0, "any": 0}, f"flat rounds: K1 {k1}, K2 {k2_flat}")
+    check_k5_render(k5_flat, "the flat rounds")
     torch.cuda.empty_cache()
     reset_launches()
     lane_round_vs_eager(f"colonnade {COLONNADE_RES[0]}x{COLONNADE_RES[1]} "
                         f"{COLONNADE_MS}spp", load_scene(col_path),
                         ("cluster_walk",))
     k2, k1_col = dict(ci.launches), dict(fi.launches)
+    k5_col = dict(vm.launches)
     check(k2["closest"] > 0 and k2["any"] > 0 and k1_col == {
         "closest": 0, "any": 0}, f"colonnade rounds: K2 {k2}, K1 {k1_col}")
+    check_k5_render(k5_col, "the colonnade rounds")
     torch.cuda.empty_cache()
-    print(f"    K1 launches {k1} (flat), K2 launches {k2} (colonnade) "
+    print(f"    K1 launches {k1} (flat), K2 launches {k2} (colonnade), K5 "
+          f"launches {k5_flat} (flat), {k5_col} (colonnade) "
           f"({time.perf_counter() - t_phase:.1f} s)")
-    return {"K1": k1, "K2": k2}
+    return {"K1": k1, "K2": k2, "K5": add_counts(k5_flat, k5_col)}
+
+
+@contextlib.contextmanager
+def plain_rows():
+    """Inside, `vm.take_rows` is plain indexing (`table[idx]`), the port's
+    row fetch before K5: the same rows, the backward PyTorch's
+    index_put_(accumulate=True)."""
+    saved = vm.take_rows
+    vm.take_rows = lambda table2d, idx: table2d[idx.long()]
+    try:
+        yield
+    finally:
+        vm.take_rows = saved
+
+
+def k5_bounds(r, m, k):
+    """(forward, backward) bounds of K5 on r ids into an [m, k] table:
+    bytes, each input read once and each output written once (the
+    backward's per-block partials belong to its design, not to the
+    function, and are not counted); the backward's r * k additions are
+    far below the FP32 peak."""
+    fwd = bound(0, r * 4 + r * k * 4 + m * k * 4)
+    bwd = bound(r * k, r * k * 4 + r * 4 + m * k * 4)
+    return fwd, bwd
+
+
+def phase_take_rows(grad_path, gathers):
+    """Phase 22: K5 against its plain version on phase 16's gathers (its
+    material pack, point pack and areal rows with the ids of its first
+    gradient step, 1,048,576 lanes), and phase 16's step through K5
+    against the same step with plain indexing.  Its comparison launches
+    are not counted.  -> K5's two kernel entries (the material pack's
+    shape, 4 of the step's 6 fetches)."""
+    t_phase = time.perf_counter()
+    print(f"[22/22 K5 take_rows at phase 16's gathers] {clocks()}")
+    entries = []
+    for k in sorted(gathers, reverse=True):
+        table, idx = gathers[k]
+        m, r = table.shape[0], idx.shape[0]
+        got = vm.take_rows(table, idx)
+        check(torch.equal(got.view(torch.int32),
+                          vm.take_rows_plain(table, idx).view(torch.int32)),
+              f"K5's rows of the [{m}, {k}] table differ from the plain "
+              f"version's")
+        g = torch.from_numpy(np.random.default_rng(k).normal(
+            size=(r, k)).astype(np.float32)).to(CUDA)
+        a = vm.take_rows_backward(g, idx, m)
+        b = vm.take_rows_backward(g, idx, m)
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"K5's backward of the [{m}, {k}] table differs run to run")
+        ref = vm.take_rows_backward_plain(g.double(), idx, m)
+        top = float(ref.abs().max())
+        err = float((a.double() - ref).abs().max())
+        check(err <= 1e-5 * top, f"K5's backward of the [{m}, {k}] table "
+              f"{err} from the float64 sum (largest {top})")
+        fwd = {"kernel": queued_ms(lambda: vm.take_rows(table, idx)),
+               "plain": queued_ms(lambda: vm.take_rows_plain(table, idx)),
+               "index_select": queued_ms(
+                   lambda: torch.index_select(table, 0, idx))}
+        out = torch.zeros((m, k), device=CUDA)
+        lidx = idx.long()
+        onehot_t = (torch.arange(m, device=CUDA, dtype=torch.int32)[:, None]
+                    == idx[None, :]).float()          # [m, r]
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            bwd = {"kernel": queued_ms(
+                       lambda: vm.take_rows_backward(g, idx, m)),
+                   "plain": queued_ms(
+                       lambda: vm.take_rows_backward_plain(g, idx, m),
+                       runs=PLAIN_RUNS),
+                   "index_add_": queued_ms(
+                       lambda: out.index_add_(0, idx, g)),
+                   "index_put_": queued_ms(
+                       lambda: out.index_put_((lidx,), g, accumulate=True),
+                       runs=PLAIN_RUNS),
+                   "onehot_matmul": queued_ms(
+                       lambda: torch.matmul(onehot_t, g))}
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del onehot_t
+        (fb, fby), (bb, bby) = k5_bounds(r, m, k)
+        print(f"    [{m}, {k}] table, {r} ids ({int(idx.unique().numel())} "
+              f"distinct): rows bit-equal; backward twice bit-equal, "
+              f"max|err| {err:.3g} of {top:.4g} (float64 sum); forward ms "
+              f"kernel {fwd['kernel']:.4f}, bound {fb:.4f} by {fby} (share "
+              f"{fb / fwd['kernel']:.3f}), plain {fwd['plain']:.4f}, "
+              f"index_select {fwd['index_select']:.4f}; backward ms kernel "
+              f"{bwd['kernel']:.4f}, bound {bb:.4f} by {bby} (share "
+              f"{bb / bwd['kernel']:.3f}), plain {bwd['plain']:.4f}, "
+              f"index_add_ {bwd['index_add_']:.4f}, index_put_(accumulate="
+              f"True) {bwd['index_put_']:.3f}, one-hot matmul (TF32 off) "
+              f"{bwd['onehot_matmul']:.4f}")
+        print("    its kernels under torch.profiler, 3 calls (device us a "
+              "launch): forward "
+              + device_kernels(lambda: vm.take_rows(table, idx))
+              + "; backward "
+              + device_kernels(lambda: vm.take_rows_backward(g, idx, m)))
+        deterministic = max(bwd["index_put_"], bwd["onehot_matmul"])
+        check(bwd["kernel"] <= deterministic, f"K5's backward "
+              f"{bwd['kernel']} ms, slower than the slowest deterministic "
+              f"library call ({deterministic} ms)")
+        if k != 20:
+            continue
+        entries = [
+            {**kernel_entry("take_rows_forward", K5_SOURCE, K5_REPLACES, 0,
+                            0.0, fwd["kernel"], fwd["plain"], fb, fby),
+             "library_ms": fwd["index_select"],
+             "library_call": "torch.index_select"},
+            {**kernel_entry("take_rows_backward", K5_SOURCE, K5_REPLACES, 0,
+                            err, bwd["kernel"], bwd["plain"], bb, bby),
+             "library_ms": bwd["index_add_"],
+             "library_call": "torch.Tensor.index_add_",
+             "library_ms_deterministic": {
+                 "index_put_(accumulate=True)": bwd["index_put_"],
+                 "onehot_matmul": bwd["onehot_matmul"]}}]
+    check(len(entries) == 2, "phase 16 recorded no material-pack fetch")
+    loss_fn, _, params, _, _ = grad_setup(grad_path, CUDA, GRAD_RES, GRAD_MS)
+    timed_grads(loss_fn, params, runs=1)
+    with plain_rows():
+        timed_grads(loss_fn, params, runs=1)
+    runs = {"K5": [], "plain": []}
+    for route in ("plain", "K5", "K5", "plain"):
+        with plain_rows() if route == "plain" else contextlib.nullcontext():
+            runs[route].append(timed_grads(loss_fn, params, runs=1))
+    (*_, l5, g5), (*_, lp, gp) = runs["K5"][-1], runs["plain"][-1]
+    # float32 losses as Python floats: equal floats are equal bits.
+    check(l5 == lp, f"phase 16's loss through K5 {l5}, through plain "
+          f"indexing {lp}")
+    # index_put_(accumulate=True) adds each row's run of up to 1M lanes
+    # serially in float32 (a relative error up to ~n * 2^-24), K5 by a
+    # tree: the two may part by more than K5 parts from a float64 sum
+    # (phase 16's central differences hold K5's).
+    gaps = {}
+    for key, b in gp.items():
+        gap, top = float((g5[key] - b).abs().max()), float(b.abs().max())
+        gaps[key] = gap / max(top, 1e-30)
+        check(gap <= 1e-3 * top + 1e-12, f"{key}'s gradient through K5 "
+              f"{gap} from plain indexing's (largest {top})")
+    print("    phase 16's eager step, in turns plain, K5, K5, plain: "
+          + "; ".join(f"{route} forward {', '.join(f'{x[0]:.3f}' for x in v)}"
+                      f" ms, backward {', '.join(f'{x[1]:.3f}' for x in v)} "
+                      f"ms, peak {', '.join(f'{x[2] / 2**30:.3f}' for x in v)}"
+                      f" GiB" for route, v in runs.items())
+          + "; loss bit-equal; largest gradient gap "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(
+              gaps.items(), key=lambda kv: -kv[1])[:3])
+          + " of the leaf's largest (within 1e-3) "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    return entries
 
 
 def parse_args(argv=None):
@@ -2897,9 +3243,9 @@ def main(argv=None):
     phase_k1(dev)
     trees = phase_k2(dev)
     with tempfile.TemporaryDirectory() as d:
-        entries = phase_render(d)
+        entries, k5_flat = phase_render(d)
         phase_cpu_parity(d)
-        k2_entries, col_path, col_img = phase_colonnade(d)
+        k2_entries, col_path, col_img, k5_col = phase_colonnade(d)
         entries += k2_entries
         small = phase_colonnade_parity(d)
         phase_binned_soup(dev, trees)
@@ -2907,16 +3253,23 @@ def main(argv=None):
         phase_binned_small(d, *small)
         entries += phase_probes(dev)
         glass = phase_glass(d)
-        bdpt1, k1_bdpt = phase_bdpt_k1(d)
-        bdpt2, k2_bdpt = phase_bdpt_k2(d)
-        k1_grad = phase_grad_k1(d)
-        k2_grad = phase_grad_k2(d)
-        k1_debug = phase_debug_rtc(d)
-        k1_dist = phase_distribution(d)
+        bdpt1, k1_bdpt, k5_bdpt1 = phase_bdpt_k1(d)
+        bdpt2, k2_bdpt, k5_bdpt2 = phase_bdpt_k2(d)
+        k1_grad, k5_grad1, grad_path, gathers = phase_grad_k1(d)
+        k2_grad, k5_grad2 = phase_grad_k2(d)
+        k1_debug, k5_debug = phase_debug_rtc(d)
+        k1_dist, k5_dist = phase_distribution(d)
         phase_graph(os.path.join(d, f"box_sphere_{FLAT_RES}.json"),
                     col_path, os.path.join(d, "bdpt.json"))
         lanes = phase_lane_graph(d, col_path)
-    # The K1 and K2 rows count every run of their kernel's paths.
+        k5_entries = phase_take_rows(grad_path, gathers)
+    # The K1, K2 and K5 rows count every run of their kernel's paths,
+    # each set to 0 just before the run and read just after it.
+    k5 = add_counts(k5_flat, k5_col, glass["K5"], k5_bdpt1, k5_bdpt2,
+                    k5_grad1, k5_grad2, k5_debug, k5_dist, lanes["K5"])
+    for e, key in zip(k5_entries, ("forward", "backward")):
+        check(k5[key] > 0, f"no path launched K5's {key}")
+        e["launches"] = k5[key]
     more = {"flat_intersect": (glass["K1"], k1_bdpt, k1_grad, k1_debug,
                                k1_dist, lanes["K1"]),
             "cluster_intersect": (glass["K2"], k2_bdpt, k2_grad,
@@ -2928,7 +3281,7 @@ def main(argv=None):
                              ("cluster_intersect", "any")):
             if e["name"] == f"{kernel}_{mode}":
                 e["launches"] += sum(m[mode] for m in more[kernel])
-    entries += bdpt1 + bdpt2
+    entries += bdpt1 + bdpt2 + k5_entries
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -91,13 +91,14 @@ from ..ops import binned_intersect as bi
 from ..ops import cluster_intersect as ci
 from ..ops import flat_intersect as fi
 from ..ops import sampler as smp
+from ..ops import vecmath as vm
 from ..scene.camera import TENSOR_FIELDS
 from ..utils import log as out
 from . import path as tpath
 
 K_READ = 4        # replays between two reads of the end test (PERF.md §6)
 WARMUP_STEPS = 2  # eager runs of a captured body, on a side stream
-_COUNTERS = (fi.launches, ci.launches, bi.launches)
+_COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches)
 
 # Summed over every runner of the process; `reset_stats` zeroes them.
 # steps: queued steps issued (replays, CPU steps); replays: step-graph

@@ -116,10 +116,10 @@ def _setup(scene, meta, settings) -> _Setup:
 
 def _shade_point(scene, meta, settings, hit, ro, rd, mat_pack) -> ShadePoint:
     """Interpolate attributes and build the shading frame at `hit`."""
-    tri = torch.clamp(hit.tri, min=0).long()
-    mat_id = scene.tri_meta[tri][..., 3]
-    mat_row = mat_pack[mat_id.long()]
-    srow = scene.tri_shade[tri]
+    tri = torch.clamp(hit.tri, min=0)
+    mat_id = vm.take_rows(scene.tri_meta, tri)[..., 3]
+    mat_row = vm.take_rows(mat_pack, mat_id)
+    srow = vm.take_rows(scene.tri_shade, tri)
     ba = 1.0 - hit.bary_b - hit.bary_c
     pos = ro + rd * hit.t[..., None]
     vr = -rd

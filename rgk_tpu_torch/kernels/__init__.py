@@ -156,6 +156,14 @@ def _open(path):
     lib.rgk_binned_sweep.argtypes = [p, p, ctypes.c_longlong, i, p, i, i, p,
                                      p, p, p, p, p, p, p]
     lib.rgk_binned_sweep.restype = i
+    lib.rgk_take_rows.argtypes = [p, i, i, p, i, p, p]
+    lib.rgk_take_rows.restype = i
+    lib.rgk_take_rows_partials.argtypes = [i]
+    lib.rgk_take_rows_partials.restype = i
+    lib.rgk_take_rows_backward_smem.argtypes = [i, i]
+    lib.rgk_take_rows_backward_smem.restype = ctypes.c_longlong
+    lib.rgk_take_rows_backward.argtypes = [p, p, i, i, i, p, p, p]
+    lib.rgk_take_rows_backward.restype = i
     lib.rgk_cuda_error_string.argtypes = [i]
     lib.rgk_cuda_error_string.restype = ctypes.c_char_p
     lib.rgk_device_smem_optin.argtypes = [i]

@@ -74,7 +74,7 @@ class MatParams:
     def __init__(self, scene, mat_pack, mat_id, uv, row=None,
                  has_textures=True):
         if row is None:
-            row = mat_pack[mat_id.long()]
+            row = vm.take_rows(mat_pack, mat_id)
         self.emission = row[..., 0:3]
         self.bxdf_type = row[..., 12].to(torch.int32)
         self.diffuse = self._resolve(scene, row[..., 15], row[..., 3:6], uv,

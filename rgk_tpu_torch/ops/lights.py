@@ -57,17 +57,23 @@ def sample_light(scene, choice2, tri2) -> LightSample:
     q2 = choice2[..., 1] * total_areal
     a_idx = _pick(lt.areal_cum, q2, lt.areal_tri.shape[0])
 
-    arow = lt.areal_rows[a_idx]
+    # One row fetch per class, as the reference's: the point pack is
+    # (pos, color, intensity, size).
+    point_pack = torch.cat([lt.point_pos, lt.point_color,
+                            lt.point_intensity[:, None],
+                            lt.point_size[:, None]], dim=1)
+    prow = vm.take_rows(point_pack, p_idx)
+    arow = vm.take_rows(lt.areal_rows, a_idx)
     tri_pos = warps.to_triangle_uniform(tri2, arow[..., 0:3],
                                         arow[..., 3:6], arow[..., 6:9])
-    p_pos = lt.point_pos[p_idx]
+    p_pos = prow[..., 0:3]
     cp = choose_point[..., None]
     return LightSample(
         kind=torch.where(choose_point, LIGHT_POINT, LIGHT_AREAL).to(torch.int32),
         pos=torch.where(cp, p_pos, tri_pos),
-        color=torch.where(cp, lt.point_color[p_idx], arow[..., 12:15]),
-        intensity=torch.where(choose_point, lt.point_intensity[p_idx], 1.0),
-        size=torch.where(choose_point, lt.point_size[p_idx], 0.0),
+        color=torch.where(cp, prow[..., 3:6], arow[..., 12:15]),
+        intensity=torch.where(choose_point, prow[..., 6], 1.0),
+        size=torch.where(choose_point, prow[..., 7], 0.0),
         # Areal: vertex A's shading normal, as in the reference.
         normal=torch.where(cp, vm.safe_normalize(p_pos), arow[..., 9:12]),
         valid=valid.expand(choose_point.shape),

@@ -21,7 +21,10 @@ lanes, K4 as K2; the binned front end's ids equal K2's on >= 99.99% of
 rays (they share the slab and row tests); on the far spheres, where the
 prefilter's slack must grow with the magnitudes, exactly equal on every
 ray whose list did not overflow.  The probes: equal to their plain
-versions (the sweeps' t within rtol 3e-4).
+versions (the sweeps' t within rtol 3e-4).  K5 (take_rows): its rows
+equal the plain version's bit for bit; its backward equals itself bit
+for bit run to run and lies within 1e-5 x max|reference| of a float64
+sum of the same terms.
 """
 
 import importlib.util
@@ -38,6 +41,7 @@ from rgk_tpu_torch.io import read_exr
 from rgk_tpu_torch.ops import binned_intersect as bi
 from rgk_tpu_torch.ops import cluster_intersect as ci
 from rgk_tpu_torch.ops import flat_intersect as fi
+from rgk_tpu_torch.ops import vecmath as vm
 from rgk_tpu_torch.parity import image_parity
 from rgk_tpu_torch.scene import clusters as tclusters
 from rgk_tpu_torch.scene.builder import build_tri_pack
@@ -1101,3 +1105,72 @@ def test_value_and_grad_graph_equals_eager(cuda_device, tmp_path):
             if w is not None:
                 tol = 1e-5 * float(w.abs().max()) + 1e-9
                 assert float((grads[k] - w).abs().max()) <= tol, k
+
+
+def _take_case(dev, m, k, r, seed, one_row=False):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(m, k)).astype(np.float32)
+    idx = (np.zeros(r, np.int32) if one_row
+           else rng.integers(0, m, r).astype(np.int32))
+    g = rng.normal(size=(r, k)).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (table, idx, g)]
+
+
+@pytest.mark.parametrize("r", [1, 1000, 1 << 20])
+@pytest.mark.parametrize("m,k", [(1, 8), (7, 20), (40, 15), (1024, 20),
+                                 (1024, 64)])
+def test_take_rows_kernel_equals_plain(cuda_device, m, k, r):
+    """K5's forward against take_rows_plain bit for bit, float32 and
+    int32 tables (the 1024 x 64 table is not staged in shared memory),
+    with ids outside [0, M) on every 9th lane."""
+    table, idx, _ = _take_case(cuda_device, m, k, r, seed=m + k + r)
+    idx[::9] = torch.where(idx[::9] % 2 == 0, -1, m)
+    for t in (table, (table * 1000).to(torch.int32)):
+        n0 = vm.launches["forward"]
+        got = vm.take_rows(t, idx)
+        assert vm.launches["forward"] == n0 + 1
+        want = vm.take_rows_plain(t.cpu(), idx.cpu())
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.parametrize("r", [1, 1000, 1 << 20])
+@pytest.mark.parametrize("m,k,one_row", [(7, 20, False), (1024, 20, False),
+                                         (5, 8, True)])
+def test_take_rows_backward_is_deterministic(cuda_device, m, k, one_row, r):
+    """K5's backward twice: bit-equal; within 1e-5 x max|ref| of the
+    float64 sum of the same terms.  `one_row` sends every lane to row 0,
+    the worst case of the sort-based index_put_ route."""
+    table, idx, g = _take_case(cuda_device, m, k, r, seed=3 * r + m,
+                               one_row=one_row)
+    n0 = vm.launches["backward"]
+    a = vm.take_rows_backward(g, idx, m)
+    b = vm.take_rows_backward(g, idx, m)
+    assert vm.launches["backward"] == n0 + 2
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ref = vm.take_rows_backward_plain(g.double().cpu(), idx.cpu(), m)
+    tol = 1e-5 * float(ref.abs().max())
+    assert float((a.cpu().double() - ref).abs().max()) <= tol
+
+
+def test_take_rows_autograd_on_the_card(cuda_device):
+    """Under autograd a table of at most 1024 rows launches K5 forward
+    and backward; the gradient is K5's backward of the rows' gradient."""
+    table, idx, g = _take_case(cuda_device, 12, 20, 1 << 16, seed=41)
+    t = table.clone().requires_grad_(True)
+    f0, b0 = vm.launches["forward"], vm.launches["backward"]
+    rows = vm.take_rows(t, idx.reshape(256, 256))
+    (got,) = torch.autograd.grad(rows, [t], g.reshape(256, 256, 20))
+    assert (vm.launches["forward"], vm.launches["backward"]) == (f0 + 1,
+                                                                 b0 + 1)
+    assert torch.equal(got, vm.take_rows_backward(g, idx, 12))
+
+
+def test_take_rows_backward_limit_raises(cuda_device):
+    """Beyond 1024 rows, or beyond the shared memory a block opts in to
+    (1024 x 64 floats), K5's backward raises; it never switches route."""
+    _, idx, g = _take_case(cuda_device, 1024, 64, 1000, seed=7)
+    with pytest.raises(ValueError, match="shared memory"):
+        vm.take_rows_backward(g, idx, 1024)
+    with pytest.raises(ValueError, match="1024 rows"):
+        vm.take_rows_backward(g, idx, 1025)
