@@ -7,15 +7,15 @@
 Run from the root of a checkout.  With --parent (an earlier version's
 kernel sources, unpacked for example by `git archive <commit>
 rgk_tpu_torch/csrc`), phases 3-5 and 7 also time that version's K1 and
-K2, and phases 9 and 10 its K3 and K4, in turns with this tree's
-(earlier, new, new, earlier), and holds this tree's K3 and K4 bit-equal
+K2, phases 9 and 10 its K3 and K4, and phase 22 its K5, in turns with
+this tree's (earlier, new, new, earlier), and holds this tree's K3 and K4 bit-equal
 to that version's on the same inputs.  With --profile, phases 5, 7 and 14
 render their scene once more under torch.profiler, and phase 10 the
 colonnade once more with RGK_BINNED=all, and print the round's device
 time per
 kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
 busy share.  It drives
-rgk_tpu_torch, never JAX, through twenty-two phases and exits non-zero at
+rgk_tpu_torch, never JAX, through twenty-three phases and exits non-zero at
 the first that fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -63,7 +63,8 @@ the first that fails:
 10. the colonnade of phase 7 rendered again through the CLI with
    RGK_BINNED=any and then all (the environment restored after each):
    K3/K4 launches counted against the queued loop's steps (K1 none, K2
-   as the mode implies), round wall time, rays/s, the
+   as the mode implies, K5's forward and no backward), round wall time,
+   rays/s, the
    first binned query replayed against the plain versions and against
    K2, with K3's node SIMD efficiency and the same-chunk runs of K4's
    sorted pairs (phase 9 prints both too), and each image against phase
@@ -165,14 +166,28 @@ the first that fails:
    gathers: its material pack [NM, 20], point pack [1, 8] and areal rows
    [NA, 15] with the ids of phase 16's first step (1,048,576 lanes): the
    rows against take_rows_plain bit for bit, the backward run twice bit
-   for bit and within 1e-5 x max of a float64 sum; kernel, plain and
-   library ms (forward: index_select; backward: index_add_,
-   index_put_(accumulate=True) and the one-hot matmul with TF32 off,
-   K5 no slower than the slower deterministic one) beside the bound;
-   then phase 16's eager step through K5 and with plain indexing in
-   turns (plain, K5, K5, plain), each one's peak memory: the loss
-   bit-equal, the gradients within 1e-3 x the leaf's largest (the plain
-   route's backward adds each row's lanes serially in float32).
+   for bit and within 1e-5 x max of a float64 sum; kernel (and, with
+   --parent, the earlier K5 in turns), plain and library ms (forward:
+   index_select; backward: index_add_, index_put_(accumulate=True) and
+   the one-hot matmul with TF32 off, K5 no slower than the slower
+   deterministic one) beside the bound; the same checks and turns on
+   [8, 20] and [9, 20] tables, either side of the small-table route's
+   bound; how many forward kernels each of 10 profiler windows of three
+   forward calls records: bare, after a warm-up step of the profiler's
+   schedule (as the kernel lines open theirs), and after a warm-up step
+   right after a timing; then phase 16's eager step through K5 and with
+   plain indexing in turns (plain, K5, K5, plain), each one's peak
+   memory: the loss bit-equal, the gradients within 1e-3 x the leaf's
+   largest (the plain route's backward adds each row's lanes serially
+   in float32);
+23. BDPT gradients through K1 at full width: bench.py's BDPT box
+   (tools/bdpt_scene, 512x512, 4 spp = 1,048,576 lanes, reverse 4, depth
+   4), the L2 loss of `make_loss_fn` against a target rendered with the
+   diffuse albedo scaled by 0.8: one eager step (every leaf's gradient
+   finite), the step as one CUDA graph against the eager step in turns
+   as in phase 16 (bit for bit), `mat_diffuse` of the white walls by
+   central difference (eager and graph gradients, eps 1e-3, rtol 0.03),
+   forward and backward ms, peak memory, K1 and K5 launches.
 
 Every CLI render on the card runs the queued loop as CUDA graphs
 (`rgk_tpu_torch/integrator/graph.py`): the render phases print the
@@ -209,12 +224,12 @@ averaged over warps.
 Prints one line per phase with its wall seconds, then a JSON line of
 the kernels (launch counts from the renders, each render's counts set
 to 0 just before it and read just after: K1 the sum of phases 5, 13,
-14, 16-19 and 21, K2 of phases 7, 13, 15, 17 and 21, K3/K4 of the two
-binned renders, the BDPT splat-query rows those of phases 14 and 15,
-the probes their tool runs, K5 of phases 5, 7, 13-19 and 21, phase
-22's comparisons left out; ms, plain_ms,
+14, 16-19, 21 and 23, K2 of phases 7, 13, 15, 17 and 21, K3/K4 of the
+two binned renders, the BDPT splat-query rows those of phases 14 and
+15, the probes their tool runs, K5 of phases 5, 7, 10, 13-19, 21 and
+23, phase 22's comparisons left out; ms, plain_ms,
 bound_ms, bound_by, share, library_ms null but for K5's rows, parent_ms
-for K1-K4 with --parent), and last
+for K1-K5 with --parent), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
 result.
 """
@@ -222,6 +237,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import io
@@ -343,6 +359,11 @@ IF_NODE_METHODS = ("get_currently_capturing_graph",
                    "begin_capture_to_if_node",
                    "end_capture_to_conditional_node")
 LANE_MS = 4  # phase 21's flat scene: 512x512 x 4 spp = 1,048,576 lanes
+K5_SMALL_ROWS = 8       # csrc/take_rows.cu kSmallRows: the small-table route
+K5_BOUNDARY = (8, 9)    # phase 22's tables on either side of it
+WINDOW_TRIES = 10       # profiler windows: phase 22's of each kind, and
+#                         the most device_kernels opens for one line
+BDPT_GRAD_MS = 4        # phase 23: 512x512 x 4 spp = 1,048,576 lanes
 CUDA = torch.device("cuda", 0)  # the card of phases 16-19
 
 
@@ -560,62 +581,98 @@ def queued_ms(fn, runs=TIMED_RUNS):
 
 def profiled_kernels(prof):
     """The kernels that a torch.profiler window recorded on the card
-    (copies and memsets left out)."""
-    return [e for e in prof.events()
+    (copies, memsets and the schedule's step annotations left out)."""
+    return kernel_events(prof.events())
+
+
+def kernel_events(events):
+    return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+            and not e.name.startswith(("Memcpy", "Memset", "ProfilerStep"))]
 
 
-def kernels_by_name(prof):
-    """-> {kernel name: (launches recorded, device ms in all)} of a
-    torch.profiler window."""
+def kernels_by_name(events):
+    """-> {kernel name: (launches recorded, device ms in all)} of the
+    events of a torch.profiler window."""
     got = {}
-    for e in profiled_kernels(prof):
+    for e in kernel_events(events):
         n, ms = got.get(e.name, (0, 0.0))
         got[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     return got
 
 
-def device_kernels(fn, runs=3):
-    """`runs` calls of `fn` under torch.profiler, as `name xN us` by
-    kernel (launches recorded, mean device us a launch), or "not
-    recorded" when the profiler saw no kernel.  (The profiler may miss
-    the first kernel of its window, so launches are counted, not
-    assumed.)"""
-    from torch.profiler import ProfilerActivity, profile
+def profile_window(fn, runs=3, warmup_step=True):
+    """The events of one torch.profiler window over `runs` calls of `fn`.
+    With `warmup_step` the profiler's schedule traces the same calls once
+    first and drops them (schedule(wait=0, warmup=1, active=1)), so that
+    the recorded window opens with the card's activity tracing running:
+    a bare window can miss its first kernel."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    windows = []
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    got = kernels_by_name(prof)
+    if warmup_step:
+        with profile(activities=acts,
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1),
+                     on_trace_ready=lambda p: windows.append(
+                         list(p.events()))) as prof:
+            for _ in range(2):
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+    else:
+        with profile(activities=acts) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        windows.append(list(prof.events()))
+    return windows[-1] if windows else []
+
+
+def device_kernels(fn, runs=3):
+    """`runs` calls of `fn` in a `profile_window`, as `name xN us` by
+    kernel (launches recorded, mean device us a launch).  A window now
+    and then records no kernel at all though its host events show the
+    launches (phase 22 counts them); such a window is opened again, up to
+    WINDOW_TRIES times, and the line says how many it took, or "not
+    recorded".  Launches are counted, not assumed."""
+    for attempt in range(1, WINDOW_TRIES + 1):
+        events = profile_window(fn, runs)
+        got = kernels_by_name(events)
+        if got:
+            break
     if not got:
-        return "not recorded (the profiler saw no kernel)"
+        launches = sum("LaunchKernel" in e.name for e in events)
+        return (f"not recorded in {WINDOW_TRIES} windows (the last: "
+                f"{len(events)} host events, {launches} of them kernel "
+                f"launches)")
     return ", ".join(f"{name[:60]} x{n} {ms * 1e3 / n:.1f}"
-                     for name, (n, ms) in got.items())
+                     for name, (n, ms) in got.items()) + (
+        f" (window {attempt})" if attempt > 1 else "")
 
 
-def ab_ms(fn, runs=TIMED_RUNS):
-    """-> (parent ms or None, new ms): median CUDA-event ms of `fn`
-    through the parent's library and this tree's, in turns parent, new,
-    new, parent, each the mean of its two medians; without --parent the
-    new one only."""
+def ab_ms(fn, runs=TIMED_RUNS, timer=median_ms):
+    """-> (parent ms or None, new ms): `timer`'s ms of `fn` (median CUDA
+    event ms by default) through the parent's library and this tree's,
+    in turns parent, new, new, parent, each the mean of its two; without
+    --parent the new one only."""
     if PARENT is None:
-        return None, median_ms(fn, runs)
+        return None, timer(fn, runs)
     got = {True: [], False: []}
     for is_parent in (True, False, False, True):
         with library(PARENT) if is_parent else contextlib.nullcontext():
-            got[is_parent].append(median_ms(fn, runs))
+            got[is_parent].append(timer(fn, runs))
     return statistics.mean(got[True]), statistics.mean(got[False])
 
 
-def fmt_ab(parent, new, bound_ms):
+def fmt_ab(parent, new, bound_ms, digits=3):
     """`parent X new Y ms, bound Z (share S)` for a line of a phase."""
-    head = "" if parent is None else f"parent {parent:.3f} / "
-    return (f"{head}kernel {new:.3f} ms, bound {bound_ms:.4f} ms (share "
-            f"{bound_ms / new:.3f})")
+    head = "" if parent is None else f"parent {parent:.{digits}f} / "
+    return (f"{head}kernel {new:.{digits}f} ms, bound {bound_ms:.4f} ms "
+            f"(share {bound_ms / new:.3f})")
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms,
@@ -726,7 +783,7 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(f"[1/22 device] {torch.cuda.get_device_name(0)} | torch "
+    print(f"[1/23 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | "
           f"devices {torch.cuda.device_count()}")
 
@@ -746,7 +803,7 @@ def phase_build(parent_csrc=None):
         else:
             info, lib = kernels.build(), kernels.load()
         secs = time.perf_counter() - t0
-        print(f"[2/22 build] {who}{os.path.relpath(info['path'], ROOT)} "
+        print(f"[2/23 build] {who}{os.path.relpath(info['path'], ROOT)} "
               f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -810,7 +867,7 @@ def phase_k1(dev):
         times.append(f"{'any' if m else 'closest'} "
                      f"{fmt_ab(parent, new, k1_bound(window, m)[0])}, "
                      f"plain {plain:.3f}")
-    print(f"[3/22 K1 {n_tris} tris x {n_rays} rays] closest agree "
+    print(f"[3/23 K1 {n_tris} tris x {n_rays} rays] closest agree "
           f"{agree1:.6f} (excl pass {agree2:.6f}) max|err| "
           f"{max(err1, err2):.3g}; any-hit agree {agree3:.6f}; median ms "
           + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs); "
@@ -864,7 +921,7 @@ def phase_k2(dev):
             times.append(f"{'any' if m else 'closest'} "
                          f"{fmt_ab(parent, new, b)}, plain {plain:.3f}")
         tpc = max(1, halves // 2)
-        print(f"[4/22 K2 {n_tris} tris x {n_rays} rays, {layout}: "
+        print(f"[4/23 K2 {n_tris} tris x {n_rays} rays, {layout}: "
               f"chunk_halves {halves}, tpc {tpc}, "
               f"{cl.boxes_q.shape[0] // 3} nodes, host build {build_s:.3f} s]"
               f" closest agree {s1['agree']:.6f} (excl pass "
@@ -1155,7 +1212,7 @@ def phase_render(d):
     check_k5_render(k5, "the render")
     n_tris = first.args[False][0].shape[0]
     check(n_tris == 3870, f"scene has {n_tris} triangles, not 3870")
-    print(f"[5/22 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
+    print(f"[5/23 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
           f"{wall:.3f} s, "
           f"{rays} extension rays, {rays / wall:.1f} rays/s, K1 launches "
           f"{launches}, K5 launches {k5}, image mean "
@@ -1192,7 +1249,7 @@ def phase_cpu_parity(d):
     cpu, _ = render(path, os.path.join(d, "cpu64"), "--cpu")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"card vs CPU image parity failed: {stats}")
-    print(f"[6/22 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
+    print(f"[6/23 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
           f" trimmed {stats['corr_trim']:.6f} mean rel diff "
           f"{stats['mean_rel_diff']:.3g} max|diff| {stats['max_abs_diff']:.3g}"
           f" outlier pixels {stats['outlier_pixels']}, max per tile "
@@ -1248,7 +1305,7 @@ def phase_colonnade(d):
           f"SAH builder {builder.sah_builder}")
     host = builder.timings
     round_s = t1 - first.first_t
-    print(f"[7/22 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
+    print(f"[7/23 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
           f"{n_tris} tris]"
           f" CLI wall {t1 - t0:.3f} s, of which host build "
           f"{sum(host.values()):.3f} s ({builder.sah_builder} SAH builder: "
@@ -1443,7 +1500,7 @@ def phase_colonnade_parity(d):
         gpu_plain, _ = render_eager(path, os.path.join(d, "col_gpu_plain"))
     check(ci.launches == {"closest": 0, "any": 0},
           f"the plain-K2 card render launched K2: {ci.launches}")
-    print(f"[8/22 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
+    print(f"[8/23 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
           f"card (eager loop; the CLI's CUDA-graph image equal bit for "
           f"bit) vs CPU: "
           f"{fmt_parity(stats)}; card with cluster_plain vs CPU: "
@@ -1604,7 +1661,7 @@ def phase_binned_soup(dev, trees):
             k2, af = compare_front(args, False, K)
             _, ax = compare_front(args[:6] + [k2[1].contiguous()], False, K)
             _, aa = compare_front(args, True, K)
-            line = (f"[9/22 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
+            line = (f"[9/23 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
                     f"K={K}] K3 lists agree {a3:.6f} (lanes overflowing "
                     f"{over:.4f}); K4 ids agree {a4:.6f}, t within rtol "
                     f"{t4:.6f}, {c4:.6f} of the {s4:.6f} well-conditioned "
@@ -1671,19 +1728,20 @@ def render_binned(path, out_dir, mode):
         img, rays = render(path, out_dir)
         t1 = time.perf_counter()
     launches = {"K1": dict(fi.launches), "K2": dict(ci.launches),
-                "K3/K4": dict(bi.launches)}
+                "K3/K4": dict(bi.launches), "K5": dict(vm.launches)}
     return img, rays, launches, {
         "wall": t1 - t0, "round": t1 - front.first_t,
         "steps": tgraph.read_stats()["steps"], "args": front.args}
 
 
 def phase_binned_colonnade(d, path, k2_img):
-    """Phase 7's colonnade under RGK_BINNED=any, then all.  -> the K3/K4
+    """Phase 7's colonnade under RGK_BINNED=any, then all.  -> (the K3/K4
     entries of the kernels line, timed at the `all` run's first
-    (closest-hit) binned query."""
+    (closest-hit) binned query; {mode: K5's launches of that render})."""
     t_phase = time.perf_counter()
     res = COLONNADE_RES
     total = {"walk": 0, "sweep": 0}
+    k5 = {}
     for mode in ("any", "all"):
         img, rays, launches, st = render_binned(
             path, os.path.join(d, f"colonnade_{mode}"), mode)
@@ -1700,6 +1758,8 @@ def phase_binned_colonnade(d, path, k2_img):
               f"K3/K4 launches {k34}")
         check(launches["K1"] == {"closest": 0, "any": 0},
               f"the colonnade launched K1: {launches['K1']}")
+        k5[mode] = launches["K5"]
+        check_k5_render(k5[mode], f"the RGK_BINNED={mode} render")
         k2 = launches["K2"]
         check(k2 == {"closest": 2 * steps, "any": 0},
               f"RGK_BINNED={mode}: K2 launches {k2} for {nb} binned "
@@ -1709,12 +1769,12 @@ def phase_binned_colonnade(d, path, k2_img):
         stats = image_parity(img, k2_img)
         check(stats["ok"], f"RGK_BINNED={mode} image against the K2 image: "
               f"{stats}")
-        print(f"[10/22 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
+        print(f"[10/23 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
               f"{COLONNADE_MS}spp] CLI wall {st['wall']:.3f} s, round "
               f"(first query to EXR) {st['round']:.3f} s, {rays} extension "
               f"rays, {rays / st['round']:.1f} rays/s; launches K3 "
               f"{k34['walk']}, K4 {k34['sweep']}, K2 {k2} ({steps} steps of "
-              f"the queued loop); image vs K2's: max|diff| "
+              f"the queued loop), K5 {k5[mode]}; image vs K2's: max|diff| "
               f"{stats['max_abs_diff']:.3g}, corr {stats['corr']:.6f}, "
               f"outlier pixels {stats['outlier_pixels']}")
         print(f"    {graph_line()}")
@@ -1775,7 +1835,7 @@ def phase_binned_colonnade(d, path, k2_img):
                            ("binned_walk", "binned_sweep", "cluster_walk"),
                            binned="all")
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
-    return entries
+    return entries, k5
 
 
 def phase_binned_small(d, path, cpu):
@@ -1789,7 +1849,7 @@ def phase_binned_small(d, path, cpu):
           f"K2 {ci.launches}")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"binned colonnade card vs CPU parity failed: {stats}")
-    print(f"[11/22 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
+    print(f"[11/23 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
           f"4spp depth 2] launches K3/K4 {dict(bi.launches)}, K2 "
           f"{dict(ci.launches)}; corr {stats['corr']:.6f} trimmed "
           f"{stats['corr_trim']:.6f} mean rel diff "
@@ -1805,7 +1865,7 @@ def phase_probes(dev):
     there), then one kernel of each timed against its plain version."""
     t_phase = time.perf_counter()
     reset_launches()
-    print("[12/22 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
+    print("[12/23 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
     check(p1.main([]) == 0, "P1 failed")
     print("    P2 (rgk_tpu_torch/tools/prof_sync.py):")
     check(p2.main([]) == 0, "P2 failed")
@@ -1935,7 +1995,7 @@ def phase_glass(d):
         got[kernel] = used
         got["K5"] = add_counts(got["K5"], k5)
         stats = card_vs_cpu(d, f"glass_{kernel}_64", 0, sphere, True)
-        print(f"[13/22 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
+        print(f"[13/23 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
               f" via {kernel}{f', + {sphere}-tri sphere' if sphere else ''}]"
               f" wall {wall:.3f} s, {rays} extension rays, "
               f"{rays / wall:.1f} rays/s, launches {kernel} {used} (the other "
@@ -1986,7 +2046,7 @@ def phase_bdpt_k1(d):
           f"{st['light_replays']} light-phase replays, {st['blocks']} "
           f"blocks, for {n_blocks} blocks")
     round_s = t1 - first.first_t
-    print(f"[14/22 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
+    print(f"[14/23 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} depth 4 via K1] CLI wall {t1 - t0:.3f} s, round "
           f"(first query to EXR) {round_s:.3f} s, {rays} extension rays "
           f"(light + eye), {rays / round_s:.1f} rays/s; {n_blocks} blocks of "
@@ -2057,7 +2117,7 @@ def phase_bdpt_k2(d):
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
     check_k5_render(k5, "the BDPT render")
     round_s = t1 - first.first_t
-    print(f"[15/22 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
+    print(f"[15/23 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} via K2, box + {BVH_SPHERE}-tri sphere] CLI wall "
           f"{t1 - t0:.3f} s, round {round_s:.3f} s, {rays} extension rays, "
           f"{rays / round_s:.1f} rays/s, "
@@ -2257,7 +2317,7 @@ def profile_grad_step(loss_fn, params, fwd_ms, bwd_ms):
                    reverse=True)[:10]
     got["top_nodes"] = [(e.key[len(prefix):], e.count, device_us(e) / 1e3)
                         for e in nodes]
-    got["top_kernels"] = sorted(kernels_by_name(pb).items(),
+    got["top_kernels"] = sorted(kernels_by_name(pb.events()).items(),
                                 key=lambda kv: -kv[1][1])[:5]
     by_site = {}
     for e in pb.events():
@@ -2457,7 +2517,7 @@ def phase_grad_k1(d):
     reset_launches()
     index = {k: 0 if m is None else 3 * meta.material_names.index(m)
              for k, m in GRAD_K1_CHECKS}
-    print(f"[16/22 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
+    print(f"[16/23 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
           f"lanes, depth 4, 3870 tris + a point light, L2 against albedo "
           f"x 0.8] {clocks()}")
     with FirstCalls(isect, "intersect_flat") as first, \
@@ -2520,7 +2580,7 @@ def phase_grad_k2(d):
     check(meta.has_bvh, "phase 17's scene has no BVH")
     ball = 3 * meta.material_names.index("ball")
     reset_launches()
-    print(f"[17/22 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
+    print(f"[17/23 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
           f"{res}x{res} {ms}spp]")
     fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params, runs=1)
     profile_grad_step(loss_fn, params, fwd, bwd)
@@ -2603,7 +2663,7 @@ def phase_debug_rtc(d):
     check_image(gpu_img, (RTC_RES[1], RTC_RES[0], 3))
     stats = image_parity(gpu_img, cpu_img)
     check(stats["ok"], f".rtc card vs CPU image parity failed: {stats}")
-    print(f"[18/22 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
+    print(f"[18/23 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
           f"scene; .rtc scene {RTC_RES[0]}x{RTC_RES[1]} 4spp depth 3] the "
           f"CLI printed {len(printed.splitlines())} lines; {len(recs['card'])}"
           f" bounces on the card, {len(recs['cpu'])} on the CPU; bounce 0 "
@@ -2666,7 +2726,7 @@ def phase_distribution(d):
     else:
         refused = False
     check(refused, "a mesh listing the card twice was built")
-    print(f"[19/22 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
+    print(f"[19/23 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
           f"--devices 1 and {backend} world size {world} (--coordinator "
           f"localhost) write the plain render's EXR and checkpoint bit for "
           f"bit; a mesh listing the card twice is refused; K1 launches "
@@ -2903,7 +2963,7 @@ def phase_graph(flat_path, col_path, bdpt_path):
     smoke scene (K1, with the k sweep), the colonnade (K2) with
     RGK_BINNED off and all, and the BDPT box (K1)."""
     t_phase = time.perf_counter()
-    print(f"[20/22 queued loop: CUDA graphs vs the eager loop] "
+    print(f"[20/23 queued loop: CUDA graphs vs the eager loop] "
           f"{clocks()}")
     missing = [m for m in IF_NODE_METHODS
                if not hasattr(torch.cuda.CUDAGraph, m)]
@@ -3039,7 +3099,7 @@ def phase_lane_graph(d, col_path):
     -> {"K1": launches, "K2": launches, "K5": launches} of the phase's
     renders."""
     t_phase = time.perf_counter()
-    print(f"[21/22 per-sample path: one CUDA graph vs the eager bounce "
+    print(f"[21/23 per-sample path: one CUDA graph vs the eager bounce "
           f"loop] {clocks()}")
     sub = os.path.join(d, "lanes")
     os.makedirs(sub)
@@ -3093,36 +3153,75 @@ def k5_bounds(r, m, k):
     return fwd, bwd
 
 
+def k5_checks(table, idx, seed):
+    """K5 against its plain version on `table` and `idx`: the rows bit
+    for bit, the backward of a seeded gradient twice bit for bit and
+    within 1e-5 x max of a float64 sum.  -> (g, backward's max error,
+    largest entry of the float64 sum)."""
+    m, k = table.shape
+    r = idx.shape[0]
+    got = vm.take_rows(table, idx)
+    check(torch.equal(got.view(torch.int32),
+                      vm.take_rows_plain(table, idx).view(torch.int32)),
+          f"K5's rows of the [{m}, {k}] table differ from the plain "
+          f"version's")
+    g = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(r, k)).astype(np.float32)).to(CUDA)
+    a = vm.take_rows_backward(g, idx, m)
+    b = vm.take_rows_backward(g, idx, m)
+    check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+          f"K5's backward of the [{m}, {k}] table differs run to run")
+    ref = vm.take_rows_backward_plain(g.double(), idx, m)
+    top = float(ref.abs().max())
+    err = float((a.double() - ref).abs().max())
+    check(err <= 1e-5 * top, f"K5's backward of the [{m}, {k}] table "
+          f"{err} from the float64 sum (largest {top})")
+    return g, err, top
+
+
 def phase_take_rows(grad_path, gathers):
     """Phase 22: K5 against its plain version on phase 16's gathers (its
     material pack, point pack and areal rows with the ids of its first
-    gradient step, 1,048,576 lanes), and phase 16's step through K5
-    against the same step with plain indexing.  Its comparison launches
-    are not counted.  -> K5's two kernel entries (the material pack's
-    shape, 4 of the step's 6 fetches)."""
+    gradient step, 1,048,576 lanes) and on tables of K5_BOUNDARY rows
+    around the small-table route's bound (the same ids' count, drawn
+    with numpy), timed in turns with --parent's K5; and phase 16's step
+    through K5 against the same step with plain indexing.  Its
+    comparison launches are not counted.  -> K5's two kernel entries
+    (the material pack's shape, 4 of the step's 6 fetches)."""
     t_phase = time.perf_counter()
-    print(f"[22/22 K5 take_rows at phase 16's gathers] {clocks()}")
+    print(f"[22/23 K5 take_rows at phase 16's gathers] {clocks()}")
+    check(sorted(gathers) == [8, 15, 20], f"phase 16's K5 tables: widths "
+          f"{sorted(gathers)}")
+    table, idx = gathers[20]
+
+    def fetch():
+        vm.take_rows(table, idx)
+
+    def after_timing():
+        queued_ms(fetch)
+        return profile_window(fetch)
+
+    ways = {"bare": lambda: profile_window(fetch, warmup_step=False),
+            "after a warm-up step": lambda: profile_window(fetch),
+            "after a warm-up step, right after 20 calls timed behind a "
+            "sleeping kernel": after_timing}
+    def fetches(events):
+        return sum("gather_rows" in e.name for e in kernel_events(events))
+
+    seen = {way: sorted(collections.Counter(
+                fetches(window()) for _ in range(WINDOW_TRIES)).items())
+            for way, window in ways.items()}
+    print(f"    profiler windows of 3 forward calls at the material pack, "
+          f"{WINDOW_TRIES} of each kind, as (K5 forward kernels recorded, "
+          f"windows): "
+          + "; ".join(f"{way} {n}" for way, n in seen.items()))
     entries = []
     for k in sorted(gathers, reverse=True):
         table, idx = gathers[k]
         m, r = table.shape[0], idx.shape[0]
-        got = vm.take_rows(table, idx)
-        check(torch.equal(got.view(torch.int32),
-                          vm.take_rows_plain(table, idx).view(torch.int32)),
-              f"K5's rows of the [{m}, {k}] table differ from the plain "
-              f"version's")
-        g = torch.from_numpy(np.random.default_rng(k).normal(
-            size=(r, k)).astype(np.float32)).to(CUDA)
-        a = vm.take_rows_backward(g, idx, m)
-        b = vm.take_rows_backward(g, idx, m)
-        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
-              f"K5's backward of the [{m}, {k}] table differs run to run")
-        ref = vm.take_rows_backward_plain(g.double(), idx, m)
-        top = float(ref.abs().max())
-        err = float((a.double() - ref).abs().max())
-        check(err <= 1e-5 * top, f"K5's backward of the [{m}, {k}] table "
-              f"{err} from the float64 sum (largest {top})")
-        fwd = {"kernel": queued_ms(lambda: vm.take_rows(table, idx)),
+        g, err, top = k5_checks(table, idx, k)
+        fp, fk = ab_ms(lambda: vm.take_rows(table, idx), timer=queued_ms)
+        fwd = {"kernel": fk, "parent": fp,
                "plain": queued_ms(lambda: vm.take_rows_plain(table, idx)),
                "index_select": queued_ms(
                    lambda: torch.index_select(table, 0, idx))}
@@ -3133,8 +3232,9 @@ def phase_take_rows(grad_path, gathers):
         tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            bwd = {"kernel": queued_ms(
-                       lambda: vm.take_rows_backward(g, idx, m)),
+            bp, bk = ab_ms(lambda: vm.take_rows_backward(g, idx, m),
+                           timer=queued_ms)
+            bwd = {"kernel": bk, "parent": bp,
                    "plain": queued_ms(
                        lambda: vm.take_rows_backward_plain(g, idx, m),
                        runs=PLAIN_RUNS),
@@ -3151,14 +3251,14 @@ def phase_take_rows(grad_path, gathers):
         (fb, fby), (bb, bby) = k5_bounds(r, m, k)
         print(f"    [{m}, {k}] table, {r} ids ({int(idx.unique().numel())} "
               f"distinct): rows bit-equal; backward twice bit-equal, "
-              f"max|err| {err:.3g} of {top:.4g} (float64 sum); forward ms "
-              f"kernel {fwd['kernel']:.4f}, bound {fb:.4f} by {fby} (share "
-              f"{fb / fwd['kernel']:.3f}), plain {fwd['plain']:.4f}, "
-              f"index_select {fwd['index_select']:.4f}; backward ms kernel "
-              f"{bwd['kernel']:.4f}, bound {bb:.4f} by {bby} (share "
-              f"{bb / bwd['kernel']:.3f}), plain {bwd['plain']:.4f}, "
-              f"index_add_ {bwd['index_add_']:.4f}, index_put_(accumulate="
-              f"True) {bwd['index_put_']:.3f}, one-hot matmul (TF32 off) "
+              f"max|err| {err:.3g} of {top:.4g} (float64 sum); "
+              + "forward " + fmt_ab(fwd["parent"], fwd["kernel"], fb, 4)
+              + f" by {fby}, plain {fwd['plain']:.4f}, index_select "
+              f"{fwd['index_select']:.4f}; "
+              + "backward " + fmt_ab(bwd["parent"], bwd["kernel"], bb, 4)
+              + f" by {bby}, plain {bwd['plain']:.4f}, index_add_ "
+              f"{bwd['index_add_']:.4f}, index_put_(accumulate=True) "
+              f"{bwd['index_put_']:.3f}, one-hot matmul (TF32 off) "
               f"{bwd['onehot_matmul']:.4f}")
         print("    its kernels under torch.profiler, 3 calls (device us a "
               "launch): forward "
@@ -3173,17 +3273,37 @@ def phase_take_rows(grad_path, gathers):
             continue
         entries = [
             {**kernel_entry("take_rows_forward", K5_SOURCE, K5_REPLACES, 0,
-                            0.0, fwd["kernel"], fwd["plain"], fb, fby),
+                            0.0, fwd["kernel"], fwd["plain"], fb, fby,
+                            fwd["parent"]),
              "library_ms": fwd["index_select"],
              "library_call": "torch.index_select"},
             {**kernel_entry("take_rows_backward", K5_SOURCE, K5_REPLACES, 0,
-                            err, bwd["kernel"], bwd["plain"], bb, bby),
+                            err, bwd["kernel"], bwd["plain"], bb, bby,
+                            bwd["parent"]),
              "library_ms": bwd["index_add_"],
              "library_call": "torch.Tensor.index_add_",
              "library_ms_deterministic": {
                  "index_put_(accumulate=True)": bwd["index_put_"],
                  "onehot_matmul": bwd["onehot_matmul"]}}]
     check(len(entries) == 2, "phase 16 recorded no material-pack fetch")
+    rng = np.random.default_rng(22)
+    r = gathers[20][1].shape[0]
+    for m in K5_BOUNDARY:
+        table = torch.from_numpy(rng.normal(size=(m, 20)).astype(
+            np.float32)).to(CUDA)
+        idx = torch.from_numpy(rng.integers(0, m, r).astype(np.int32)).to(
+            CUDA)
+        g, err, top = k5_checks(table, idx, m)
+        fp, fk = ab_ms(lambda: vm.take_rows(table, idx), timer=queued_ms)
+        bp, bk = ab_ms(lambda: vm.take_rows_backward(g, idx, m),
+                       timer=queued_ms)
+        (fb, _), (bb, _) = k5_bounds(r, m, 20)
+        route = "small-table" if m <= K5_SMALL_ROWS else "grouped"
+        print(f"    [{m}, 20] table ({route} backward), {r} ids drawn "
+              f"uniformly: rows bit-equal; backward twice bit-equal, "
+              f"max|err| {err:.3g} of {top:.4g}; "
+              + "forward " + fmt_ab(fp, fk, fb, 4) + "; backward "
+              + fmt_ab(bp, bk, bb, 4))
     loss_fn, _, params, _, _ = grad_setup(grad_path, CUDA, GRAD_RES, GRAD_MS)
     timed_grads(loss_fn, params, runs=1)
     with plain_rows():
@@ -3219,11 +3339,53 @@ def phase_take_rows(grad_path, gathers):
     return entries
 
 
+def phase_grad_bdpt(d):
+    """Phase 23: bench.py's BDPT box (reverse 4) at full width through
+    make_loss_fn, eager and as one CUDA graph in turns.  -> K1 and K5
+    launches of its runs."""
+    t_phase = time.perf_counter()
+    res, ms = GRAD_RES, BDPT_GRAD_MS
+    sub = os.path.join(d, "grad_bdpt")
+    os.makedirs(sub)
+    path = write_bdpt(sub, "grad_bdpt", res, ms, BDPT_REVERSE)
+    loss_fn, held_loss, params, meta, make_graph = grad_setup(path, CUDA,
+                                                              res, ms)
+    check(not meta.has_bvh, "phase 23's scene has a BVH")
+    white = 3 * meta.material_names.index("white")
+    reset_launches()
+    print(f"[23/23 BDPT gradients via K1, bench.py's box {res}x{res} {ms}spp "
+          f"= {res * res * ms} lanes, reverse {BDPT_REVERSE}, depth 4, L2 "
+          f"against albedo x 0.8] {clocks()}")
+    # timed_grads fails on a non-finite gradient of any leaf.
+    fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params, runs=1)
+    g_loss, g_grads = graph_step_vs_eager("phase 23", make_graph, loss_fn,
+                                          params)
+    fd = central_diff(held_loss, params, "mat_diffuse", white)
+    g = fd_agrees(grads, "mat_diffuse", white, fd)
+    gg = fd_agrees(g_grads, "mat_diffuse", white, fd, route="graph")
+    launches, k2, k5 = dict(fi.launches), dict(ci.launches), dict(vm.launches)
+    check(launches["closest"] > 0 and launches["any"] > 0,
+          f"the BDPT gradient runs did not go through K1: {launches}")
+    check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
+    check(k5["forward"] > 0 and k5["backward"] > 0,
+          f"the BDPT gradient runs did not go through K5: {k5}")
+    check(peak <= GRAD_PEAK_LIMIT, f"peak memory {peak} bytes")
+    nonzero = sorted(k for k, v in grads.items() if float(v.abs().max()) > 0)
+    print(f"    eager: forward {fwd:.3f} ms, backward {bwd:.3f} ms, peak "
+          f"memory {peak / 2**30:.3f} GiB, loss {loss:.6g}, graph loss "
+          f"{float(g_loss):.6g}; every leaf's gradient finite (non-zero: "
+          f"{', '.join(nonzero)}); mat_diffuse[{white}] grad {g:.6g} "
+          f"(graph {gg:.6g}) central diff {fd:.6g}; K1 launches {launches}, "
+          f"K2 none, K5 launches {k5} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    return launches, k5
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="CSRC", help="an earlier version's "
-                    "csrc/ directory: its K1-K4 are timed in turns with "
-                    "this tree's in phases 3-5, 7, 9 and 10")
+                    "csrc/ directory: its K1-K5 are timed in turns with "
+                    "this tree's in phases 3-5, 7, 9, 10 and 22")
     ap.add_argument("--profile", action="store_true", help="phases 5, 7, "
                     "10 (RGK_BINNED=all) and 14 render once more under "
                     "torch.profiler and print the round's kernel time and "
@@ -3249,7 +3411,9 @@ def main(argv=None):
         entries += k2_entries
         small = phase_colonnade_parity(d)
         phase_binned_soup(dev, trees)
-        entries += phase_binned_colonnade(d, col_path, col_img)
+        binned_entries, k5_binned = phase_binned_colonnade(d, col_path,
+                                                           col_img)
+        entries += binned_entries
         phase_binned_small(d, *small)
         entries += phase_probes(dev)
         glass = phase_glass(d)
@@ -3263,15 +3427,17 @@ def main(argv=None):
                     col_path, os.path.join(d, "bdpt.json"))
         lanes = phase_lane_graph(d, col_path)
         k5_entries = phase_take_rows(grad_path, gathers)
+        k1_bdpt_grad, k5_bdpt_grad = phase_grad_bdpt(d)
     # The K1, K2 and K5 rows count every run of their kernel's paths,
     # each set to 0 just before the run and read just after it.
-    k5 = add_counts(k5_flat, k5_col, glass["K5"], k5_bdpt1, k5_bdpt2,
-                    k5_grad1, k5_grad2, k5_debug, k5_dist, lanes["K5"])
+    k5 = add_counts(k5_flat, k5_col, *k5_binned.values(), glass["K5"],
+                    k5_bdpt1, k5_bdpt2, k5_grad1, k5_grad2, k5_debug,
+                    k5_dist, lanes["K5"], k5_bdpt_grad)
     for e, key in zip(k5_entries, ("forward", "backward")):
         check(k5[key] > 0, f"no path launched K5's {key}")
         e["launches"] = k5[key]
     more = {"flat_intersect": (glass["K1"], k1_bdpt, k1_grad, k1_debug,
-                               k1_dist, lanes["K1"]),
+                               k1_dist, lanes["K1"], k1_bdpt_grad),
             "cluster_intersect": (glass["K2"], k2_bdpt, k2_grad,
                                   lanes["K2"])}
     for e in entries:

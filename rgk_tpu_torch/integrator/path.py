@@ -280,6 +280,44 @@ def _vertex_radiance(scene, meta, su: _Setup, light, sp, p0, active=None):
 
 # ----------------------------------------------------------- BDPT pieces
 
+# The stand-in of a dropped connection or splat (`_finite_ends`): the
+# other end at the origin, the light vertex one unit from it, seen
+# along _STAND_IN_DIR, in the axis frame, lit by nothing.  No component
+# is 0, so no axis-aligned shading frame sees that direction grazing.
+_STAND_IN_DIR = (2 / 7, 3 / 7, 6 / 7)
+_STAND_IN = dict(light_n=(0.0, 0.0, 1.0), t_f=(1.0, 0.0, 0.0),
+                 b_f=(0.0, 1.0, 0.0), vr=(-3 / 7, 2 / 7, 6 / 7),
+                 uv=(0.5, 0.5))
+
+
+def _finite_ends(keep, lv, other):
+    """The light vertex `lv` ([..., d] fields as in lrec) and the point
+    `other` at the far end of its segment [..., 3], with every lane
+    where `keep` is False swapped for the finite stand-in above.
+
+    A dropped lane's vertex may lie at a miss's far point (|pos| ~ 3e38),
+    where the geometry term and the BxDF factors of a connection or a
+    splat are not finite.  A `where` on the product alone passes such a
+    lane a zero gradient, which the product's backward multiplies by the
+    other factors: 0 x NaN = NaN, and the NaN reaches the tables.  (The
+    reference does exactly that: rgk_tpu's BDPT gradients are NaN.)
+    Swapping the inputs first keeps every factor finite; a kept lane
+    computes on its own values, bit for bit.  The constants are made on
+    the device: a host copy would be a sync, which a capture refuses."""
+    k = keep[..., None]
+    one = lv["pos"][..., 0]
+
+    def const(values):
+        return torch.stack([torch.full_like(one, v) for v in values], dim=-1)
+
+    out = dict(lv)
+    out["pos"] = torch.where(k, lv["pos"], -const(_STAND_IN_DIR))
+    for f, values in _STAND_IN.items():
+        out[f] = torch.where(k, lv[f], const(values))
+    out["light_here"] = torch.where(k, lv["light_here"], 0.0)
+    return out, torch.where(k, other, 0.0)
+
+
 def _trace_light_subpaths(scene, meta, settings, cam, ctx, su: _Setup,
                           light, lightdir2, reverse: int):
     """One `reverse`-vertex light subpath per lane, every vertex
@@ -323,18 +361,23 @@ def _trace_light_subpaths(scene, meta, settings, cam, ctx, su: _Setup,
     vis_cam = isect.visibility(
         scene, su.intersect, lpos.reshape(-1, 3), campos.reshape(-1, 3),
         active=lvalid.reshape(-1)).reshape(lvalid.shape)
+    # An invalid or hidden vertex is dropped whatever q is; its inputs
+    # are swapped for the finite stand-in, so that no non-finite q gets a
+    # NaN gradient from the `where` below.
+    lv, campos = _finite_ends(lvalid & vis_cam, lrec, campos)
+    lpos = lv["pos"]
     direction = vm.normalize(lpos - campos)           # camera -> vertex
-    frame = (lrec["light_n"], lrec["t_f"], lrec["b_f"])
+    frame = (lv["light_n"], lv["t_f"], lv["b_f"])
     f_cam = bxdf_ops.eval_bxdf(
-        scene, su.mat_pack, lrec["mat_id"].reshape(-1),
-        vm.to_local(*frame, lrec["vr"]).reshape(-1, 3),
+        scene, su.mat_pack, lv["mat_id"].reshape(-1),
+        vm.to_local(*frame, lv["vr"]).reshape(-1, 3),
         vm.to_local(*frame, -direction).reshape(-1, 3),
-        lrec["uv"].reshape(-1, 2), su.tables, has_mix=meta.has_mix,
+        lv["uv"].reshape(-1, 2), su.tables, has_mix=meta.has_mix,
         has_ltc=meta.has_ltc, has_textures=meta.has_textures,
     ).reshape(lpos.shape)
-    g_cam = (torch.clamp(vm.dot(lrec["light_n"], -direction), min=0.0)
+    g_cam = (torch.clamp(vm.dot(lv["light_n"], -direction), min=0.0)
              / torch.clamp(vm.distance2(campos, lpos), min=1e-12))
-    q = lrec["light_here"] * f_cam * g_cam[..., None]
+    q = lv["light_here"] * f_cam * g_cam[..., None]
     x2, y2, in_view = coords_from_direction(cam, direction)
     splat_ok = (lvalid & vis_cam & in_view & (g_cam >= 1e-5)
                 & torch.isfinite(q).all(dim=-1))
@@ -366,9 +409,13 @@ def _connect_to_light_vertex(scene, meta, su: _Setup, lv, sp, p0, act):
     l_valid, l_pos = lv["valid"], lv["pos"]
     vis_c = isect.visibility(scene, su.intersect, l_pos, sp.pos,
                              active=l_valid & act)
-    light_to_p = vm.normalize(sp.pos - l_pos)
+    # `act` is part of the test: the visibility query leaves an inactive
+    # lane visible, and the caller drops that lane's sum.
+    keep = l_valid & act & vis_c
+    lv, p_pos = _finite_ends(keep, lv, sp.pos)
+    l_pos, l_frame = lv["pos"], (lv["light_n"], lv["t_f"], lv["b_f"])
+    light_to_p = vm.normalize(p_pos - l_pos)
     p_to_light = -light_to_p
-    l_frame = (lv["light_n"], lv["t_f"], lv["b_f"])
     f_light = bxdf_ops.eval_bxdf(
         scene, su.mat_pack, lv["mat_id"], vm.to_local(*l_frame, light_to_p),
         vm.to_local(*l_frame, lv["vr"]), lv["uv"], su.tables,
@@ -379,9 +426,9 @@ def _connect_to_light_vertex(scene, meta, su: _Setup, lv, sp, p0, act):
         _to_local(sp, p_to_light), sp.uv, su.tables, has_mix=meta.has_mix,
         has_ltc=meta.has_ltc, has_textures=meta.has_textures, p0=p0)
     g_c = (torch.abs(vm.dot(sp.light_n, p_to_light))
-           / torch.clamp(vm.distance2(l_pos, sp.pos), min=1e-12))
+           / torch.clamp(vm.distance2(l_pos, p_pos), min=1e-12))
     term = lv["light_here"] * f_light * f_point * g_c[..., None]
-    return torch.where((l_valid & vis_c)[..., None], term, 0.0)
+    return torch.where(keep[..., None], term, 0.0)
 
 
 # One row of floats per (lane, sample, light vertex): valid, pos3,

@@ -95,8 +95,9 @@ def take_rows_backward(g, idx, m):
     """The table's gradient from the rows' gradient `g` [R, K] float32
     and the int32 ids [R]: [m, K], row j the sum of g's rows whose id is
     j (ids outside [0, m) add nothing).  K5 on a CUDA tensor, summing in
-    an order fixed by R and the ids, so two runs agree bit for bit;
-    `take_rows_backward_plain` on a CPU tensor."""
+    an order fixed by R, m, K, the ids and whether `g` is 16-byte
+    aligned, so two runs agree bit for bit; `take_rows_backward_plain`
+    on a CPU tensor."""
     if g.device.type == "cpu":
         return take_rows_backward_plain(g, idx, m)
     if g.device.type != "cuda":

@@ -13,9 +13,19 @@ from . import vecmath as vm
 TWO_PI = 2.0 * math.pi
 
 
+def _sqrt_at_zero(x):
+    """sqrt(x) for x >= 0, bit for bit (sqrt(+-0) = +-0), whose gradient
+    at 0 is 1 instead of infinite.  A sample rescaled by a parameter
+    (the lobe choice's `decide_and_rescale`) reaches 0 exactly on some
+    lanes; where that lane's lobe is dropped its gradient is 0, and
+    0 x inf = NaN would reach the parameter."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), x)
+
+
 def to_disc_uniform(sample):
     """[..., 2] -> uniform unit disc, in the reference's (sin, cos) order."""
-    r = torch.sqrt(sample[..., 0])
+    r = _sqrt_at_zero(sample[..., 0])
     a = sample[..., 1] * TWO_PI
     return torch.stack([r * torch.sin(a), r * torch.cos(a)], dim=-1)
 

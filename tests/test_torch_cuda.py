@@ -1153,6 +1153,88 @@ def test_take_rows_backward_is_deterministic(cuda_device, m, k, one_row, r):
     assert float((a.cpu().double() - ref).abs().max()) <= tol
 
 
+def _offset(x, words):
+    """`x` copied into a fresh buffer `words` floats in: contiguous, and
+    not 16-byte aligned for an odd `words`."""
+    buf = torch.empty(x.numel() + words, dtype=x.dtype, device=x.device)
+    view = buf[words:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("r", [37, (1 << 20) + 3])
+@pytest.mark.parametrize("k", [4, 8, 13, 15, 20, 24, 45])
+@pytest.mark.parametrize("m,aligned", [(5, True), (9, True), (64, True),
+                                       (64, False)])
+def test_take_rows_forward_routes(cuda_device, m, k, r, aligned):
+    """K5's forward on the widths it fixes at compile time (4, 8, 15, 20,
+    24) and others (13, 45), 16-byte and word units, staged tables and a
+    [64, k] one read from device memory (also from a table that is not
+    16-byte aligned): bit-equal to take_rows_plain, float32 and int32,
+    ids outside [0, M) on every 9th lane."""
+    table, idx, _ = _take_case(cuda_device, m, k, r, seed=m * k + r)
+    idx[::9] = torch.where(idx[::9] % 2 == 0, -1, m)
+    for t in (table, (table * 1000).to(torch.int32)):
+        t = t if aligned else _offset(t, 1)
+        got = vm.take_rows(t, idx)
+        want = vm.take_rows_plain(t.cpu(), idx.cpu())
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.parametrize("r", [1, 4099, 1 << 20])
+@pytest.mark.parametrize("k", [8, 15, 20, 45])
+@pytest.mark.parametrize("m", [1, 5, 8, 9])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_take_rows_backward_routes(cuda_device, m, k, r, aligned):
+    """K5's backward either side of the small-table bound (8 rows), with
+    16-byte loads and (g not 16-byte aligned) the word stream, R no
+    multiple of a tile, ids outside [0, M) on every 11th lane: two runs
+    bit-equal, within 1e-5 x max|ref| of the float64 sum."""
+    _, idx, g = _take_case(cuda_device, m, k, r, seed=7 * r + m + k)
+    idx[::11] = torch.where(idx[::11] % 2 == 0, -1, m + 2)
+    if not aligned:
+        g = _offset(g, 1)
+    a = vm.take_rows_backward(g, idx, m)
+    b = vm.take_rows_backward(g, idx, m)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ref = vm.take_rows_backward_plain(g.double().cpu(), idx.cpu(), m)
+    tol = 1e-5 * float(ref.abs().max())
+    assert float((a.cpu().double() - ref).abs().max()) <= tol
+
+
+def test_bdpt_value_and_grad_graph_equals_eager(cuda_device, tmp_path):
+    """The BDPT box (16x16, 4 spp, reverse 2, 1024 lanes) through
+    diff.graph.make_value_and_grad against the eager step: every leaf's
+    gradient finite, and the graph's loss and gradients equal to the
+    eager step's bit for bit (K5's backward sums in a fixed order)."""
+    from rgk_tpu_torch.diff.graph import make_value_and_grad
+    from rgk_tpu_torch.diff.params import extract_params, make_loss_fn
+    from rgk_tpu_torch.scene import config as tconfig
+
+    path = scenes.write_config(tmp_path, scenes.box_config(
+        res=16, ms=4, reverse=2), "bdpt_grad.json")
+    cfg = tconfig.load_config(path)
+    arrays, meta, _ = tconfig.build_scene(cfg, cuda_device)
+    pix = torch.arange(256)
+    args = (arrays, meta, cfg.settings, cfg.get_camera(),
+            (pix % 16).to(torch.int32).repeat(4),
+            (pix // 16).to(torch.int32).repeat(4),
+            torch.arange(4).repeat_interleave(256), 3, torch.zeros(1024, 3))
+    fn, loss_fn = make_value_and_grad(*args), make_loss_fn(*args)
+    params = extract_params(arrays)
+    loss, grads = fn(params)
+    want_l = loss_fn(params)
+    want = dict(zip(params, torch.autograd.grad(
+        want_l, list(params.values()), allow_unused=True)))
+    assert torch.equal(loss, want_l.detach())
+    for k, w in want.items():
+        assert (grads[k] is None) == (w is None), k
+        if w is not None:
+            assert bool(torch.isfinite(w).all()), k
+            assert torch.equal(grads[k], w), k
+
+
 def test_take_rows_autograd_on_the_card(cuda_device):
     """Under autograd a table of at most 1024 rows launches K5 forward
     and backward; the gradient is K5's backward of the rows' gradient."""

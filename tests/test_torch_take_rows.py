@@ -124,6 +124,40 @@ def test_table_gradient_matches_jax_vjp(m, k):
                                atol=1e-5 * np.abs(want).max())
 
 
+# K5's dispatch on the card: the backward takes its small-table route up
+# to SMALL_ROWS rows (16-byte loads when the row width allows, else a
+# word stream), the grouped route above; the forward fixes the widths the
+# renderer passes at compile time and reads others at run time.
+SMALL_ROWS = 8
+
+
+@pytest.mark.parametrize("k", [8, 15, 20, 45])
+@pytest.mark.parametrize("m", [SMALL_ROWS - 1, SMALL_ROWS, SMALL_ROWS + 1])
+def test_rows_and_gradient_at_the_dispatch_shapes(m, k):
+    """Tables either side of the small-table bound, widths of 16-byte
+    rows (8, 20) and of others (15, 45), 4099 ids (no multiple of a warp
+    or a tile), one in 13 outside [0, M): the rows against the
+    reference's bit for bit, and the table's gradient within 1e-5 x its
+    largest entry of a float64 index_add_."""
+    rng = np.random.default_rng(1000 * m + k)
+    r = 4099
+    table = _table(rng, m, k, "f32")
+    idx = rng.integers(0, m, r).astype(np.int32)
+    idx[::13] = np.where(np.arange(idx[::13].size) % 2 == 0, -1, m + 3)
+    t = torch.from_numpy(table).requires_grad_(True)
+    rows = tvm.take_rows(t, torch.from_numpy(idx))
+    np.testing.assert_array_equal(rows.detach().numpy(),
+                                  _ref_rows(table, idx))
+    g = rng.normal(size=(r, k)).astype(np.float32)
+    (got,) = torch.autograd.grad(rows, [t], torch.from_numpy(g))
+    ok = (idx >= 0) & (idx < m)
+    want = torch.zeros((m, k), dtype=torch.float64).index_add_(
+        0, torch.from_numpy(idx[ok]).long(),
+        torch.from_numpy(g[ok]).double()).numpy()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
 def test_gradcheck_on_the_plain_route():
     rng = np.random.default_rng(23)
     table = torch.from_numpy(rng.normal(size=(6, 5))).requires_grad_(True)
