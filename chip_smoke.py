@@ -138,30 +138,42 @@ the first that fails:
    --num-processes 1 --process-id 0` (NCCL, world size 1): EXRs and
    checkpoints equal bit for bit; a mesh that lists the card twice is
    refused;
-20. the queued loop as CUDA graphs against the eager loop
-   (`EagerDriver`) on phase 5's flat scene, phase 7's colonnade with
-   RGK_BINNED off and all, and phase 14's BDPT box: block 0 bit-equal
-   (BDPT: eye radiance; splats within rtol 1e-5), a round's image equal
-   (BDPT within rtol 1e-5), syncs a block under
-   set_sync_debug_mode("warn") (the graph route's must be its end-test
-   reads, at most iterations / k + 1 a block), replays and replays past
-   the end, capture ms, graph pool bytes and peak memory across the
-   capture, round wall time and rays/s in paired turns (graph, eager,
-   eager, graph; each driver's first round dropped), and the busy share
-   of one round each under torch.profiler; on the flat scene also the
-   block's time with the end test read every k = 1, 2, 4, 8 replays; and
-   whether the card's torch binds conditional graph nodes (the end test
-   stays on the host while it does not);
-21. the per-sample path as one CUDA graph: `render_image_round`
-   through a `LaneGraph` against `render_image_round_eager` (the host
-   bounce loop) on phase 5's flat scene at 512x512, 4 spp (1,048,576
-   lanes, K1) and on phase 7's colonnade (960x540, 8 spp, 4,147,200
-   lanes, K2): the build apart, round 1 with the syncs of each route
-   counted (the graph's must be 0) and the images equal (bit for bit),
-   and equal to an eager round 1 with plain indexing in place of
-   `take_rows` (the route before K5), rounds 2-3 in turns (graph, eager,
-   eager, graph), one round of each under torch.profiler, graph pool and
-   peak memory;
+20. the queued loop as one CUDA graph with a conditional WHILE node
+   (`csrc/graph_while.cu`, the CUDA driver's version printed) against
+   the eager loop (`EagerDriver`) and against the host route (the step
+   replayed k times between host reads of the end test) on phase 5's
+   flat scene, phase 7's colonnade with RGK_BINNED off and all, and
+   phase 14's BDPT box: block 0 bit-equal to the eager loop's and to
+   the host route's at k = 4 (BDPT: eye radiance and rays; splats within
+   rtol 1e-5), the same iterations, no end-test read and no step past
+   the end; a round's image equal to the eager loop's (BDPT within rtol
+   1e-5); syncs a block under set_sync_debug_mode("warn") (none on the
+   WHILE graph); WHILE launches, iterations and condition-setter runs,
+   capture ms, graph pool bytes and peak memory across the capture,
+   round wall time and rays/s in paired turns (graph, eager, eager,
+   graph; each driver's first round dropped), the busy share of one
+   block each under torch.profiler, and block 0 timed through the WHILE
+   graph and the host route at k = 1, 4, 8 in turns; then the condition
+   setter alone: a WHILE graph around a 3-kernel body counting to 1000
+   against the same body replayed with a host read after each;
+21. the per-sample path as one CUDA graph with a WHILE node:
+   `render_image_round` through a `LaneGraph` against
+   `render_image_round_eager` (the host bounce loop) on phase 5's flat
+   scene at 512x512, 4 spp (1,048,576 lanes, K1), on phase 7's colonnade
+   (960x540, 8 spp, 4,147,200 lanes, K2) and on the flat scene at the
+   JSON defaults (recursion-max 40, russian 0.74; 1,048,576 lanes): the
+   build apart, the prologue's, one-bounce body's and epilogue's nodes
+   against the capture of every bounce, the route before the WHILE
+   node (capture ms, graph pool, nodes), round 1 with the syncs of
+   each route counted (the graph's must be 0), the bounces the WHILE
+   graph ran (the device counter) equal to the host loop's, and the
+   images equal (bit for bit), and
+   equal to an eager round 1 with plain indexing in place of
+   `take_rows` (the route before K5), rounds 2-3 in turns (graph,
+   eager, eager, graph), one round of each under torch.profiler, graph
+   pool and peak memory; then the default-depth scene's queued round at
+   16 spp as phase 20 runs its scenes, and its card image against the
+   port's CPU image at 64x64, 4 spp;
 22. K5 (`ops/vecmath.take_rows`, `csrc/take_rows.cu`) at phase 16's
    gathers: its material pack [NM, 20], point pack [1, 8] and areal rows
    [NA, 15] with the ids of phase 16's first step (1,048,576 lanes): the
@@ -189,11 +201,13 @@ the first that fails:
    central difference (eager and graph gradients, eps 1e-3, rtol 0.03),
    forward and backward ms, peak memory, K1 and K5 launches.
 
-Every CLI render on the card runs the queued loop as CUDA graphs
-(`rgk_tpu_torch/integrator/graph.py`): the render phases print the
-runners' counters (captures, pool, iterations, replays, end-test
-reads), and a kernel's launch count includes its launches in graph
-replays (each capture's launches times its replays).
+Every CLI render on the card runs the queued loop as one CUDA graph
+with a WHILE node a block (`rgk_tpu_torch/integrator/graph.py`): the
+render phases print the runners' counters (captures, pool, WHILE
+launches, iterations, condition-setter runs, end-test reads), and a
+kernel's launch count includes its launches in graph replays and WHILE
+bodies (each capture's launches times its runs, read from the card's
+counters before the count is read).
 
 The colonnade is composed from tools/make_bigscene's functions with its
 budget split; its stone texture is written as the linear EXR that the
@@ -227,7 +241,8 @@ to 0 just before it and read just after: K1 the sum of phases 5, 13,
 14, 16-19, 21 and 23, K2 of phases 7, 13, 15, 17 and 21, K3/K4 of the
 two binned renders, the BDPT splat-query rows those of phases 14 and
 15, the probes their tool runs, K5 of phases 5, 7, 10, 13-19, 21 and
-23, phase 22's comparisons left out; ms, plain_ms,
+23, phase 22's comparisons left out, the condition setter its runs in
+phases 20 and 21's WHILE-graph rounds; ms, plain_ms,
 bound_ms, bound_by, share, library_ms null but for K5's rows, parent_ms
 for K1-K5 with --parent), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
@@ -275,6 +290,7 @@ from rgk_tpu_torch.io import gamma_decode, read_exr, write_exr  # noqa: E402
 from rgk_tpu_torch.ops import binned_intersect as bi  # noqa: E402
 from rgk_tpu_torch.ops import cluster_intersect as ci  # noqa: E402
 from rgk_tpu_torch.ops import flat_intersect as fi  # noqa: E402
+from rgk_tpu_torch.ops import graph_while as gw  # noqa: E402
 from rgk_tpu_torch.ops import intersect as isect  # noqa: E402
 from rgk_tpu_torch.ops import sampler as smp  # noqa: E402
 from rgk_tpu_torch.ops import vecmath as vm  # noqa: E402
@@ -296,6 +312,9 @@ K4_SOURCE = "rgk_tpu_torch/csrc/binned_sweep.cu"
 K4_REPLACES = "rgk_tpu/ops/pallas_binned.py:323"
 K5_SOURCE = "rgk_tpu_torch/csrc/take_rows.cu"
 K5_REPLACES = "rgk_tpu/ops/vecmath.py:39"
+SETTER_SOURCE = "rgk_tpu_torch/csrc/graph_while.cu"
+SETTER_REPLACES = "rgk_tpu/integrator/path.py:344"  # the queued loop's cond
+SETTER_RUNS = []  # the setter's runs in phases 20 and 21, counted from 0
 PROBE_SOURCE = "rgk_tpu_torch/csrc/probes.cu"
 P1_REPLACES = "tools/prof_smem_probe.py:23"
 P2_REPLACES = "tools/prof_sync.py:24"
@@ -352,13 +371,14 @@ K2_GRAD_RES, K2_GRAD_MS = 256, 4
 DEBUG_PIXEL = (256, 256)
 RTC_RES = (96, 72)
 DIST_RES = 64
-GRAPH_KS = (1, 2, 4, 8)  # end-test read intervals timed in phase 20
-# What the port would need of torch to move the loops' tests onto the
-# device (conditional graph nodes); phase 20 prints whether it has them.
-IF_NODE_METHODS = ("get_currently_capturing_graph",
-                   "begin_capture_to_if_node",
-                   "end_capture_to_conditional_node")
+HOST_KS = (1, 4, 8)  # the host route's end-test read intervals, phase 20
+HOST_K = 4           # the host route block 0 is held bit-equal to
+ROUTE_CYCLES = 2     # turns of (device, k ascending, k descending, device)
+SETTER_ITERS = 1000  # iterations of the condition setter's own loop
+SETTER_BYTES = 17    # a run reads the flag (1) and the counter (8), writes 8
 LANE_MS = 4  # phase 21's flat scene: 512x512 x 4 spp = 1,048,576 lanes
+# The config's defaults (scene/config.py), which phase 21's scene keeps.
+DEFAULT_DEPTH, DEFAULT_RUSSIAN = 40, 0.74
 K5_SMALL_ROWS = 8       # csrc/take_rows.cu kSmallRows: the small-table route
 K5_BOUNDARY = (8, 9)    # phase 22's tables on either side of it
 WINDOW_TRIES = 10       # profiler windows: phase 22's of each kind, and
@@ -400,7 +420,15 @@ def reset_launches():
     bi.launches.update(walk=0, sweep=0)
     p1.launches.update(smem=0, unpack=0, row_copy=0)
     p2.launches.update(sync=0, fetch=0)
+    gw.launches.update(setter=0)
     tgraph.reset_stats()
+
+
+def launched(module):
+    """A copy of `module.launches` after `tgraph.settle()` has added the
+    launches of the WHILE graphs' bodies (read from the devices)."""
+    tgraph.settle()
+    return dict(module.launches)
 
 
 def check_k5_render(k5, what):
@@ -1047,6 +1075,48 @@ class EagerDriver(RenderDriver):
         self.stats.rounds += 1
 
 
+class HostReadGraph(tgraph.QueuedGraph):
+    """The queued loop as it ran before the WHILE node, for phase 20's
+    comparison and the card tests: the captured step replayed `k` times
+    between two host reads of the end test, one sync each.  The step
+    also writes the flag and a count of the steps that found the loop
+    live into one int64 [2] device buffer, read together, so a block's
+    `iterations` (and `overshoot`) cost no sync of their own."""
+
+    def __init__(self, *args, k: int, **kw):
+        if int(k) < 1:
+            raise ValueError(f"k must be at least 1, got {k}")
+        self.k = int(k)
+        super().__init__(*args, **kw)
+
+    def _graphs_for(self, seed):
+        self.probe = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._build(lambda: self._warm(seed),
+                    ([("light", self._light)] if self.bdpt else [])
+                    + [("step", self._step)])
+
+    def _step(self):
+        self.probe[1].add_(self.live)
+        super()._step()
+        self.probe[0].copy_(self.live)
+
+    def block(self, px, py, sample0, seed, cam):
+        with torch.no_grad(), self._device():
+            self._load(px, py, sample0, seed, cam)
+            self.probe.zero_()
+            if self.bdpt:
+                self._replay("light")
+            n = reads = 0
+            live = True
+            while live:
+                self._replay("step", self.k)
+                n += self.k
+                reads += 1
+                live, work = self.probe.tolist()  # the end test: one sync
+        tgraph._bump(blocks=1, steps=n, replays=n, flag_reads=reads,
+                     iterations=work, light_replays=int(self.bdpt))
+
+
 def make_driver(scene, eager=False):
     """The CLI's driver (seed 42, halton, blocks of 2^20 lanes) on a
     `load_scene` scene, or its EagerDriver."""
@@ -1121,18 +1191,19 @@ class GatherCalls(FirstCalls):
 
 def graph_line():
     """The queued-loop runners' counters since the last reset_launches():
-    what a render's blocks did as CUDA graphs."""
+    what a render's blocks did as CUDA graphs with a WHILE node."""
     st = tgraph.read_stats()
     return (f"queued loop as CUDA graphs: {st['runners']} runner(s), "
             f"{st['captures']} graphs captured in {st['capture_ms']:.1f} ms, "
             f"graph pool {st['pool_bytes'] / 2**20:.1f} MiB, max memory "
             f"allocated {st['peak_before'] / 2**30:.3f} -> "
             f"{st['peak_after'] / 2**30:.3f} GiB across the capture; "
-            f"{st['blocks']} blocks, {st['iterations']} iterations, "
-            f"{st['replays']} step replays + {st['warmup_steps']} warm-up "
-            f"steps ({st['overshoot']} past the end), "
-            f"{st['light_replays']} light-phase replays, {st['flag_reads']} "
-            f"end-test reads")
+            f"{st['blocks']} blocks, {st['while_launches']} WHILE-graph "
+            f"launches, {st['iterations']} iterations, {st['replays']} "
+            f"steps run + {st['warmup_steps']} warm-up steps "
+            f"({st['overshoot']} past the end), {st['setter_runs']} "
+            f"condition-setter runs, {st['light_replays']} light phases, "
+            f"{st['flag_reads']} end-test reads on the host")
 
 
 def profiled_round(cfg_path, out_dir, module, name, kernels_, binned=None):
@@ -1201,8 +1272,8 @@ def phase_render(d):
         t0 = time.perf_counter()
         img, rays = render(path, out_dir)
         wall = time.perf_counter() - t0
-    launches, k2 = dict(fi.launches), dict(ci.launches)
-    k5 = dict(vm.launches)
+    launches, k2 = launched(fi), launched(ci)
+    k5 = launched(vm)
     check(img.shape == (res, res, 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()), "the image has non-finite pixels")
     check(float(img.mean()) > 0.0, "the image is black")
@@ -1291,8 +1362,8 @@ def phase_colonnade(d):
             t1 = time.perf_counter()
     finally:
         cli.build_scene = build_scene
-    launches, k1 = dict(ci.launches), dict(fi.launches)
-    k5 = dict(vm.launches)
+    launches, k1 = launched(ci), launched(fi)
+    k5 = launched(vm)
     check(img.shape == (res[1], res[0], 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()), "the image has non-finite pixels")
     check(float(img.mean()) > 0.0, "the image is black")
@@ -1727,11 +1798,12 @@ def render_binned(path, out_dir, mode):
         t0 = time.perf_counter()
         img, rays = render(path, out_dir)
         t1 = time.perf_counter()
-    launches = {"K1": dict(fi.launches), "K2": dict(ci.launches),
-                "K3/K4": dict(bi.launches), "K5": dict(vm.launches)}
+    launches = {"K1": launched(fi), "K2": launched(ci),
+                "K3/K4": launched(bi), "K5": launched(vm)}
+    st = tgraph.read_stats()
     return img, rays, launches, {
         "wall": t1 - t0, "round": t1 - front.first_t,
-        "steps": tgraph.read_stats()["steps"], "args": front.args}
+        "steps": st["steps"] + st["warmup_steps"], "args": front.args}
 
 
 def phase_binned_colonnade(d, path, k2_img):
@@ -1774,7 +1846,7 @@ def phase_binned_colonnade(d, path, k2_img):
               f"(first query to EXR) {st['round']:.3f} s, {rays} extension "
               f"rays, {rays / st['round']:.1f} rays/s; launches K3 "
               f"{k34['walk']}, K4 {k34['sweep']}, K2 {k2} ({steps} steps of "
-              f"the queued loop), K5 {k5[mode]}; image vs K2's: max|diff| "
+              f"the queued loop, warm-up included), K5 {k5[mode]}; image vs K2's: max|diff| "
               f"{stats['max_abs_diff']:.3g}, corr {stats['corr']:.6f}, "
               f"outlier pixels {stats['outlier_pixels']}")
         print(f"    {graph_line()}")
@@ -1843,6 +1915,7 @@ def phase_binned_small(d, path, cpu):
     reset_launches()
     with binned_mode("all"):
         gpu, _ = render(path, os.path.join(d, "col_gpu_binned"))
+    tgraph.settle()
     check(bi.launches["walk"] > 0 and bi.launches["sweep"] > 0
           and ci.launches["any"] == 0 and fi.launches["closest"] == 0,
           f"the small colonnade did not go through K3/K4: {bi.launches}, "
@@ -1850,8 +1923,8 @@ def phase_binned_small(d, path, cpu):
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"binned colonnade card vs CPU parity failed: {stats}")
     print(f"[11/23 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
-          f"4spp depth 2] launches K3/K4 {dict(bi.launches)}, K2 "
-          f"{dict(ci.launches)}; corr {stats['corr']:.6f} trimmed "
+          f"4spp depth 2] launches K3/K4 {launched(bi)}, K2 "
+          f"{launched(ci)}; corr {stats['corr']:.6f} trimmed "
           f"{stats['corr_trim']:.6f} mean rel diff "
           f"{stats['mean_rel_diff']:.3g} max|diff| "
           f"{stats['max_abs_diff']:.3g} outlier pixels "
@@ -1982,8 +2055,8 @@ def phase_glass(d):
             t0 = time.perf_counter()
             img, rays = render(path, os.path.join(d, f"glass_{kernel}_out"))
             wall = time.perf_counter() - t0
-        k1, k2 = dict(fi.launches), dict(ci.launches)
-        k5 = dict(vm.launches)
+        k1, k2 = launched(fi), launched(ci)
+        k5 = launched(vm)
         check_image(img, (FLAT_RES, FLAT_RES, 3))
         used, unused = (k1, k2) if kernel == "K1" else (k2, k1)
         check(used["closest"] > 0 and used["any"] > 0
@@ -2032,8 +2105,8 @@ def phase_bdpt_k1(d):
         t0 = time.perf_counter()
         img, rays = render(path, os.path.join(d, "bdpt_out"))
         t1 = time.perf_counter()
-    launches, k2 = dict(fi.launches), dict(ci.launches)
-    k5 = dict(vm.launches)
+    launches, k2 = launched(fi), launched(ci)
+    k5 = launched(vm)
     check_image(img, (BDPT_RES, BDPT_RES, 3))
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the BDPT render did not go through K1: {launches}")
@@ -2109,8 +2182,8 @@ def phase_bdpt_k2(d):
         t0 = time.perf_counter()
         img, rays = render(path, os.path.join(d, "bdpt_k2_out"))
         t1 = time.perf_counter()
-    launches, k1 = dict(ci.launches), dict(fi.launches)
-    k5 = dict(vm.launches)
+    launches, k1 = launched(ci), launched(fi)
+    k5 = launched(vm)
     check_image(img, (K2_BDPT_RES, K2_BDPT_RES, 3))
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the BDPT render did not go through K2: {launches}")
@@ -2534,8 +2607,8 @@ def phase_grad_k1(d):
                            central_diff(loss_fn, params, k, i)))
         before, after = sgd_step_lowers(loss_fn, params, grads)
     rough_g, rough_fd, rough_cpu = grad_roughness(sub)
-    launches, k2 = dict(fi.launches), dict(ci.launches)
-    k5 = dict(vm.launches)
+    launches, k2 = launched(fi), launched(ci)
+    k5 = launched(vm)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the gradient runs did not go through K1: {launches}")
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
@@ -2590,8 +2663,8 @@ def phase_grad_k2(d):
     g = fd_agrees(grads, "mat_diffuse", ball, fd)
     gg = fd_agrees(g_grads, "mat_diffuse", ball, fd, route="graph")
     check(abs(g) > 1e-7, "no gradient reaches the sphere's albedo")
-    launches, k1 = dict(ci.launches), dict(fi.launches)
-    k5 = dict(vm.launches)
+    launches, k1 = launched(ci), launched(fi)
+    k5 = launched(vm)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the gradient runs did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
@@ -2641,7 +2714,7 @@ def phase_debug_rtc(d):
                            / np.maximum(np.abs(cpu["pos"]), 1e-30)))
     check(np.allclose(gpu["pos"], cpu["pos"], rtol=1e-4, atol=0.0),
           f"bounce 0 position: card {gpu['pos']}, CPU {cpu['pos']}")
-    debug_k1, debug_k5 = dict(fi.launches), dict(vm.launches)
+    debug_k1, debug_k5 = launched(fi), launched(vm)
     check_k5_render(debug_k5, "the debug replay")
 
     rtc_dir = os.path.join(d, "rtc")
@@ -2650,7 +2723,7 @@ def phase_debug_rtc(d):
     reset_launches()
     check(cli.main([rtc, "-q", "-D", os.path.join(rtc_dir, "gpu")]) == 0,
           "the CLI failed on the .rtc scene")
-    rtc_k1, rtc_k5 = dict(fi.launches), dict(vm.launches)
+    rtc_k1, rtc_k5 = launched(fi), launched(vm)
     rtc_graphs = graph_line()
     check(rtc_k1["closest"] > 0 and rtc_k1["any"] > 0,
           f"the .rtc render did not go through K1: {rtc_k1}")
@@ -2707,7 +2780,7 @@ def phase_distribution(d):
     world = torch.distributed.get_world_size()
     backend = torch.distributed.get_backend()
     torch.distributed.destroy_process_group()
-    launches, k5 = dict(fi.launches), dict(vm.launches)
+    launches, k5 = launched(fi), launched(vm)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the distributed renders did not go through K1: {launches}")
     check_k5_render(k5, "the distributed renders")
@@ -2788,32 +2861,50 @@ def profiled(fn, names):
             "busy": total / wall, "by": by}
 
 
-def fmt_prof(p, wall_s):
+def fmt_prof(p, wall_s, eager=None):
     """A profiled block: its kernels, device ms and busy share under the
     profiler, and the device ms over `wall_s`, the unprofiled time of
-    the same work."""
+    the same work.  With `eager`, the eager profile of the same work, `p`
+    is a WHILE graph's, whose records of the bodies the profiler keeps
+    in some windows only: its numbers stand as measured only where each
+    named kernel's device ms is within 10% of the eager route's (the
+    same kernels on the same rays) and the device time does not exceed
+    the unprofiled time, which one stream cannot; else they are printed
+    as not measured."""
     if not p["kernels"]:
         return "the profiler recorded no kernel (busy share not measured)"
-    return (f"{p['kernels']} kernels, {p['kernel_ms']:.3f} ms of device time "
+    text = (f"{p['kernels']} kernels, {p['kernel_ms']:.3f} ms of device time "
             f"in {p['wall_ms']:.3f} ms, busy {p['busy']:.4f} under the "
             f"profiler, {p['kernel_ms'] / (wall_s * 1e3):.4f} over the "
             f"unprofiled time (" + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in p["by"].items()) + ")")
+    if eager is None:
+        return text
+    off = [k for k, v in eager["by"].items()
+           if v > 0 and abs(p["by"][k] - v) > 0.1 * v]
+    if not off and p["kernel_ms"] <= wall_s * 1e3:
+        return text + " [agrees with the eager profile]"
+    why = ", ".join(f"{k} {p['by'][k]:.3f} against eager "
+                    f"{eager['by'][k]:.3f} ms" for k in off)
+    if p["kernel_ms"] > wall_s * 1e3:
+        why += (", " if why else "") + "device time above the unprofiled time"
+    return (f"not measured: the profiler's records of the WHILE bodies "
+            f"disagree with the eager profile ({why}); as recorded: {text}")
 
 
-def graph_vs_eager(label, scene, names, k_sweep=False):
+def graph_vs_eager(label, scene, names):
     """Phase 20 on one scene (under the caller's RGK_BINNED): the CLI's
-    driver (CUDA graphs) against EagerDriver.  The graph driver's round 0
-    (it holds the capture) is dropped; block 0 of round 1 is traced by
-    the graph runner (with its accumulation) and by the eager loop (the
-    eager route's first work, dropped from the timing), each under
-    set_sync_debug_mode("warn") to count the syncs of a block, and must
-    be bit-equal (BDPT: the eye radiance; the splat image within rtol
-    1e-5); rounds 2 and 3 are timed in turns graph, eager, eager, graph,
-    and the two drivers' images of them must be equal (BDPT within rtol
-    1e-5); block 0 runs once more on each route under torch.profiler;
-    with `k_sweep` block 0 is timed through runners that read the end
-    test every k replays, k in GRAPH_KS.  -> a dict of the numbers."""
+    driver (one WHILE-graph launch a block) against EagerDriver.  The
+    graph driver's round 0 (it holds the capture) is dropped; block 0 of
+    round 1 is traced by the graph runner (with its accumulation) and by
+    the eager loop (the eager route's first work, dropped from the
+    timing), each under set_sync_debug_mode("warn") to count the syncs
+    of a block (the graph route's must be 0), and must be bit-equal
+    (BDPT: the eye radiance; the splat image within rtol 1e-5); rounds 2
+    and 3 are timed in turns graph, eager, eager, graph, and the two
+    drivers' images of them must be equal (BDPT within rtol 1e-5); block
+    0 runs once more on each route under torch.profiler; then
+    `end_test_routes`.  -> a dict of the numbers."""
     t_case = time.perf_counter()
     s, arrays, meta, cam = scene
     g, e = make_driver(scene), make_driver(scene, eager=True)
@@ -2821,6 +2912,8 @@ def graph_vs_eager(label, scene, names, k_sweep=False):
     g.render_round(0)
     build = tgraph.read_stats()
     runner = g._runner()
+    check(type(runner) is tgraph.QueuedGraph and runner._exec is not None,
+          f"{label}: the driver's runner has no WHILE graph")
     bdpt = g.bdpt
     eager = (tpath.trace_wavefront_queued_bdpt_eager if bdpt
              else tpath.trace_wavefront_queued_eager)
@@ -2842,6 +2935,7 @@ def graph_vs_eager(label, scene, names, k_sweep=False):
     after = tgraph.read_stats()
     reads = after["flag_reads"] - build["flag_reads"]
     iters = after["iterations"] - build["iterations"]  # block 0's loop
+    over = after["overshoot"] - build["overshoot"]
     e_out = []
     syncs["eager"] = counted_syncs(lambda: e_out.append(eager_block()))
     want = e_out[0]
@@ -2854,9 +2948,9 @@ def graph_vs_eager(label, scene, names, k_sweep=False):
         check(bool((diff <= 1e-6 + 1e-5 * want[1].abs()).all()),
               f"{label}: block 0's splat image beyond rtol 1e-5")
         splat_rel = float((diff / want[1].abs().clamp(min=1e-30)).max())
-    check(g_syncs == reads and g_syncs <= -(-iters // runner.k),
+    check(g_syncs == reads == over == 0 and iters > 0,
           f"{label}: {g_syncs} syncs in a graph block of {iters} "
-          f"iterations, {reads} end-test reads, k {runner.k}")
+          f"iterations, {reads} end-test reads, {over} steps past the end")
 
     for drv in (g, e):
         drv._acc_dev.zero_()
@@ -2869,6 +2963,7 @@ def graph_vs_eager(label, scene, names, k_sweep=False):
         times[route].append(dt)
         rays[route].append(n)
     gst = tgraph.read_stats()
+    SETTER_RUNS.append(gst["setter_runs"])
     check(rays["graph"] == rays["eager"],
           f"{label}: rays of rounds 2 and 3, graph {rays['graph']}, eager "
           f"{rays['eager']}")
@@ -2880,7 +2975,10 @@ def graph_vs_eager(label, scene, names, k_sweep=False):
     check(same, f"{label}: rounds 2-3's image differs between the graph "
           f"route and the eager loop")
     blocks = len(g._px)
-    check(gst["blocks"] == 2 * blocks and gst["replays"] == gst["steps"],
+    check(gst["blocks"] == gst["while_launches"] == 2 * blocks
+          and gst["replays"] == gst["steps"] == gst["iterations"]
+          and gst["setter_runs"] == gst["iterations"] + 2 * blocks
+          and gst["flag_reads"] == 0,
           f"{label}: graph counters {gst}")
     block_s = {"graph": [], "eager": []}
     for route, fn in (("graph", graph_block), ("eager", eager_block),
@@ -2907,77 +3005,198 @@ def graph_vs_eager(label, scene, names, k_sweep=False):
           f"{rays['graph'][1]} rays, {sum(rays['graph']) / 2 / mean['graph']:.1f}"
           f" rays/s graph, {sum(rays['eager']) / 2 / mean['eager']:.1f} "
           f"eager")
-    print(f"      syncs a block (block 0): graph {syncs['graph']} (its "
-          f"end-test reads, k {runner.k}), eager {syncs['eager']}; rounds "
-          f"2-3: {gst['blocks']} blocks, {gst['iterations']} iterations, "
-          f"{gst['replays']} replays ({gst['overshoot']} past the end), "
-          f"{gst['flag_reads']} end-test reads, {gst['light_replays']} "
-          f"light-phase replays; capture {build['capture_ms']:.1f} ms for "
-          f"{build['captures']} graphs, graph pool "
-          f"{build['pool_bytes'] / 2**20:.1f} MiB, max memory allocated "
-          f"{build['peak_before'] / 2**30:.3f} -> "
+    print(f"      syncs a block (block 0): graph {syncs['graph']} (the end "
+          f"test on the device), eager {syncs['eager']}; rounds 2-3: "
+          f"{gst['blocks']} blocks, {gst['while_launches']} WHILE-graph "
+          f"launches, {gst['iterations']} iterations, {gst['replays']} "
+          f"steps run ({gst['overshoot']} past the end), "
+          f"{gst['setter_runs']} condition-setter runs, "
+          f"{gst['flag_reads']} end-test reads on the host, "
+          f"{gst['light_replays']} light phases; capture "
+          f"{build['capture_ms']:.1f} ms for {build['captures']} graphs, "
+          f"graph pool {build['pool_bytes'] / 2**20:.1f} MiB, max memory "
+          f"allocated {build['peak_before'] / 2**30:.3f} -> "
           f"{build['peak_after'] / 2**30:.3f} GiB across the capture")
+    body = gw.node_count(runner._graphs["step"][0], "step")
     print(f"      block 0 (graph, eager, eager, graph) graph "
           f"{mean_block['graph'] * 1e3:.3f} ms, eager "
           f"{mean_block['eager'] * 1e3:.3f} ms; profiled: graph "
-          f"{fmt_prof(prof['graph'], mean_block['graph'])}; eager "
+          f"{fmt_prof(prof['graph'], mean_block['graph'], prof['eager'])} "
+          f"(the block ran {iters} bodies of {body} nodes); eager "
           f"{fmt_prof(prof['eager'], mean_block['eager'])}")
     out = {"times": times, "rays": rays, "syncs": syncs, "stats": gst,
-           "build": build, "prof": prof, "block_s": mean_block}
-    if k_sweep:
-        out["k"] = k_sweep_times(scene, g)
+           "build": build, "prof": prof, "block_s": mean_block,
+           "routes": end_test_routes(label, scene, g)}
     print(f"      ({time.perf_counter() - t_case:.1f} s)")
     return out
 
 
-def k_sweep_times(scene, g):
-    """Block 0 of round 0 through one runner per k in GRAPH_KS, each
-    warmed by one block, then timed in turns k ascending, descending:
-    -> {k: mean seconds}; printed with the overshoot."""
+def end_test_routes(label, scene, g):
+    """Block 0 of round 0 through a runner of the WHILE graph and through
+    runners of the host route that read the end test every
+    k replays, k in HOST_KS, and k = n, the block's iterations (one read,
+    no step past the end): the device route's radiance, rays (and BDPT
+    splat image, within rtol 1e-5) against the host route's at k =
+    HOST_K bit for bit, the same iterations, no end-test read and no step
+    past the end on the device route; then the block timed on each route
+    in turns (device, k ascending, k descending, device), ROUTE_CYCLES
+    times, after one dropped block each.  -> {route: median seconds},
+    printed with each route's steps past the end and its runs."""
     s, arrays, meta, cam = scene
     px, py = g._px[0], g._py[0]
-    runners = {k: tgraph.QueuedGraph(arrays, meta, s, cam, g.block, g.ms,
-                                     smp.MODE_HALTON, k=k, seed=42)
-               for k in GRAPH_KS}
-    got = {k: [] for k in GRAPH_KS}
-    over = {}
-    for k in GRAPH_KS:
-        runners[k].block(px, py, 0, 42, cam)
-    for k in GRAPH_KS + GRAPH_KS[::-1]:
+
+    def runner(cls=tgraph.QueuedGraph, **kw):
+        return cls(arrays, meta, s, cam, g.block, g.ms, smp.MODE_HALTON,
+                   seed=42, **kw)
+
+    # Every route's runner built here, one after another: a runner built
+    # earlier in the process (the driver's) can sit at another speed.
+    routes = {"device": runner()}
+    for k in HOST_KS:
+        routes[f"k {k}"] = runner(HostReadGraph, k=k)
+
+    def traced(runner):
         tgraph.reset_stats()
+        got = [t.clone() for t in runner.trace(px, py, 0, 42, cam)]
+        return got, tgraph.read_stats()
+
+    got, st = traced(routes["device"])
+    want, st_host = traced(routes[f"k {HOST_K}"])
+    check(torch.equal(got[0], want[0]) and torch.equal(got[-1], want[-1]),
+          f"{label}: block 0's radiance or rays differ between the WHILE "
+          f"graph and the host route")
+    if g.bdpt:
+        check(bool((got[1] - want[1]).abs().le(
+            1e-6 + 1e-5 * want[1].abs()).all()),
+              f"{label}: block 0's splat image, WHILE graph against the "
+              f"host route, beyond rtol 1e-5")
+    check(st["iterations"] == st_host["iterations"] > 0
+          and st["flag_reads"] == st["overshoot"] == 0
+          and st["setter_runs"] == st["iterations"] + 1,
+          f"{label}: WHILE graph {st}, host route {st_host}")
+    # The host route that reads once, after exactly the block's steps.
+    routes["k n"] = runner(HostReadGraph, k=st["iterations"])
+    for runner in routes.values():
+        runner.block(px, py, 0, 42, cam)
+    got_s = {name: [] for name in routes}
+    over = {}
+    order = list(routes)
+    for name in (order + order[::-1]) * ROUTE_CYCLES:
+        torch.cuda.synchronize()
+        tgraph.reset_stats()
+        t0 = time.perf_counter()
+        routes[name].block(px, py, 0, 42, cam)
+        torch.cuda.synchronize()
+        got_s[name].append(time.perf_counter() - t0)
+        over[name] = tgraph.read_stats()["overshoot"]
+    med = {name: statistics.median(v) for name, v in got_s.items()}
+    # Each cycle runs every route twice; the WHILE graph's mean over the
+    # exact replays' (k n) within each, the level that moves every route
+    # between cycles divided out.
+    per_cycle = [statistics.mean(got_s["device"][2 * c:2 * c + 2])
+                 / statistics.mean(got_s["k n"][2 * c:2 * c + 2])
+                 for c in range(ROUTE_CYCLES)]
+    print(f"      block 0 through the WHILE graph = the host route at k "
+          f"{HOST_K} bit for bit ({st['iterations']} iterations each, "
+          f"{st_host['flag_reads']} host reads there, none here; k n = k "
+          f"{st['iterations']}); in turns "
+          f"(median of {2 * ROUTE_CYCLES}; the runs): " + "; ".join(
+              f"{name} {med[name] * 1e3:.2f} ms ({over[name]} past the end; "
+              + " ".join(f"{t * 1e3:.1f}" for t in got_s[name]) + ")"
+              for name in order)
+          + "; device over k n, a cycle each: "
+          + ", ".join(f"{r:.4f}" for r in per_cycle))
+    return med
+
+
+def setter_entry():
+    """The condition setter alone, on the main path's buffers (a bool []
+    flag, an int64 [] counter): a WHILE graph around a three-kernel body
+    that counts to SETTER_ITERS, against the same body replayed from the
+    host with a read of the flag after each replay (the plain version's
+    loop, `graph_while.run_plain`, on the card), in turns (graph, plain,
+    plain, graph).  Both must stop at SETTER_ITERS, and the counter must
+    hold the setter's runs.  -> the kernels line's entry (launches 0
+    here; main() sets phases 20-21's)."""
+    dev = CUDA
+    x = torch.zeros((), dtype=torch.int64, device=dev)
+    n = torch.full((), SETTER_ITERS, dtype=torch.int64, device=dev)
+    flag = torch.ones((), dtype=torch.bool, device=dev)
+    runs = torch.zeros((), dtype=torch.int64, device=dev)
+    side = torch.cuda.Stream(dev)
+
+    def start():
+        x.zero_()
+        flag.copy_(x < n)
+
+    def step():
+        x.add_(1)
+        flag.copy_(x < n)
+
+    def capture(fn, keep):
+        g = torch.cuda.CUDAGraph(keep_graph=keep)
+        with torch.cuda.graph(g, stream=side):
+            fn()
+        return g
+
+    loop = gw.WhileGraph(capture(step, True), flag, runs,
+                         capture(start, True))
+    plain_step = capture(step, False)
+
+    def graph_run():
+        loop.launch()
+
+    def plain_run():
+        start()
+        while bool(flag):
+            plain_step.replay()
+
+    got = {"graph": [], "plain": []}
+    ends = {}
+    for route in ("graph", "plain", "graph", "plain", "plain", "graph"):
+        fn = graph_run if route == "graph" else plain_run
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        runners[k].block(px, py, 0, 42, cam)
+        fn()
         torch.cuda.synchronize()
-        got[k].append(time.perf_counter() - t0)
-        over[k] = tgraph.read_stats()["overshoot"]
-    mean = {k: statistics.mean(v) for k, v in got.items()}
-    print("      end test every k replays, block 0 (mean of 2, in turns): "
-          + ", ".join(f"k {k} {mean[k] * 1e3:.2f} ms ({over[k]} past the "
-                      f"end)" for k in GRAPH_KS))
-    return mean
+        got[route].append(time.perf_counter() - t0)
+        ends[route] = int(x)
+    ms = {k: statistics.mean(v[1:]) * 1e3 / SETTER_ITERS
+          for k, v in got.items()}  # each route's first run dropped
+    err = abs(ends["graph"] - ends["plain"]) + abs(
+        int(runs) - 3 * (SETTER_ITERS + 1))
+    check(err == 0 and ends["graph"] == SETTER_ITERS,
+          f"the condition setter's loop ended at {ends}, counter "
+          f"{int(runs)}")
+    bms, by = bound(2, SETTER_BYTES)
+    print(f"    condition setter (csrc/graph_while.cu): {SETTER_ITERS} "
+          f"iterations of a 3-kernel body, WHILE graph {ms['graph'] * 1e3:.3f}"
+          f" us an iteration (setter and body), host reads "
+          f"{ms['plain'] * 1e3:.3f} us (replay and read), counter "
+          f"{int(runs)} = 3 x {SETTER_ITERS + 1}; bound {bms:.3g} ms by {by}")
+    return kernel_entry("while_condition", SETTER_SOURCE, SETTER_REPLACES, 0,
+                        err, ms["graph"], ms["plain"], bms, by)
 
 
 def phase_graph(flat_path, col_path, bdpt_path):
-    """Phase 20: the graph route against the eager loop on the flat
-    smoke scene (K1, with the k sweep), the colonnade (K2) with
-    RGK_BINNED off and all, and the BDPT box (K1)."""
+    """Phase 20: the queued loop's WHILE graph against the eager loop and
+    against the host route on the flat smoke scene (K1), the colonnade
+    (K2) with RGK_BINNED off and all, and the BDPT box (K1); then the
+    condition setter alone.  -> (numbers, the setter's entry)."""
     t_phase = time.perf_counter()
-    print(f"[20/23 queued loop: CUDA graphs vs the eager loop] "
-          f"{clocks()}")
-    missing = [m for m in IF_NODE_METHODS
-               if not hasattr(torch.cuda.CUDAGraph, m)]
-    raw = hasattr(torch.cuda.CUDAGraph, "raw_cuda_graph")
-    print(f"    conditional graph nodes: torch {torch.__version__} binds "
-          + (f"none (torch.cuda.CUDAGraph has no {', '.join(missing)}): the "
-             f"end test stays on the host, read every {tgraph.K_READ} "
-             f"replays" if missing else "them; the port does not use them "
-             "yet (ROADMAP.md)")
-          + f"; CUDAGraph.raw_cuda_graph (a captured graph for the runtime "
-          f"API) {'bound' if raw else 'absent'}")
+    print(f"[20/23 queued loop: one CUDA graph with a WHILE node vs the "
+          f"eager loop and the host route] {clocks()}")
+    v = gw.driver_version()
+    print(f"    conditional WHILE nodes: CUDA driver {v // 1000}."
+          f"{v % 1000 // 10} ({v}), built by the port's "
+          f"csrc/graph_while.cu (rgk_while_graph_create) around torch "
+          f"{torch.__version__} captures (CUDAGraph(keep_graph=True)."
+          f"raw_cuda_graph()); the end test never leaves the card; the "
+          f"host route (end test read every k replays) only for the "
+          f"comparisons below")
     got = {"flat": graph_vs_eager(
         f"flat smoke {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp", load_scene(
-            flat_path), ("flat_sweep",), k_sweep=True)}
+            flat_path), ("flat_sweep",))}
     col = load_scene(col_path)
     for mode in ("off", "all"):
         with binned_mode(mode):
@@ -2989,24 +3208,61 @@ def phase_graph(flat_path, col_path, bdpt_path):
     got["bdpt"] = graph_vs_eager(
         f"BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse {BDPT_REVERSE}",
         load_scene(bdpt_path), ("flat_sweep",))
+    entry = setter_entry()
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
-    return got
+    return got, entry
+
+
+def all_bounce_capture(runner):
+    """The per-sample path as captured before the WHILE node, for the
+    comparison: `trace_wavefront(differentiable=True)` over `runner`'s
+    lane buffers, every bounce unrolled into one graph (kept, never
+    launched).  -> (capture ms, graph pool bytes, nodes)."""
+    s = runner.settings
+    dev = runner.device
+    ctx = smp.SampleCtx(
+        seed=runner.seed,
+        pixel=runner.py.long() * runner.cam.xres + runner.px.long(),
+        sample=runner.sample, mode=runner.sampler_mode, n_set=runner.su.n_set)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    before = tgraph._snapshot()
+    t0 = time.perf_counter()
+    with torch.no_grad(), torch.cuda.graph(graph, stream=side):
+        tpath.trace_wavefront(runner.scene, runner.meta, s, runner.cam, ctx,
+                              runner.px, runner.py, differentiable=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    pool = torch.cuda.memory_reserved(dev) - reserved
+    # The wrappers counted the launches this capture only recorded.
+    tgraph._add_launches([{k: c[k] - b[k] for k in c} for c, b in zip(
+        tgraph._COUNTERS, before)], -1)
+    nodes = gw.node_count(graph, "all-bounce")
+    del graph
+    torch.cuda.empty_cache()
+    return ms, pool, nodes
 
 
 def lane_round_vs_eager(label, scene, names):
     """Phase 21 on one scene: `render_image_round` through a LaneGraph
-    (the per-sample path as one CUDA graph) against
+    (the per-sample path as one CUDA graph with a WHILE node) against
     `render_image_round_eager` (the host bounce loop) in one process.
-    The runner's build is timed apart; round 0 of each route is dropped;
-    round 1 runs on each route under set_sync_debug_mode("warn") (the
-    graph route must make no sync) and the two images must be equal
-    (radiance bit for bit; with splats, which add with atomics, within
-    rtol 1e-5), as must the counts and rays; rounds 2 and 3 are timed
-    in turns graph, eager, eager, graph, images held the same way; one
-    round of each runs under torch.profiler."""
+    The runner's build is timed apart, its graphs' nodes counted, and
+    the capture of every bounce (the route before the WHILE node) is
+    made once for its capture ms, pool and nodes; round 0 of each route
+    is dropped; round 1 runs on each route under
+    set_sync_debug_mode("warn") (the graph route must make no sync) and
+    the two images must be equal (radiance bit for bit; with splats,
+    which add with atomics, within rtol 1e-5), as must the counts and
+    rays, and the WHILE graph must run as many bounces as the host loop;
+    rounds 2 and 3 are timed in turns graph, eager, eager, graph, images
+    held the same way; one round of each runs under torch.profiler."""
     t_case = time.perf_counter()
     s, arrays, meta, cam = scene
     ms = int(s.multisample)
+    depth = int(s.recursion_max)
     lanes = cam.xres * cam.yres * ms
     splats = int(s.reverse) > 0
     torch.cuda.synchronize()
@@ -3018,6 +3274,9 @@ def lane_round_vs_eager(label, scene, names):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build = tgraph.read_stats()
+    nodes = {name: gw.node_count(runner._graphs[name][0], name)
+             for name in ("init", "bounce", "finish")}
+    old = all_bounce_capture(runner)
 
     def graph_round(r):
         return tpath.render_image_round(arrays, meta, s, cam, r, 42,
@@ -3039,16 +3298,31 @@ def lane_round_vs_eager(label, scene, names):
     graph_round(0)
     eager_round(0)
     got, want = [], []
-    syncs = {"graph": counted_syncs(lambda: got.append(graph_round(1))),
-             "eager": counted_syncs(lambda: want.append(eager_round(1)))}
+    bounce_fn, eager_bounces = tpath._lane_bounce, []
+
+    def counted_bounce(*args):
+        eager_bounces.append(1)
+        return bounce_fn(*args)
+
+    tgraph.reset_stats()
+    syncs = {"graph": counted_syncs(lambda: got.append(graph_round(1)))}
+    bounces = tgraph.read_stats()["lane_bounces"]
+    tpath._lane_bounce = counted_bounce
+    try:
+        syncs["eager"] = counted_syncs(lambda: want.append(eager_round(1)))
+    finally:
+        tpath._lane_bounce = bounce_fn
     check(syncs["graph"] == 0, f"{label}: {syncs['graph']} syncs in a graph "
           f"round")
+    check(bounces == len(eager_bounces) <= depth, f"{label}: the WHILE graph "
+          f"ran {bounces} bounces, the host loop {len(eager_bounces)}")
     same(got[0], want[0], "round 1")
     with plain_rows():
         same(eager_round(1), want[0], "round 1",
              "K5 and plain indexing (the route before K5)")
     times = {"graph": [], "eager": []}
     images = {"graph": {}, "eager": {}}
+    tgraph.reset_stats()
     for r, route in ((2, "graph"), (2, "eager"), (3, "eager"),
                      (3, "graph")):
         torch.cuda.synchronize()
@@ -3057,6 +3331,8 @@ def lane_round_vs_eager(label, scene, names):
         torch.cuda.synchronize()
         times[route].append(time.perf_counter() - t0)
         images[route][r] = out
+    st = tgraph.read_stats()
+    SETTER_RUNS.append(st["setter_runs"])
     for r in (2, 3):
         same(images["graph"][r], images["eager"][r], f"round {r}")
     peak = torch.cuda.max_memory_allocated()
@@ -3064,51 +3340,107 @@ def lane_round_vs_eager(label, scene, names):
     mean = {k: statistics.mean(v) for k, v in times.items()}
     prof = {"graph": profiled(lambda: graph_round(4), names),
             "eager": profiled(lambda: eager_round(4), names)}
-    st = tgraph.read_stats()
     img = got[0][0]
     check(img.shape == (cam.yres, cam.xres, 3)
           and bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
           f"{label}: image {tuple(img.shape)} mean {float(img.mean())}")
-    print(f"    {label} ({lanes} lanes, depth {int(s.recursion_max)}): "
-          f"round 1 image {'within rtol 1e-5' if splats else 'bit-equal'} "
-          f"(and bit-equal to the eager round with plain indexing in place "
-          f"of take_rows), "
+    print(f"    {label} ({lanes} lanes, depth {depth}, russian "
+          f"{float(s.russian):g}): round 1 image "
+          f"{'within rtol 1e-5' if splats else 'bit-equal'} (and bit-equal "
+          f"to the eager round with plain indexing in place of take_rows), "
           f"counts and {rays} rays equal; syncs a round: graph "
-          f"{syncs['graph']}, eager {syncs['eager']} (its all-dead reads); "
-          f"no IF node, so no bounce is skipped: the graph runs all "
-          f"{int(s.recursion_max)}; rounds 2-3 equal; rounds (graph, eager, "
-          f"eager, graph) graph {times['graph'][0]:.4f} / "
-          f"{times['graph'][1]:.4f} s, eager {times['eager'][0]:.4f} / "
-          f"{times['eager'][1]:.4f} s (eager / graph "
-          f"{mean['eager'] / mean['graph']:.2f}x), {rays / mean['graph']:.1f}"
-          f" rays/s graph, {rays / mean['eager']:.1f} eager")
+          f"{syncs['graph']}, eager {syncs['eager']} (its end-test reads); "
+          f"bounces run {bounces} of {depth} (the device counter; the host "
+          f"loop ran {len(eager_bounces)}); rounds 2-3 equal ({st['lane_bounces']}"
+          f" bounces in 2 launches); rounds (graph, eager, eager, graph) "
+          f"graph {times['graph'][0]:.4f} / {times['graph'][1]:.4f} s, "
+          f"eager {times['eager'][0]:.4f} / {times['eager'][1]:.4f} s "
+          f"(eager / graph {mean['eager'] / mean['graph']:.2f}x), "
+          f"{rays / mean['graph']:.1f} rays/s graph, "
+          f"{rays / mean['eager']:.1f} eager")
     print(f"      build {build_s * 1e3:.1f} ms ({tgraph.WARMUP_STEPS} eager "
           f"warm-up runs and the capture, {build['capture_ms']:.1f} ms of "
-          f"it), graph pool {build['pool_bytes'] / 2**30:.3f} GiB, max "
-          f"memory allocated {peak / 2**30:.3f} GiB; {st['lane_replays']} "
-          f"replays; profiled round: graph "
-          f"{fmt_prof(prof['graph'], mean['graph'])}; eager "
+          f"it), graph pool {build['pool_bytes'] / 2**30:.3f} GiB, nodes "
+          f"prologue {nodes['init']} / one-bounce body {nodes['bounce']} / "
+          f"epilogue {nodes['finish']}; the all-bounce capture (the route "
+          f"before the WHILE node): "
+          f"{old[0]:.1f} ms, graph pool {old[1] / 2**30:.3f} GiB, "
+          f"{old[2]} nodes; max memory allocated {peak / 2**30:.3f} GiB; "
+          f"profiled round: graph "
+          f"{fmt_prof(prof['graph'], mean['graph'], prof['eager'])} (the "
+          f"round ran {bounces} bodies of {nodes['bounce']} nodes); eager "
           f"{fmt_prof(prof['eager'], mean['eager'])} "
           f"({time.perf_counter() - t_case:.1f} s)")
 
 
+def write_default_depth(d, res, ms):
+    """The flat smoke scene (phase 5's box and sphere) with no
+    `recursion-max` and no `russian` in its JSON, so that the config's
+    defaults hold (40 and 0.74), under `d`.  -> the path."""
+    os.makedirs(d, exist_ok=True)
+    path = write_box(d, res=res, ms=ms)
+    with open(path) as f:
+        cfg = json.load(f)
+    del cfg["recursion-max"], cfg["russian"]
+    out = os.path.join(d, f"default_{res}_{ms}.json")
+    with open(out, "w") as f:
+        json.dump(cfg, f)
+    return out
+
+
+def default_depth(d):
+    """Phase 21's scene at the JSON defaults: the per-sample round of
+    LANE_MS spp (1,048,576 lanes) through `lane_round_vs_eager`, the
+    queued round of FLAT_MS spp through `graph_vs_eager` (the WHILE graph
+    against the eager loop and the host route), and the card image
+    against the port's CPU image at 64x64, 4 spp (phase 6's bounds)."""
+    sub = os.path.join(d, "default")
+    lanes_path = write_default_depth(sub, FLAT_RES, LANE_MS)
+    scene = load_scene(lanes_path)
+    s = scene[0]
+    check(int(s.recursion_max) == DEFAULT_DEPTH
+          and abs(float(s.russian) - DEFAULT_RUSSIAN) < 1e-9,
+          f"the JSON defaults: recursion-max {s.recursion_max}, russian "
+          f"{s.russian}")
+    label = (f"flat smoke at the JSON defaults {FLAT_RES}x{FLAT_RES} "
+             f"(recursion-max {DEFAULT_DEPTH}, russian {DEFAULT_RUSSIAN})")
+    lane_round_vs_eager(f"{label} {LANE_MS}spp", scene, ("flat_sweep",))
+    del scene
+    torch.cuda.empty_cache()
+    print(f"    {label} {FLAT_MS}spp, the queued round:")
+    graph_vs_eager(f"{label} {FLAT_MS}spp queued", load_scene(
+        write_default_depth(sub, FLAT_RES, FLAT_MS)), ("flat_sweep",))
+    torch.cuda.empty_cache()
+    small = write_default_depth(os.path.join(d, "default64"), 64, 4)
+    gpu, _ = render(small, os.path.join(d, "default_gpu64"))
+    cpu, _ = render(small, os.path.join(d, "default_cpu64"), "--cpu")
+    stats = image_parity(gpu, cpu)
+    check(stats["ok"], f"{label}: card vs CPU image parity failed: {stats}")
+    print(f"    {label} card vs CPU 64x64 4spp: corr {stats['corr']:.6f} "
+          f"trimmed {stats['corr_trim']:.6f} mean rel diff "
+          f"{stats['mean_rel_diff']:.3g} max|diff| {stats['max_abs_diff']:.3g}"
+          f" outlier pixels {stats['outlier_pixels']}, max per tile "
+          f"{stats['max_outliers_per_tile']} (cap {stats['tile_cap']})")
+
+
 def phase_lane_graph(d, col_path):
-    """Phase 21: the per-sample path's round as one CUDA graph against
-    the eager route, on the flat smoke scene at 512x512 4 spp (K1) and
-    the colonnade at its config's 960x540 and phase 7's 8 spp (K2).
-    -> {"K1": launches, "K2": launches, "K5": launches} of the phase's
-    renders."""
+    """Phase 21: the per-sample path's round as one CUDA graph with a
+    WHILE node against the eager route, on the flat smoke scene at
+    512x512 4 spp (K1) and the colonnade at its config's 960x540 and
+    phase 7's 8 spp (K2); then the flat smoke scene at the JSON defaults
+    (`default_depth`).  -> {"K1": launches, "K2": launches, "K5":
+    launches} of the phase's renders."""
     t_phase = time.perf_counter()
-    print(f"[21/23 per-sample path: one CUDA graph vs the eager bounce "
-          f"loop] {clocks()}")
+    print(f"[21/23 per-sample path: one CUDA graph with a WHILE node vs "
+          f"the eager bounce loop] {clocks()}")
     sub = os.path.join(d, "lanes")
     os.makedirs(sub)
     flat = write_box(sub, res=FLAT_RES, ms=LANE_MS)
     reset_launches()
     lane_round_vs_eager(f"flat smoke {FLAT_RES}x{FLAT_RES} {LANE_MS}spp",
                         load_scene(flat), ("flat_sweep",))
-    k1, k2_flat = dict(fi.launches), dict(ci.launches)
-    k5_flat = dict(vm.launches)
+    k1, k2_flat = launched(fi), launched(ci)
+    k5_flat = launched(vm)
     check(k1["closest"] > 0 and k1["any"] > 0 and k2_flat == {
         "closest": 0, "any": 0}, f"flat rounds: K1 {k1}, K2 {k2_flat}")
     check_k5_render(k5_flat, "the flat rounds")
@@ -3117,16 +3449,24 @@ def phase_lane_graph(d, col_path):
     lane_round_vs_eager(f"colonnade {COLONNADE_RES[0]}x{COLONNADE_RES[1]} "
                         f"{COLONNADE_MS}spp", load_scene(col_path),
                         ("cluster_walk",))
-    k2, k1_col = dict(ci.launches), dict(fi.launches)
-    k5_col = dict(vm.launches)
+    k2, k1_col = launched(ci), launched(fi)
+    k5_col = launched(vm)
     check(k2["closest"] > 0 and k2["any"] > 0 and k1_col == {
         "closest": 0, "any": 0}, f"colonnade rounds: K2 {k2}, K1 {k1_col}")
     check_k5_render(k5_col, "the colonnade rounds")
     torch.cuda.empty_cache()
-    print(f"    K1 launches {k1} (flat), K2 launches {k2} (colonnade), K5 "
-          f"launches {k5_flat} (flat), {k5_col} (colonnade) "
+    reset_launches()
+    default_depth(d)
+    k1_deep, k5_deep = launched(fi), launched(vm)
+    check(k1_deep["closest"] > 0 and k1_deep["any"] > 0,
+          f"the default-depth renders: K1 {k1_deep}")
+    check_k5_render(k5_deep, "the default-depth renders")
+    k1 = add_counts(k1, k1_deep)
+    print(f"    K1 launches {k1} (flat, default depth), K2 launches {k2} "
+          f"(colonnade), K5 launches {k5_flat} (flat), {k5_col} "
+          f"(colonnade), {k5_deep} (default depth) "
           f"({time.perf_counter() - t_phase:.1f} s)")
-    return {"K1": k1, "K2": k2, "K5": add_counts(k5_flat, k5_col)}
+    return {"K1": k1, "K2": k2, "K5": add_counts(k5_flat, k5_col, k5_deep)}
 
 
 @contextlib.contextmanager
@@ -3363,7 +3703,7 @@ def phase_grad_bdpt(d):
     fd = central_diff(held_loss, params, "mat_diffuse", white)
     g = fd_agrees(grads, "mat_diffuse", white, fd)
     gg = fd_agrees(g_grads, "mat_diffuse", white, fd, route="graph")
-    launches, k2, k5 = dict(fi.launches), dict(ci.launches), dict(vm.launches)
+    launches, k2, k5 = launched(fi), launched(ci), launched(vm)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the BDPT gradient runs did not go through K1: {launches}")
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
@@ -3423,8 +3763,8 @@ def main(argv=None):
         k2_grad, k5_grad2 = phase_grad_k2(d)
         k1_debug, k5_debug = phase_debug_rtc(d)
         k1_dist, k5_dist = phase_distribution(d)
-        phase_graph(os.path.join(d, f"box_sphere_{FLAT_RES}.json"),
-                    col_path, os.path.join(d, "bdpt.json"))
+        _, setter = phase_graph(os.path.join(d, f"box_sphere_{FLAT_RES}.json"),
+                                col_path, os.path.join(d, "bdpt.json"))
         lanes = phase_lane_graph(d, col_path)
         k5_entries = phase_take_rows(grad_path, gathers)
         k1_bdpt_grad, k5_bdpt_grad = phase_grad_bdpt(d)
@@ -3447,7 +3787,9 @@ def main(argv=None):
                              ("cluster_intersect", "any")):
             if e["name"] == f"{kernel}_{mode}":
                 e["launches"] += sum(m[mode] for m in more[kernel])
-    entries += bdpt1 + bdpt2 + k5_entries
+    setter["launches"] = sum(SETTER_RUNS)
+    check(setter["launches"] > 0, "no path ran the condition setter")
+    entries += bdpt1 + bdpt2 + k5_entries + [setter]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -8,9 +8,10 @@ bidirectional ones blocks of `chunk_lanes // multisample` pixels through
 the queued BDPT tracer, whose light-subpath phase runs on every
 (pixel, sample) of the block at once.  The driver keeps one
 `integrator.graph.QueuedGraph` per `RGK_BINNED` mode: on a card a block
-is the replay of its CUDA graphs (light phase, the loop's step, the
-accumulation), as the reference runs a block as one device program; on
-the CPU the same runner steps eagerly.  Each block's per-pixel radiance
+is one launch of a CUDA graph whose WHILE node runs the loop's step
+while its end test holds (after the BDPT light phase), then the replay
+of the accumulation, as the reference runs a block as one device
+program; on the CPU the same runner steps eagerly.  Each block's per-pixel radiance
 sums (and BDPT splat image) are added into an accumulator of [H*W+1, 3]
 that stays on the scene's device (row H*W swallows the padding lanes
 of the last block and the missed splats) and crosses to the host only

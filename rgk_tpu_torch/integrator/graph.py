@@ -7,53 +7,59 @@ eye walk is a `jax.lax.while_loop`, `rgk_tpu/driver/render.py`
 
 `_Runner` holds what the three share: a side stream and a graph pool
 per runner, warm-up on the side stream, captures timed and measured,
-replays that add each capture's launch counts.
+replays that add each capture's launch counts, and the WHILE graph
+(`ops/graph_while.py`, `csrc/graph_while.cu`) that runs a loop's
+captured pieces as one launch: prologue, then the body while a device
+flag holds, then epilogue, the flag set on the device by a one-thread
+condition setter after the prologue and after every body.
 
 `QueuedGraph` owns static buffers for a block's inputs
 (`path._QueuedInputs`), the loop's carry (`path._QueuedState`) and, for
 BDPT, the packed light vertices and the splat image.  On a card it
 captures, when it is built:
 * the light phase (BDPT): `path._light_phase` into the lpack and splat
-  buffers and the ray counter;
+  buffers and the ray counter: the WHILE graph's prologue;
 * one step: `path._queued_step`, its results copied back into the state
-  buffers and the end test `path._queued_live` into a device flag;
+  buffers and the end test `path._queued_live` into the device flag:
+  the WHILE graph's body;
 and at the first `accumulate` the tail: the block's radiance added into
 the caller's accumulator (`index_add_`), the splat image and the ray
-count (captured again if the accumulator moves).  A block loads its
-inputs with `copy_`/`fill_` (no sync), resets the state, replays the
-light graph, replays the step `k` times between two reads of the flag
-(one sync each), then the tail.  A step past the end changes no output
-(`path._queued_step`), so reading the end test late costs at most k-1
-replays and never the image.
+count (a graph replayed as such, captured again if the accumulator
+moves).  A block loads its inputs with `copy_`/`fill_` (no sync),
+resets the state and the flag, and launches the WHILE graph once: no
+read of the end test on the host, no step past the end.
 
 `LaneGraph` owns static lane buffers (pixels, sample indices, the seed
-as a device scalar), a copy of the camera and the `TraceResult`
-buffers, and captures one call of `path.trace_wavefront` over them: the
-camera rays, the light subpaths and splats, and every one of the
-`recursion_max` bounces (the reference's differentiable form, the
-`lax.scan`; no read of the all-dead test).
+as a device scalar) and a copy of the camera and the `TraceResult`
+buffers, and captures `trace_wavefront`'s pieces over them:
+`path._lane_init` and the first end test as the prologue, one
+`path._lane_bounce` and `path._lane_live` as the body, `path._lane_finish`
+as the epilogue: the reference's `while_loop` (`differentiable=False`),
+which stops at the first bounce where no lane is alive.
 
-The end test stays on the host, and the per-sample path runs all its
-bounces, because the torch the port was measured with (2.11.0+cu128)
-binds no conditional graph node: `torch.cuda.CUDAGraph` there has no
-`get_currently_capturing_graph`, `begin_capture_to_if_node` or
-`end_capture_to_conditional_node` (PERF.md §6).  Either loop is bounded
-(a queued block ends within `n_samples * depth` steps, the per-sample
-path within `recursion_max` bounces), so IF-guarded steps would move
-both tests onto the device (ROADMAP.md).
+Counters: a WHILE graph's setter adds 1 to a device counter at each of
+its runs (bodies + 1 a launch).  `read_stats` reads those counters (a
+sync) and adds what the graphs ran since the last read: the bodies as
+queued steps and iterations (or per-sample bounces), and each body's
+launch counts times its runs into the kernel wrappers' counters.  So
+the wrappers' counts include a WHILE graph's launches only after
+`read_stats` (or `settle`).
 
 Where capture goes wrong, and what is done about it:
 * Python numbers are baked into a capture.  The sample range and the
   seed are device tensors (`_QueuedInputs`; `LaneGraph`'s seed, which
-  `SampleCtx` takes as a tensor), filled per block or call; the
+  `SampleCtx` takes as a tensor), filled per block or call, and so is
+  the per-sample path's bounce index (`_LaneState.bounce`); the
   camera's tensors are copied into the runner's own each time (its
   resolution and lens, Python values, are fixed per runner and
   checked); the samples a lane (`n_samples`) fix the lpack's shape.
 * Tensor addresses are baked into a capture.  The graphs read only the
   runner's buffers, the scene and the runner's own setup (material
   pack), all held by the runner: lpack is a runner buffer, not a new
-  allocation each block, and the pixel shards and camera that a mesh
-  makes anew on every call are copied in.
+  allocation each block, the per-sample path's carry is the tensors its
+  captured prologue made (held by the runner, written in place by the
+  body), and the pixel shards and camera that a mesh makes anew on
+  every call are copied in.
 * `RGK_BINNED` is read at every intersection call; a capture freezes
   it.  A runner records the mode it was built under (`binned_mode`) and
   callers key their runners by it.  The binned route has static shapes
@@ -63,19 +69,28 @@ Where capture goes wrong, and what is done about it:
   sync in any case; the plain versions of the kernels (loops over
   `nonzero`) run only on the CPU.  Build runners from one thread: the
   debug mode is process-wide.
+* A WHILE graph's launch does not advance PyTorch's generators as
+  `CUDAGraph.replay` does; a runner that builds one raises if its
+  warm-up moved the CUDA generator's state (the port's sampler is a
+  counter-based hash and draws nothing from it).
+* A conditional body holds kernel, memset, memcpy (device memory),
+  empty and child graph nodes only; building the WHILE graph lists the
+  captures' nodes and refuses any other type by name.
 * One-time setup (`kernels.load()`, K2's `launch_setup`, the autograd
   engine's streams) runs in the eager warm-up steps on a side stream,
   outside the capture.
 * K2 resets its per-device work counter with a memset before each
   launch; in a graph the memset and the kernel are ordered on one
-  stream.  Two graphs of one card must not replay at once: a runner
-  replays on its device's current stream, and a mesh lists a card once.
+  stream.  Two graphs of one card must not run at once: a runner
+  launches on its device's current stream, and a mesh lists a card
+  once.
 * The launch counters of the kernel wrappers are Python and do not run
-  on replay: each capture's delta is recorded and added at every
-  replay.
-A failed capture or replay raises; there is no eager fallback on the
-card.  On the CPU the same buffers are stepped eagerly (the end test
-read every step): the buffer discipline without graphs.
+  on replay: each capture's delta is recorded and added at every replay
+  (and, for a WHILE body, at `read_stats`, times its runs).
+A failed capture, build or launch raises; there is no eager fallback
+on the card, and no environment variable picks a route.  On the CPU the
+same buffers are stepped eagerly (`graph_while.run_plain`, the end test
+read before every step): the buffer discipline without graphs.
 """
 
 from __future__ import annotations
@@ -84,37 +99,50 @@ import contextlib
 import os
 import threading
 import time
+import weakref
 
 import torch
 
 from ..ops import binned_intersect as bi
 from ..ops import cluster_intersect as ci
 from ..ops import flat_intersect as fi
+from ..ops import graph_while as gw
 from ..ops import sampler as smp
 from ..ops import vecmath as vm
 from ..scene.camera import TENSOR_FIELDS
 from ..utils import log as out
 from . import path as tpath
 
-K_READ = 4        # replays between two reads of the end test (PERF.md §6)
 WARMUP_STEPS = 2  # eager runs of a captured body, on a side stream
 _COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches)
 
 # Summed over every runner of the process; `reset_stats` zeroes them.
-# steps: queued steps issued (replays, CPU steps); replays: step-graph
-# replays; warmup_steps: eager runs of a body before its capture;
-# flag_reads: end-test reads (one sync each); iterations: the CPU's
-# steps that found the loop live; lane_replays: per-sample path
-# replays; peak_before / peak_after: max memory allocated around the
-# latest build's captures.
+# steps: queued steps run (WHILE bodies, CPU steps); replays: step
+# graphs run; warmup_steps: eager runs of a body before its capture; flag_reads:
+# host reads of an end test (one sync each); iterations: steps that
+# found the loop live; while_launches: queued WHILE graph launches;
+# lane_replays: per-sample path launches; lane_bounces: its bounces
+# run; setter_runs: condition-setter runs; peak_before / peak_after:
+# max memory allocated around the latest build's captures.
 stats = {"runners": 0, "blocks": 0, "captures": 0, "capture_ms": 0.0,
          "pool_bytes": 0, "peak_before": 0, "peak_after": 0, "steps": 0,
          "warmup_steps": 0, "replays": 0, "light_replays": 0,
-         "flag_reads": 0, "iterations": 0, "lane_replays": 0}
-# Per card: an int64 [] count of the steps that found the loop live,
-# kept on the device (a replay adds to it without a sync).
-_work = {}
+         "flag_reads": 0, "iterations": 0, "while_launches": 0,
+         "lane_replays": 0, "lane_bounces": 0, "setter_runs": 0}
+# Every WHILE graph's counter (`_WhileCount`), read by `settle`.
+_while = []
 _lock = threading.Lock()
+
+
+class _WhileCount:
+    """A WHILE graph's setter-run counter (int64 [] on its device), its
+    launches and what `settle` has taken of both; `kind` "queued" or
+    "lanes"; `delta` the body's launches a run."""
+
+    def __init__(self, runner, runs, delta, kind):
+        self.runner = weakref.ref(runner)
+        self.runs, self.delta, self.kind = runs, delta, kind
+        self.launches = self.seen_launches = self.seen_runs = 0
 
 
 def _bump(**deltas):
@@ -127,17 +155,43 @@ def reset_stats() -> None:
     with _lock:
         for key in stats:
             stats[key] = type(stats[key])()
-        for w in _work.values():
-            w.zero_()
+        _while[:] = [c for c in _while if c.runner() is not None]
+        for c in _while:
+            c.runs.zero_()
+            c.launches = c.seen_launches = c.seen_runs = 0
+
+
+def settle() -> None:
+    """Reads every WHILE graph's counter (a sync) and adds what ran
+    since the last read: setter runs, bodies as steps and iterations
+    (queued) or bounces (per-sample), the bodies' kernel launches."""
+    with _lock:
+        counts = list(_while)
+    for c in counts:
+        runs = int(c.runs)
+        with _lock:
+            new_runs, c.seen_runs = runs - c.seen_runs, runs
+            new_launches = c.launches - c.seen_launches
+            c.seen_launches = c.launches
+            bodies = new_runs - new_launches
+            gw.launches["setter"] += new_runs
+            stats["setter_runs"] += new_runs
+            if c.kind == "queued":
+                for key in ("steps", "replays", "iterations"):
+                    stats[key] += bodies
+            else:
+                stats["lane_bounces"] += bodies
+        _add_launches(c.delta, bodies)
+    with _lock:
+        _while[:] = [c for c in _while if c.runner() is not None]
 
 
 def read_stats() -> dict:
-    """`stats` plus `iterations`, the steps that found the loop live
-    (the reference's loop count; read from the devices, a sync), and
-    `overshoot`, the steps issued past the end."""
+    """`stats` after `settle`, and `overshoot`, the steps run past the
+    end."""
+    settle()
     with _lock:
         got = dict(stats)
-        got["iterations"] += sum(int(w) for w in _work.values())
     got["overshoot"] = got["steps"] - got["iterations"]
     return got
 
@@ -175,13 +229,15 @@ def _add_launches(delta, times: int = 1):
 class _Runner:
     """Graphs of one device: a side stream and a graph pool of their own
     (module doc).  `_build` warms a body up and captures; `_replay`
-    replays and adds the capture's launches.  On the CPU neither runs:
-    the subclasses call their bodies eagerly."""
+    replays a capture and adds its launches; `_while_graph` builds the
+    WHILE graph of captures kept for it, `_launch` launches it.  On the
+    CPU none runs: the subclasses call their bodies eagerly."""
 
     def __init__(self, device, what: str):
         self.device = device
         self.what = what           # for the log
         self._graphs = {}          # name -> (CUDAGraph, launch-counter delta)
+        self._exec = self._count = None
         _bump(runners=1)
         if device.type == "cuda":
             self._stream = torch.cuda.Stream(device)
@@ -192,22 +248,29 @@ class _Runner:
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
-    def _build(self, warm, captures) -> None:
+    def _build(self, warm, captures, keep: bool = False) -> None:
         """`warm()` on the side stream (no sync allowed; its
         `WARMUP_STEPS` eager runs count as launched), then each
-        (name, body) of `captures` captured, timed and measured."""
+        (name, body) of `captures` captured, timed and measured; with
+        `keep` the captures are kept for a WHILE graph, and the warm-up
+        must leave the CUDA generator alone (module doc)."""
         dev = self.device
+        rng = torch.cuda.get_rng_state(dev)
         self._stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self._stream), _no_sync():
             warm()
         torch.cuda.current_stream(dev).wait_stream(self._stream)
         torch.cuda.synchronize(dev)
+        if keep and not torch.equal(rng, torch.cuda.get_rng_state(dev)):
+            raise RuntimeError(
+                f"{self.what}: the body draws from PyTorch's CUDA "
+                f"generator, which a WHILE graph's launch does not advance")
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         peak = torch.cuda.max_memory_allocated(dev)
         t0 = time.perf_counter()
         for name, body in captures:
-            self._capture(name, body)
+            self._capture(name, body, keep)
         ms = (time.perf_counter() - t0) * 1e3
         pool = torch.cuda.memory_reserved(dev) - reserved
         peak_after = torch.cuda.max_memory_allocated(dev)
@@ -218,8 +281,8 @@ class _Runner:
                    f"graphs in {ms:.1f} ms; graph pool {pool} bytes; max "
                    f"memory allocated {peak} -> {peak_after} bytes")
 
-    def _capture(self, name, body) -> None:
-        graph = torch.cuda.CUDAGraph()
+    def _capture(self, name, body, keep: bool = False) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=keep)
         before = _snapshot()
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                               capture_error_mode="thread_local"), _no_sync():
@@ -237,6 +300,30 @@ class _Runner:
         for _ in range(times):
             graph.replay()
         _add_launches(delta, times)
+
+    def _while_graph(self, kind, body, prologue=None, epilogue=None):
+        """The kept captures `prologue`, `body` and `epilogue` (names) as
+        one WHILE graph on `self.live`, its setter counting into a new
+        `_WhileCount` of `kind`."""
+        def graph(name):
+            return None if name is None else self._graphs[name][0]
+
+        runs = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._exec = gw.WhileGraph(graph(body), self.live, runs,
+                                   graph(prologue), graph(epilogue))
+        self._ends = [n for n in (prologue, epilogue) if n is not None]
+        self._count = _WhileCount(self, runs, self._graphs[body][1], kind)
+        with _lock:
+            _while.append(self._count)
+
+    def _launch(self) -> None:
+        """One launch of the WHILE graph: the prologue's and epilogue's
+        launches are added now, the body's at `settle`."""
+        self._exec.launch()
+        with _lock:
+            self._count.launches += 1
+        for name in self._ends:
+            _add_launches(self._graphs[name][1])
 
     def _first_pixels(self):
         """(px, py) int32 [lanes] of the frame's first `lanes` pixels
@@ -263,15 +350,12 @@ class QueuedGraph(_Runner):
     under `seed` (for a driver: its first block)."""
 
     def __init__(self, scene, meta, settings, cam, lanes: int,
-                 n_samples: int, sampler_mode: int = 1, k: int = K_READ,
-                 seed: int = 0):
-        if k < 1:
-            raise ValueError(f"k must be at least 1, got {k}")
+                 n_samples: int, sampler_mode: int = 1, seed: int = 0):
         dev = scene.tri_pack.device
         super().__init__(dev, "queued loop")
         self.scene, self.meta, self.settings = scene, meta, settings
         self.lanes, self.n_samples = int(lanes), int(n_samples)
-        self.sampler_mode, self.k = sampler_mode, int(k)
+        self.sampler_mode = sampler_mode
         self.bdpt = int(settings.reverse) > 0
         self.mode = binned_mode(meta)
         self.su = tpath._setup(scene, meta, settings)
@@ -291,28 +375,30 @@ class QueuedGraph(_Runner):
         self.state = tpath._queued_init(self.inp)
         self.live = torch.ones((), dtype=torch.bool, device=dev)
         self.pix_idx = torch.zeros(self.lanes, dtype=torch.int64, device=dev)
-        self.work = None
         self._tail_for = None  # the accumulator the tail graph adds into
         if dev.type == "cuda":
-            with _lock:
-                self.work = _work.setdefault(
-                    dev, torch.zeros((), dtype=torch.int64, device=dev))
             with torch.no_grad(), torch.cuda.device(dev):
-                self._build(lambda: self._warm(seed),
-                            ([("light", self._light)] if self.bdpt else [])
-                            + [("step", self._step)])
+                self._graphs_for(seed)
         out.log(3, f"queued loop on {dev}: {self.lanes} lanes x "
                    f"{self.n_samples} samples, "
                    f"{'BDPT' if self.bdpt else 'NEE'}, RGK_BINNED="
-                   f"{self.mode}, " + (
-                       f"CUDA graphs, end test read every {self.k} replays"
-                       if dev.type == "cuda" else "eager steps"))
+                   f"{self.mode}, " + ("one CUDA graph with a WHILE node"
+                                       if dev.type == "cuda" else
+                                       "eager steps"))
+
+    def _graphs_for(self, seed: int) -> None:
+        """Warm-up, the captures (the light phase, the step) and the
+        WHILE graph around them."""
+        self._build(lambda: self._warm(seed),
+                    ([("light", self._light)] if self.bdpt else [])
+                    + [("step", self._step)], keep=True)
+        self._while_graph("queued", "step", "light" if self.bdpt else None)
 
     # ---- the bodies: run eagerly, or captured once
 
     def _load(self, px, py, sample0: int, seed: int, cam) -> None:
         """The block's inputs into the static buffers (`copy_`/`fill_`,
-        no sync) and the state reset."""
+        no sync), the state reset and the end test set."""
         if px.shape[0] != self.lanes:
             raise ValueError(f"a block of {px.shape[0]} lanes for a runner "
                              f"of {self.lanes}")
@@ -337,8 +423,6 @@ class QueuedGraph(_Runner):
         self.state.rays.copy_(rays)
 
     def _step(self) -> None:
-        if self.work is not None:
-            self.work.add_(self.live)
         q = tpath._queued_step(self.scene, self.meta, self.settings, self.su,
                                self.cam, self.inp, self.state,
                                self.sampler_mode)
@@ -360,7 +444,6 @@ class QueuedGraph(_Runner):
             self._light()
         for _ in range(WARMUP_STEPS):
             self._step()
-        _bump(steps=WARMUP_STEPS)  # `work` counts them too
 
     # ---- the block
 
@@ -370,25 +453,12 @@ class QueuedGraph(_Runner):
         with torch.no_grad(), self._device():
             self._load(px, py, sample0, seed, cam)
             if self.device.type != "cuda":
-                if self.bdpt:
-                    self._light()
-                n = 0
-                while bool(self.live):
-                    self._step()
-                    n += 1
+                n = gw.run_plain(self._step, self.live,
+                                 prologue=self._light if self.bdpt else None)
                 _bump(blocks=1, steps=n, iterations=n, flag_reads=n + 1)
                 return
-            if self.bdpt:
-                self._replay("light")
-            n = reads = 0
-            while True:
-                self._replay("step", self.k)
-                n += self.k
-                reads += 1
-                if not bool(self.live):  # the end test: one sync
-                    break
-            _bump(blocks=1, steps=n, replays=n, flag_reads=reads,
-                  light_replays=int(self.bdpt))
+            self._launch()
+            _bump(blocks=1, while_launches=1, light_replays=int(self.bdpt))
 
     def trace(self, px, py, sample0: int, seed: int, cam):
         """`block`, then the outputs of `path.trace_wavefront_queued`
@@ -418,13 +488,16 @@ class QueuedGraph(_Runner):
 
 
 class LaneGraph(_Runner):
-    """The per-sample path (`path.trace_wavefront`) over `lanes` lanes of
-    (pixel, sample) on the scene's device as one CUDA graph (module
-    doc): every bounce runs, so a call makes no sync.  Built once per
-    (device, lanes, `binned_mode`); on a card captured here after
-    warm-up runs on the frame's first `lanes` pixels, sample 0, under
-    `seed`.  On the CPU `trace` runs the same body eagerly.  Its values
-    are `render_lanes`'s bit for bit (a dead lane adds nothing)."""
+    """The per-sample path (`path.trace_wavefront`, the reference's
+    `while_loop`) over `lanes` lanes of (pixel, sample) on the scene's
+    device (module doc): on a card one launch of a CUDA graph whose
+    WHILE node runs one captured bounce while `path._lane_live` holds,
+    so a call makes no sync and runs no bounce past the last live lane.
+    Built once per (device, lanes, `binned_mode`); on a card captured
+    here after warm-up runs on the frame's first `lanes` pixels, sample
+    0, under `seed`.  On the CPU `trace` runs the same pieces eagerly,
+    reading the end test before every bounce.  Its values are
+    `render_lanes`'s bit for bit."""
 
     def __init__(self, scene, meta, settings, cam, lanes: int,
                  sampler_mode: int = 1, seed: int = 0):
@@ -433,12 +506,15 @@ class LaneGraph(_Runner):
         self.scene, self.meta, self.settings = scene, meta, settings
         self.lanes, self.sampler_mode = int(lanes), sampler_mode
         self.mode = binned_mode(meta)
+        self.su = tpath._setup(scene, meta, settings)
         self.cam = cam.to(dev, copy=True)
         r, k = self.lanes, max(0, int(settings.reverse))
         self.px = torch.zeros(r, dtype=torch.int32, device=dev)
         self.py = torch.zeros_like(self.px)
         self.sample = torch.zeros(r, dtype=torch.int64, device=dev)
         self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.live = torch.ones((), dtype=torch.bool, device=dev)
+        self.fixed = self.state = None  # the prologue's, for the body
         self.out = tpath.TraceResult(
             radiance=torch.zeros((r, 3), dtype=torch.float32, device=dev),
             rays=torch.zeros((), dtype=torch.int64, device=dev),
@@ -448,12 +524,13 @@ class LaneGraph(_Runner):
         if dev.type == "cuda":
             with torch.no_grad(), torch.cuda.device(dev):
                 self._build(lambda: self._warm(seed),
-                            [("trace", self._trace)])
+                            [("init", self._init), ("bounce", self._bounce),
+                             ("finish", self._finish)], keep=True)
+                self._while_graph("lanes", "bounce", "init", "finish")
         out.log(3, f"per-sample path on {dev}: {r} lanes, depth "
-                   f"{int(settings.recursion_max)}, reverse {k}, "
-                   f"RGK_BINNED={self.mode}, " + (
-                       "one CUDA graph" if dev.type == "cuda"
-                       else "eager"))
+                   f"{self.su.depth}, reverse {k}, RGK_BINNED={self.mode}, "
+                   + ("one CUDA graph with a WHILE node"
+                      if dev.type == "cuda" else "eager"))
 
     def _load(self, px, py, sample_idx, seed: int, cam) -> None:
         if px.shape[0] != self.lanes:
@@ -465,24 +542,43 @@ class LaneGraph(_Runner):
         self.sample.copy_(sample_idx)
         self.seed.fill_(int(seed) & 0xFFFFFFFF)
 
-    def _trace(self) -> None:
+    def _init(self) -> None:
         ctx = smp.SampleCtx(
             seed=self.seed,
             pixel=self.py.long() * self.cam.xres + self.px.long(),
             sample=self.sample, mode=self.sampler_mode,
-            n_set=max(1, int(self.settings.multisample)))
-        # differentiable: every bounce, no read of the all-dead test.
-        got = tpath.trace_wavefront(self.scene, self.meta, self.settings,
-                                    self.cam, ctx, self.px, self.py,
-                                    differentiable=True)
+            n_set=self.su.n_set)
+        self.fixed, state = tpath._lane_init(
+            self.scene, self.meta, self.settings, self.su, self.cam, ctx,
+            self.px, self.py)
+        # The body writes the carry in place, so each field gets memory
+        # of its own (a pinhole camera's ray origins view its origin).
+        self.state = tpath._LaneState(
+            *(t if t._base is None else t.clone() for t in state))
+        self.live.copy_(tpath._lane_live(self.su, self.state))
+
+    def _bounce(self) -> None:
+        q = tpath._lane_bounce(self.scene, self.meta, self.settings,
+                               self.su, self.fixed, self.state,
+                               self.state.bounce)
+        for buf, v in zip(self.state, q):
+            buf.copy_(v)
+        self.live.copy_(tpath._lane_live(self.su, self.state))
+
+    def _finish(self) -> None:
+        got = tpath._lane_finish(self.su, self.fixed, self.state)
         for buf, v in zip(self.out, got):
             buf.copy_(v)
 
     def _warm(self, seed: int) -> None:
+        """Prologue, one bounce and epilogue, `WARMUP_STEPS` times, with
+        no read of the end test."""
         self._load(*self._first_pixels(), torch.zeros_like(self.sample),
                    seed, self.cam)
         for _ in range(WARMUP_STEPS):
-            self._trace()
+            self._init()
+            self._bounce()
+            self._finish()
 
     def trace(self, px, py, sample_idx, seed: int, cam) -> tpath.TraceResult:
         """`render_lanes(scene, meta, settings, cam, px, py, sample_idx,
@@ -492,8 +588,10 @@ class LaneGraph(_Runner):
         with torch.no_grad(), self._device():
             self._load(px, py, sample_idx, seed, cam)
             if self.device.type == "cuda":
-                self._replay("trace")
+                self._launch()
                 _bump(lane_replays=1)
             else:
-                self._trace()
+                n = gw.run_plain(self._bounce, self.live,
+                                 prologue=self._init, epilogue=self._finish)
+                _bump(lane_bounces=n)
         return self.out

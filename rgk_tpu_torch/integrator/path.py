@@ -32,17 +32,20 @@ Where the loops run:
 * the queued tracers are split as the reference's `while_loop` is: the
   carry `_QueuedState`, the block's inputs `_QueuedInputs` (device
   tensors), the body `_queued_step` (no host sync) and the end test
-  `_queued_live` (a device bool).  On a CUDA tensor a block runs as
-  CUDA-graph replays of one captured step, the BDPT light phase as one
-  more graph, with the end test read every k replays
+  `_queued_live` (a device bool).  On a CUDA tensor a block runs as one
+  CUDA graph whose conditional WHILE node runs the captured step while
+  the end test holds, the BDPT light phase before it
   (`integrator/graph.py`); on the CPU as the plain host loop
   `_queued_walk`, one sync an iteration;
-* `trace_wavefront`'s bounce loop is a host loop (one sync a bounce
-  unless `differentiable`), so that autograd records it.  On the card
-  `render_image_round` and the mesh's render function replay it as one
-  CUDA graph of every bounce (`graph.LaneGraph`, no sync), and the
-  gradient step replays forward and backward as one graph
-  (`diff/graph.py`).
+* `trace_wavefront` is split as the reference's: `_lane_init`, the
+  end test `_lane_live` (a device bool), the body `_lane_bounce` and
+  `_lane_finish`.  Differentiable, every bounce runs (the reference's
+  `lax.scan`, which autograd records; the gradient step replays forward
+  and backward as one graph, `diff/graph.py`); else the host reads the
+  end test before every bounce.  On the card `render_image_round` and
+  the mesh's render function run the pieces as one CUDA graph with a
+  conditional WHILE node (`graph.LaneGraph`, no sync, no bounce past
+  the last live lane).
 Every value is a pure function of (seed, pixel, sample), so a render is
 bitwise repeatable, except the splat sums of a BDPT render on the card
 (`_splat_image`).
@@ -643,9 +646,9 @@ def trace_wavefront_queued(scene, meta, settings, cam, px, py,
     Returns (radiance sum f32 [R,3] over the lane's samples, extension
     rays traced as an int64 scalar tensor).
 
-    On a CUDA tensor the loop runs as CUDA-graph replays
-    (`graph.QueuedGraph`, captured for this call); on the CPU as the
-    plain host loop `trace_wavefront_queued_eager`."""
+    On a CUDA tensor the loop runs as one launch of a CUDA graph with a
+    WHILE node (`graph.QueuedGraph`, captured for this call); on the CPU
+    as the plain host loop `trace_wavefront_queued_eager`."""
     if px.device.type == "cuda":
         from .graph import QueuedGraph
 
@@ -690,8 +693,8 @@ def trace_wavefront_queued_bdpt(scene, meta, settings, cam, px, py,
     sampling is a pure function of (seed, pixel, sample, dim); only the
     splat sums add in another order.  Returns (radiance f32 [R,3],
     splat image f32 [H*W+1, 3], rays int64 []: light-subpath plus eye
-    extensions).  On a CUDA tensor both phases run as CUDA-graph
-    replays (`graph.QueuedGraph`), on the CPU as
+    extensions).  On a CUDA tensor both phases run as one launch of a
+    CUDA graph with a WHILE node (`graph.QueuedGraph`), on the CPU as
     `trace_wavefront_queued_bdpt_eager`.
 
     Sizes at the CLI's defaults (blocks of 2^20 // ms pixels): at 16 spp
@@ -731,18 +734,33 @@ def trace_wavefront_queued_bdpt_eager(scene, meta, settings, cam, px, py,
 
 # ------------------------------------------------------ per-sample path
 
-def trace_wavefront(scene, meta, settings, cam, ctx, px, py,
-                    differentiable: bool = False) -> TraceResult:
-    """Trace one eye path (and, with `reverse` > 0, one light subpath)
-    per lane; `ctx` gives each lane's (seed, pixel, sample).
+class _LaneFixed(NamedTuple):
+    """What every bounce of the per-sample path reads, set before the
+    first (the reference's `trace_wavefront` closure)."""
+    ctx: smp.SampleCtx
+    light: light_ops.LightSample
+    lrec: Optional[dict]     # BDPT: [K, R, ...] light vertices, else None
+    splat_pix: torch.Tensor  # int32 [R,K]
+    splat_val: torch.Tensor  # f32 [R,K,3]
 
-    `differentiable` keeps the reference's meaning: True runs all
-    `recursion_max` bounces (what `graph.LaneGraph` captures); False
-    stops once every lane is dead (one device-to-host sync a bounce).
-    The values are the same either way: a dead lane adds nothing."""
-    su = _setup(scene, meta, settings)
+
+class _LaneState(NamedTuple):
+    """The eye walk's carry (the reference's `w_cond` / `w_body` carry)."""
+    ro: torch.Tensor            # f32 [R,3]
+    rd: torch.Tensor            # f32 [R,3]
+    last_tri: torch.Tensor      # int32 [R]
+    contribution: torch.Tensor  # f32 [R,3]
+    alive: torch.Tensor         # bool [R]
+    radiance: torch.Tensor      # f32 [R,3]
+    rays: torch.Tensor          # int64 [] extension rays traced
+    bounce: torch.Tensor        # int64 [] the next bounce's index
+
+
+def _lane_init(scene, meta, settings, su: _Setup, cam, ctx, px, py):
+    """Camera rays, the path's light, the light subpaths and their
+    splats (`reverse` > 0), and the eye walk's carry at bounce 0.  ->
+    (_LaneFixed, _LaneState)."""
     reverse = int(settings.reverse)
-
     jitter = smp.sample_2d(ctx, smp.DIM_PIXEL_JITTER)
     lens = None if cam.is_simple else smp.sample_2d(ctx, smp.DIM_LENS)
     ro, rd = pixel_rays(cam, px, py, jitter, lens_sample=lens)
@@ -751,7 +769,7 @@ def trace_wavefront(scene, meta, settings, cam, ctx, px, py,
     light = _sample_path_light(scene, ctx)
     r, dev = ro.shape[0], ro.device
     rays = torch.zeros((), dtype=torch.int64, device=dev)
-
+    lrec = None
     if reverse > 0:
         lrec, splat_pix, splat_val, rays = _trace_light_subpaths(
             scene, meta, settings, cam, ctx, su, light,
@@ -759,43 +777,85 @@ def trace_wavefront(scene, meta, settings, cam, ctx, px, py,
     else:
         splat_pix = torch.full((r, 0), -1, dtype=torch.int32, device=dev)
         splat_val = torch.zeros((r, 0, 3), dtype=torch.float32, device=dev)
+    state = _LaneState(
+        ro=ro, rd=rd,
+        last_tri=torch.full((r,), -1, dtype=torch.int32, device=dev),
+        contribution=torch.ones((r, 3), dtype=torch.float32, device=dev),
+        alive=torch.ones(r, dtype=torch.bool, device=dev),
+        radiance=torch.zeros((r, 3), dtype=torch.float32, device=dev),
+        rays=rays, bounce=torch.zeros((), dtype=torch.int64, device=dev))
+    return _LaneFixed(ctx=ctx, light=light, lrec=lrec, splat_pix=splat_pix,
+                      splat_val=splat_val), state
 
-    state = dict(ro=ro, rd=rd,
-                 last_tri=torch.full((r,), -1, dtype=torch.int32, device=dev),
-                 contribution=torch.ones((r, 3), dtype=torch.float32,
-                                         device=dev),
-                 alive=torch.ones(r, dtype=torch.bool, device=dev))
-    radiance = torch.zeros((r, 3), dtype=torch.float32, device=dev)
-    for bounce in range(su.depth):
-        if not differentiable and not bool(state["alive"].any()):
-            break
-        contrib, ray_dir = state["contribution"], state["rd"]
-        state, sp, p0, act, n_rays, sky_mask = _extend_path(
-            scene, meta, settings, su, ctx, state["ro"], ray_dir,
-            state["last_tri"], contrib, state["alive"], bounce, su.russian,
-            TAG_EYE)
-        rays = rays + n_rays
-        # Sky escape (not tinted through thin glass, as in the reference).
-        sky = tex_ops.sky_radiance(scene, -ray_dir,
-                                   has_envmap=meta.has_envmap)
-        radiance = radiance + torch.where(sky_mask[..., None],
-                                          contrib * sky, 0.0)
-        total_here = _vertex_radiance(scene, meta, su, light, sp, p0,
-                                      active=act)
-        for k in range(reverse):
-            lv = {f: v[k] for f, v in lrec.items()}
+
+def _lane_live(su: _Setup, q: _LaneState) -> torch.Tensor:
+    """The eye walk's end test, a bool [] on the device: bounces left
+    and some lane alive (the reference's `w_cond`)."""
+    return (q.bounce < su.depth) & q.alive.any()
+
+
+def _lane_bounce(scene, meta, settings, su: _Setup, f: _LaneFixed,
+                 q: _LaneState, bounce) -> _LaneState:
+    """One eye bounce (the reference's `eye_bounce`): extension, sky
+    escape, NEE and emission, the BDPT connections.  `bounce` is the
+    vertex index, a Python int or `q.bounce` (an int64 [] on the device,
+    for a captured body: the same samples and roulette).  On a state
+    where no lane is alive it changes nothing but `bounce`."""
+    contrib, ray_dir = q.contribution, q.rd
+    nxt, sp, p0, act, n_rays, sky_mask = _extend_path(
+        scene, meta, settings, su, f.ctx, q.ro, ray_dir, q.last_tri,
+        contrib, q.alive, bounce, su.russian, TAG_EYE)
+    # Sky escape (not tinted through thin glass, as in the reference).
+    sky = tex_ops.sky_radiance(scene, -ray_dir, has_envmap=meta.has_envmap)
+    radiance = q.radiance + torch.where(sky_mask[..., None], contrib * sky,
+                                        0.0)
+    total_here = _vertex_radiance(scene, meta, su, f.light, sp, p0,
+                                  active=act)
+    if f.lrec is not None:
+        for k in range(f.lrec["valid"].shape[0]):
+            lv = {name: v[k] for name, v in f.lrec.items()}
             total_here = total_here + _connect_to_light_vertex(
                 scene, meta, su, lv, sp, p0, act)
-        total_here = torch.clamp(total_here, max=su.clamp)
-        radiance = radiance + torch.where(act[..., None],
-                                          contrib * total_here, 0.0)
+    total_here = torch.clamp(total_here, max=su.clamp)
+    radiance = radiance + torch.where(act[..., None],
+                                      contrib * total_here, 0.0)
+    return _LaneState(ro=nxt["ro"], rd=nxt["rd"], last_tri=nxt["last_tri"],
+                      contribution=nxt["contribution"], alive=nxt["alive"],
+                      radiance=radiance, rays=q.rays + n_rays,
+                      bounce=q.bounce + 1)
 
-    # Final clamp + NaN/negative scrub.
-    radiance = torch.clamp(radiance, max=su.clamp)
+
+def _lane_finish(su: _Setup, f: _LaneFixed, q: _LaneState) -> TraceResult:
+    """Final clamp + NaN/negative scrub."""
+    radiance = torch.clamp(q.radiance, max=su.clamp)
     radiance = torch.where(torch.isnan(radiance) | (radiance < 0.0), 0.0,
                            radiance)
-    return TraceResult(radiance=radiance, rays=rays, splat_pix=splat_pix,
-                       splat_val=splat_val)
+    return TraceResult(radiance=radiance, rays=q.rays, splat_pix=f.splat_pix,
+                       splat_val=f.splat_val)
+
+
+def trace_wavefront(scene, meta, settings, cam, ctx, px, py,
+                    differentiable: bool = False) -> TraceResult:
+    """Trace one eye path (and, with `reverse` > 0, one light subpath)
+    per lane; `ctx` gives each lane's (seed, pixel, sample).
+
+    `differentiable` keeps the reference's meaning: True runs all
+    `recursion_max` bounces (its `lax.scan`, which autograd records);
+    False is its `while_loop`, the host reading `_lane_live` before
+    every bounce (one device-to-host sync each; `graph.LaneGraph` runs
+    the same pieces on the card with the test on the device).  The
+    values are the same either way: a dead lane adds nothing."""
+    su = _setup(scene, meta, settings)
+    f, q = _lane_init(scene, meta, settings, su, cam, ctx, px, py)
+    if differentiable:
+        for bounce in range(su.depth):
+            q = _lane_bounce(scene, meta, settings, su, f, q, bounce)
+    else:
+        bounce = 0
+        while bool(_lane_live(su, q)):
+            q = _lane_bounce(scene, meta, settings, su, f, q, bounce)
+            bounce += 1
+    return _lane_finish(su, f, q)
 
 
 def render_lanes(scene, meta, settings, cam, px, py, sample_idx, seed,
@@ -848,7 +908,7 @@ def render_image_round(scene, meta, settings, cam, round_idx: int,
     On a CUDA tensor the lanes go through `runner`, a
     `graph.LaneGraph` of H*W*multisample lanes (one is built for this
     call when None; pass one to render many rounds without capturing
-    again): one graph replay, no sync.  On the CPU the same as
+    again): one graph launch, no sync.  On the CPU the same as
     `render_image_round_eager`."""
     dev = scene.tri_pack.device
     if dev.type != "cuda":

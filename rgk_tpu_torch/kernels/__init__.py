@@ -164,6 +164,17 @@ def _open(path):
     lib.rgk_take_rows_backward_smem.restype = ctypes.c_longlong
     lib.rgk_take_rows_backward.argtypes = [p, p, i, i, i, p, p, p]
     lib.rgk_take_rows_backward.restype = i
+    lib.rgk_while_graph_error.argtypes = []
+    lib.rgk_while_graph_error.restype = ctypes.c_char_p
+    lib.rgk_cuda_driver_version.argtypes = [p]
+    lib.rgk_graph_check.argtypes = [p, ctypes.c_char_p, p]
+    lib.rgk_while_graph_create.argtypes = [p, p, p, p, i, p, p, p]
+    lib.rgk_while_graph_launch.argtypes = [p, p]
+    lib.rgk_while_graph_destroy.argtypes = [p]
+    for fn in (lib.rgk_cuda_driver_version, lib.rgk_graph_check,
+               lib.rgk_while_graph_create, lib.rgk_while_graph_launch,
+               lib.rgk_while_graph_destroy):
+        fn.restype = i
     lib.rgk_cuda_error_string.argtypes = [i]
     lib.rgk_cuda_error_string.restype = ctypes.c_char_p
     lib.rgk_device_smem_optin.argtypes = [i]

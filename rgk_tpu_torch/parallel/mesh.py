@@ -4,13 +4,14 @@ rgk_tpu/parallel/mesh.py).
 A `MeshContext` holds a list of torch devices, by default every visible
 CUDA device.  The scene is copied to each (`shard_scene`); a block's
 lanes are split into `n` equal contiguous shards, each traced on its own
-device by its own host thread (the queued loops sync the host to read
-their end test, so one thread would run the devices one after another).
+device by its own host thread (on the CPU the loops read their end
+test on the host, so one thread would run the devices one after
+another).
 The queued tracers run each shard through its own
 `integrator.graph.QueuedGraph`, kept per (shard, `RGK_BINNED` mode), the
 per-sample path through a `LaneGraph`, each built on the calling thread
 before the shard threads start (a build sets the process-wide sync
-debug mode); on a card each shard's graphs replay on its own device.
+debug mode); on a card each shard's graphs run on its own device.
 Only one card exists where the port was measured, so the path with
 n > 1 cards is unrun.
 Radiance comes back to the first device in shard order, ray counts add
@@ -155,8 +156,8 @@ class MeshContext:
         divide into the mesh size.  Each shard runs through its own
         `integrator.graph.LaneGraph`, kept per (shard, `RGK_BINNED`
         mode, shard lanes) and built on the calling thread (as
-        `_queued_runners` builds theirs): on a card one graph replay, no
-        sync."""
+        `_queued_runners` builds theirs): on a card one launch of a
+        graph with a WHILE node, no sync."""
         runners = {}
 
         def run(scenes, cam, px, py, sample_idx, seed):

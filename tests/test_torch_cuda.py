@@ -932,16 +932,29 @@ def test_queued_graph_equals_eager(cuda_device, tmp_path, case):
             torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
 
 
-def test_queued_graph_replay_does_not_sync(cuda_device, tmp_path):
-    """A block's replays under set_sync_debug_mode("error") raise only at
-    the end-test reads: with the reads themselves allowed, nothing in a
-    replay or the tail syncs."""
+def _queued_runner(route, k, *args):
+    """A queued runner through the WHILE graph ("device"), or
+    chip_smoke's HostReadGraph reading the end test every k replays
+    ("host")."""
+    from rgk_tpu_torch.integrator import graph
+
+    if route == "device":
+        return graph.QueuedGraph(*args)
+    smoke = _module("_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    return smoke.HostReadGraph(*args, k=k)
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_queued_graph_replay_does_not_sync(cuda_device, tmp_path, route):
+    """A block under set_sync_debug_mode("warn"): through the WHILE graph
+    nothing syncs (no end-test read, no step past the end); on the host
+    route (k = 2) the only syncs are its end-test reads."""
     import warnings
 
     from rgk_tpu_torch.integrator import graph
 
     arrays, meta, s, cam = _graph_scene(tmp_path, "sphere")
-    runner = graph.QueuedGraph(arrays, meta, s, cam, 1024, 4, k=2)
+    runner = _queued_runner(route, 2, arrays, meta, s, cam, 1024, 4)
     px, py = _graph_block()
     acc = torch.zeros((64 * 64 + 1, 3), device="cuda")
     rays = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -958,18 +971,25 @@ def test_queued_graph_replay_does_not_sync(cuda_device, tmp_path):
         torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     st = graph.read_stats()
-    assert len(syncs) == st["flag_reads"] == -(-st["replays"] // 2)
-    assert 0 <= st["overshoot"] < 2
+    if route == "host":
+        assert len(syncs) == st["flag_reads"] == -(-st["replays"] // 2)
+        assert 0 <= st["overshoot"] < 2
+    else:
+        assert len(syncs) == st["flag_reads"] == st["overshoot"] == 0
+        assert st["replays"] == st["iterations"] > 0
+        assert st["setter_runs"] == st["iterations"] + 1
 
 
-def test_queued_graph_launch_counts(cuda_device, tmp_path):
-    """The launch counters after graph replays equal the eager loop's
-    for the same block, minus the launches of the steps past the end."""
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_queued_graph_launch_counts(cuda_device, tmp_path, route):
+    """The launch counters after a block through the WHILE graph (read
+    with the statistics) or through replays read every step equal the
+    eager loop's for the same block."""
     from rgk_tpu_torch.integrator import graph
     from rgk_tpu_torch.integrator import path as tpath
 
     arrays, meta, s, cam = _graph_scene(tmp_path, "flat")
-    runner = graph.QueuedGraph(arrays, meta, s, cam, 1024, 4, k=1)
+    runner = _queued_runner(route, 1, arrays, meta, s, cam, 1024, 4)
     px, py = _graph_block()
     n0 = dict(fi.launches)
     tpath.trace_wavefront_queued_eager(arrays, meta, s, cam, px, py, 0, 4, 42)
@@ -977,12 +997,124 @@ def test_queued_graph_launch_counts(cuda_device, tmp_path):
     graph.reset_stats()
     n0 = dict(fi.launches)
     runner.block(px, py, 0, 42, cam)
-    got = {m: fi.launches[m] - n0[m] for m in n0}
     st = graph.read_stats()
+    got = {m: fi.launches[m] - n0[m] for m in n0}
     assert st["replays"] == st["iterations"] and st["overshoot"] == 0
     # One closest-hit and one any-hit query an iteration.
     assert got == eager == {"closest": st["iterations"],
                             "any": st["iterations"]}
+
+
+@pytest.mark.parametrize("case", ["flat", "sphere", "bdpt"])
+def test_queued_while_equals_host_route(cuda_device, tmp_path, case):
+    """Two blocks through the WHILE graph and through the host route
+    (k = 4): radiance and rays bit-equal, the BDPT splat image within
+    rtol 1e-5 (atomics), the same iterations; no end-test read and no
+    step past the end on the device route."""
+    from rgk_tpu_torch.integrator import graph
+
+    arrays, meta, s, cam = _graph_scene(tmp_path, case)
+    dev_r = graph.QueuedGraph(arrays, meta, s, cam, 1024, 4)
+    host_r = _queued_runner("host", 4, arrays, meta, s, cam, 1024, 4)
+    for first, s0, seed in ((300, 0, 42), (2000, 8, 9)):
+        px, py = _graph_block(first=first)
+        graph.reset_stats()
+        got = [t.clone() for t in dev_r.trace(px, py, s0, seed, cam)]
+        st = graph.read_stats()
+        graph.reset_stats()
+        want = host_r.trace(px, py, s0, seed, cam)
+        st_host = graph.read_stats()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[-1], want[-1])
+        if case == "bdpt":
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+        assert st["flag_reads"] == st["overshoot"] == 0
+        assert st["iterations"] == st_host["iterations"] > 0
+        assert st_host["flag_reads"] > 0
+
+
+def test_while_graph_runs_a_counting_loop(cuda_device):
+    """A WHILE graph around three tiny captures: the body runs while the
+    flag holds (x counts to n), the setter's counter gains bodies + 1 a
+    launch, and a flag false after the prologue runs no body."""
+    from rgk_tpu_torch.ops import graph_while as gw
+
+    x = torch.zeros((), dtype=torch.int64, device="cuda")
+    n = torch.full((), 10, dtype=torch.int64, device="cuda")
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+    runs = torch.zeros((), dtype=torch.int64, device="cuda")
+    side = torch.cuda.Stream()
+
+    def capture(fn):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g, stream=side):
+            fn()
+        return g
+
+    pro = capture(lambda: (x.zero_(), flag.copy_(x < n)))
+    body = capture(lambda: (x.add_(1), flag.copy_(x < n)))
+    epi = capture(lambda: x.mul_(2))
+    loop = gw.WhileGraph(body, flag, runs, pro, epi)
+    loop.launch()
+    torch.cuda.synchronize()
+    assert int(x) == 20 and int(runs) == 11
+    n.fill_(0)
+    loop.launch()
+    torch.cuda.synchronize()
+    assert int(x) == 0 and int(runs) == 12
+    assert gw.node_count(body) >= 2
+    assert gw.driver_version() >= 12040  # conditional WHILE nodes
+
+
+def test_while_graph_refuses_an_event_record(cuda_device):
+    """A capture that holds an event record node (an external event
+    recorded on the capturing stream) is refused by name; nothing is
+    built."""
+    from rgk_tpu_torch.ops import graph_while as gw
+
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+    runs = torch.zeros((), dtype=torch.int64, device="cuda")
+    ev = torch.cuda.Event(external=True)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=torch.cuda.Stream()):
+        flag.fill_(False)
+        ev.record()
+    with pytest.raises(RuntimeError, match="event record"):
+        gw.WhileGraph(g, flag, runs)
+
+
+def test_lane_graph_stops_at_the_last_live_bounce(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """The per-sample path at the JSON defaults (recursion-max 40,
+    russian 0.74) through the WHILE graph: bit-equal to render_lanes
+    (the host loop), no sync, and as many bounces as the host loop ran,
+    fewer than 40."""
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.integrator import path as tpath
+
+    cfg = scenes.box_config(res=64, ms=4, russian=0.74,
+                            **{"recursion-max": 40})
+    arrays, meta, c = scenes.port_build(
+        scenes.write_config(tmp_path, cfg, "deep.json"), "cuda")
+    s, cam = c.settings, c.get_camera().to("cuda")
+    runner = graph.LaneGraph(arrays, meta, s, cam, 2048)
+    px, py, si = _lanes_on_card()
+    n = []
+    orig = tpath._lane_bounce
+    monkeypatch.setattr(tpath, "_lane_bounce",
+                        lambda *a: n.append(1) or orig(*a))
+    want = tpath.render_lanes(arrays, meta, s, cam, px, py, si, 42)
+    monkeypatch.setattr(tpath, "_lane_bounce", orig)
+    graph.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [t.clone() for t in runner.trace(px, py, si, 42, cam)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st = graph.read_stats()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert st["lane_bounces"] == len(n) < 40 and st["flag_reads"] == 0
 
 
 def test_queued_graph_tail_follows_the_accumulator(cuda_device, tmp_path):
