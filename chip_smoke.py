@@ -155,7 +155,11 @@ the first that fails:
    block each under torch.profiler, and block 0 timed through the WHILE
    graph and the host route at k = 1, 4, 8 in turns; then the condition
    setter alone: a WHILE graph around a 3-kernel body counting to 1000
-   against the same body replayed with a host read after each;
+   against the same body replayed with a host read after each; then the
+   phase stamp alone: 1000 captured stamps back to back, and 8 device
+   sleeps (~100 ms in all) each closed by a stamp, the stamped time
+   against CUDA events around the replay less those around a lone
+   mark's (rtol 1e-3);
 21. the per-sample path as one CUDA graph with a WHILE node:
    `render_image_round` through a `LaneGraph` against
    `render_image_round_eager` (the host bounce loop) on phase 5's flat
@@ -242,7 +246,9 @@ to 0 just before it and read just after: K1 the sum of phases 5, 13,
 two binned renders, the BDPT splat-query rows those of phases 14 and
 15, the probes their tool runs, K5 of phases 5, 7, 10, 13-19, 21 and
 23, phase 22's comparisons left out, the condition setter its runs in
-phases 20 and 21's WHILE-graph rounds; ms, plain_ms,
+phases 20 and 21's WHILE-graph rounds, the phase stamp its launches in
+the graph rounds of phases 20 and 21 and the graph steps of phases 16,
+17 and 23, each held to the stamps a step makes; ms, plain_ms,
 bound_ms, bound_by, share, library_ms null but for K5's rows, parent_ms
 for K1-K5 with --parent), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
@@ -315,6 +321,7 @@ K5_REPLACES = "rgk_tpu/ops/vecmath.py:39"
 SETTER_SOURCE = "rgk_tpu_torch/csrc/graph_while.cu"
 SETTER_REPLACES = "rgk_tpu/integrator/path.py:344"  # the queued loop's cond
 SETTER_RUNS = []  # the setter's runs in phases 20 and 21, counted from 0
+STAMP_RUNS = []   # the phase stamp's launches in phases 16, 17, 20, 21, 23
 PROBE_SOURCE = "rgk_tpu_torch/csrc/probes.cu"
 P1_REPLACES = "tools/prof_smem_probe.py:23"
 P2_REPLACES = "tools/prof_sync.py:24"
@@ -376,6 +383,10 @@ HOST_K = 4           # the host route block 0 is held bit-equal to
 ROUTE_CYCLES = 2     # turns of (device, k ascending, k descending, device)
 SETTER_ITERS = 1000  # iterations of the condition setter's own loop
 SETTER_BYTES = 17    # a run reads the flag (1) and the counter (8), writes 8
+STAMP_ITERS = 1000   # stamps back to back in the stamp's own captured body
+STAMP_SLEEPS = 8     # sleeps of SLEEP_CYCLES // 4, each closed by a stamp
+STAMP_BYTES = 32     # a stamp reads acc[last] and acc[slot], writes both
+STAMP_RTOL = 1e-3    # the stamped sleeps against CUDA events around them
 LANE_MS = 4  # phase 21's flat scene: 512x512 x 4 spp = 1,048,576 lanes
 # The config's defaults (scene/config.py), which phase 21's scene keeps.
 DEFAULT_DEPTH, DEFAULT_RUSSIAN = 40, 0.74
@@ -420,7 +431,7 @@ def reset_launches():
     bi.launches.update(walk=0, sweep=0)
     p1.launches.update(smem=0, unpack=0, row_copy=0)
     p2.launches.update(sync=0, fetch=0)
-    gw.launches.update(setter=0)
+    gw.launches.update(setter=0, stamp=0)
     tgraph.reset_stats()
 
 
@@ -2480,6 +2491,7 @@ def graph_step_vs_eager(label, make_graph, loss_fn, params):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build = tgraph.read_stats()
+    gw.launches["stamp"] = 0
     vg(params)
     eager_step(loss_fn, params)
     times = {"graph": [], "eager": []}
@@ -2495,6 +2507,13 @@ def graph_step_vs_eager(label, make_graph, loss_fn, params):
         times[route].append((time.perf_counter() - t0) * 1e3)
         outs[route].append((loss.clone(), {
             k: None if g is None else g.clone() for k, g in grads.items()}))
+    # A traced graph step stamps three times (diff/graph.py); the eager
+    # step none.
+    steps = tgraph.read_stats()["grad_steps"] - build["grad_steps"]
+    stamps = launched(gw)["stamp"]
+    check(steps == 3 and stamps == 3 * steps,
+          f"{label}: {stamps} phase stamps in {steps} graph steps")
+    STAMP_RUNS.append(stamps)
     peak = torch.cuda.max_memory_allocated()
     (g_loss, g_grads), (e_loss, e_grads) = outs["graph"][-1], \
         outs["eager"][-1]
@@ -2955,6 +2974,7 @@ def graph_vs_eager(label, scene, names):
     for drv in (g, e):
         drv._acc_dev.zero_()
     tgraph.reset_stats()
+    gw.launches["stamp"] = 0
     times = {"graph": [], "eager": []}
     rays = {"graph": [], "eager": []}
     for r, route in ((2, "graph"), (2, "eager"), (3, "eager"),
@@ -2964,6 +2984,15 @@ def graph_vs_eager(label, scene, names):
         rays[route].append(n)
     gst = tgraph.read_stats()
     SETTER_RUNS.append(gst["setter_runs"])
+    # A traced step: a mark, two stamps around each ray query, one at
+    # its end (integrator/graph.py); the eager loop runs none.
+    stamps = launched(gw)["stamp"]
+    check(stamps == 2 * (gst["iterations"] + gst["closest_queries"]
+                         + gst["any_queries"]) > 0,
+          f"{label}: {stamps} phase stamps in {gst['iterations']} steps of "
+          f"{gst['closest_queries']} closest and {gst['any_queries']} "
+          f"any-hit queries")
+    STAMP_RUNS.append(stamps)
     check(rays["graph"] == rays["eager"],
           f"{label}: rays of rounds 2 and 3, graph {rays['graph']}, eager "
           f"{rays['eager']}")
@@ -3178,11 +3207,97 @@ def setter_entry():
                         err, ms["graph"], ms["plain"], bms, by)
 
 
+def stamp_entry():
+    """The phase stamp alone, on an accumulator of the queued runner's
+    shape (int64 [6], `tgraph._SLOTS["queued"]`), in captured bodies
+    replayed from the host, as the queued and gradient steps run it:
+    STAMP_ITERS stamps back to back, timed by CUDA events around the
+    replay (a stamp's ms: its node's launch latency and the kernel); and
+    a mark, then STAMP_SLEEPS device sleeps each closed by a stamp into
+    `intersect_ns` or `other_ns` in turn, whose two slots together must
+    equal the CUDA events around the replay, less those around a replay
+    of a lone mark (the launch and the edges the stamps cannot see),
+    within STAMP_RTOL of the events.  The plain version is the
+    host clock on a CPU accumulator (`gw.stamp` on the CPU).  -> the
+    kernels line's entry (launches 0 here; main() sets those of phases
+    16, 17, 20, 21 and 23)."""
+    dev = CUDA
+    slots = tgraph._SLOTS["queued"]
+    other, inside = slots.index("other_ns"), slots.index("intersect_ns")
+    acc = torch.zeros(len(slots), dtype=torch.int64, device=dev)
+    side = torch.cuda.Stream(dev)
+
+    def bare():
+        gw.stamp(acc)
+        for _ in range(STAMP_ITERS):
+            gw.stamp(acc, other)
+
+    def mark():
+        gw.stamp(acc)
+
+    def slept():
+        gw.stamp(acc)
+        for i in range(STAMP_SLEEPS):
+            torch.cuda._sleep(SLEEP_CYCLES // 4)
+            gw.stamp(acc, (inside, other)[i % 2])
+
+    graphs = {}
+    for name, fn in (("bare", bare), ("mark", mark), ("slept", slept)):
+        fn()  # eager, outside the capture
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name], stream=side):
+            fn()
+    ms = median_ms(graphs["bare"].replay) / STAMP_ITERS
+    edge_ns = median_ms(graphs["mark"].replay) * 1e6
+    acc.zero_()
+    graphs["bare"].replay()
+    torch.cuda.synchronize()
+    check(int(acc[other]) > 0 and int(acc[inside]) == 0,
+          f"the bare stamps' slots: {acc.tolist()}")
+    errs, seen = [], []
+    for _ in range(3):
+        acc.zero_()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        graphs["slept"].replay()
+        ev[1].record()
+        ev[1].synchronize()
+        ev_ns = ev[0].elapsed_time(ev[1]) * 1e6
+        got = int(acc[inside]) + int(acc[other])
+        errs.append(abs(ev_ns - edge_ns - got) / ev_ns)
+        seen.append((got / 1e6, ev_ns / 1e6))
+        check(int(acc[inside]) > 0 and int(acc[other]) > 0,
+              f"the slept stamps' slots: {acc.tolist()}")
+    err = max(errs)
+    check(err <= STAMP_RTOL, f"the stamps saw {seen} ms (stamped, events) "
+          f"of device sleeps, {err:.3g} apart")
+    host = torch.zeros(len(slots), dtype=torch.int64)
+    t0 = time.perf_counter()
+    gw.stamp(host)
+    for _ in range(STAMP_ITERS):
+        gw.stamp(host, other)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / (STAMP_ITERS + 1)
+    bms, by = bound(2, STAMP_BYTES)
+    print(f"    phase stamp (csrc/graph_while.cu): {STAMP_ITERS} captured "
+          f"stamps back to back {ms * 1e3:.3f} us a stamp (node launch and "
+          f"kernel); {STAMP_SLEEPS} stamped device sleeps, stamps against "
+          f"CUDA events (ms): " + ", ".join(f"{a:.4f} / {b:.4f}"
+                                            for a, b in seen)
+          + f", less a lone mark's replay {edge_ns / 1e6:.4f} ms: largest "
+          f"gap {err:.3g} (limit {STAMP_RTOL:g}); host clock "
+          f"on a CPU accumulator {plain_ms * 1e3:.3f} us a stamp; bound "
+          f"{bms:.3g} ms by {by}")
+    return kernel_entry("phase_stamp", SETTER_SOURCE, None, 0, err, ms,
+                        plain_ms, bms, by)
+
+
 def phase_graph(flat_path, col_path, bdpt_path):
     """Phase 20: the queued loop's WHILE graph against the eager loop and
     against the host route on the flat smoke scene (K1), the colonnade
     (K2) with RGK_BINNED off and all, and the BDPT box (K1); then the
-    condition setter alone.  -> (numbers, the setter's entry)."""
+    condition setter and the phase stamp alone.  -> (numbers, the
+    setter's entry, the stamp's entry)."""
     t_phase = time.perf_counter()
     print(f"[20/23 queued loop: one CUDA graph with a WHILE node vs the "
           f"eager loop and the host route] {clocks()}")
@@ -3209,8 +3324,9 @@ def phase_graph(flat_path, col_path, bdpt_path):
         f"BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse {BDPT_REVERSE}",
         load_scene(bdpt_path), ("flat_sweep",))
     entry = setter_entry()
+    stamp = stamp_entry()
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
-    return got, entry
+    return got, entry, stamp
 
 
 def all_bounce_capture(runner):
@@ -3763,8 +3879,9 @@ def main(argv=None):
         k2_grad, k5_grad2 = phase_grad_k2(d)
         k1_debug, k5_debug = phase_debug_rtc(d)
         k1_dist, k5_dist = phase_distribution(d)
-        _, setter = phase_graph(os.path.join(d, f"box_sphere_{FLAT_RES}.json"),
-                                col_path, os.path.join(d, "bdpt.json"))
+        _, setter, stamp = phase_graph(
+            os.path.join(d, f"box_sphere_{FLAT_RES}.json"), col_path,
+            os.path.join(d, "bdpt.json"))
         lanes = phase_lane_graph(d, col_path)
         k5_entries = phase_take_rows(grad_path, gathers)
         k1_bdpt_grad, k5_bdpt_grad = phase_grad_bdpt(d)
@@ -3789,7 +3906,10 @@ def main(argv=None):
                 e["launches"] += sum(m[mode] for m in more[kernel])
     setter["launches"] = sum(SETTER_RUNS)
     check(setter["launches"] > 0, "no path ran the condition setter")
-    entries += bdpt1 + bdpt2 + k5_entries + [setter]
+    stamp["launches"] = sum(STAMP_RUNS)
+    check(len(STAMP_RUNS) == 8 and all(STAMP_RUNS),
+          f"the phase stamp's launches by path: {STAMP_RUNS}")
+    entries += bdpt1 + bdpt2 + k5_entries + [setter, stamp]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -15,7 +15,7 @@
 // and instantiates it: one launch runs the whole loop, with no read of the
 // flag on the host and no body past the end.
 //
-// The condition setter is the one kernel here: one thread reads the flag
+// The condition setter is one of two kernels here: one thread reads the flag
 // (a bool or an int32 the body wrote), sets the WHILE node's condition to
 // it (cudaGraphSetConditional) and adds 1 to an int64 counter of its runs.
 // A launch runs it once before the WHILE node and once after each body, so
@@ -23,6 +23,13 @@
 // card's rates (1 + 8 bytes read, 8 written, two operations); it costs a
 // kernel node's launch latency an iteration, which replaces a host read of
 // the flag (a sync) every k replays.
+//
+// The phase stamp is the other one-thread kernel: it reads %globaltimer
+// (the device's nanosecond clock), adds now - acc[last] into acc[slot] and
+// sets acc[last] = now; a slot of -1 only marks.  Launched between the
+// phases of a captured body, it times them on the device with no read on
+// the host (integrator/graph.py sums the slots when its statistics are
+// read).  What bounds it: a kernel node's launch latency; 32 bytes moved.
 //
 // A conditional body may hold kernel, memset, memcpy (device or pinned
 // memory), empty and child graph nodes.  Every node of each captured graph
@@ -71,6 +78,14 @@ __global__ void set_condition(cudaGraphConditionalHandle handle,
                       : *static_cast<const int*>(flag) != 0;
   cudaGraphSetConditional(handle, live);
   *runs += 1;
+}
+
+__global__ void stamp(long long* acc, int last, int slot) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const long long t = static_cast<long long>(now);
+  if (slot >= 0) acc[slot] += t - acc[last];
+  acc[last] = t;
 }
 
 const char* node_type_name(cudaGraphNodeType t) {
@@ -301,6 +316,15 @@ extern "C" int rgk_while_graph_launch(void* exec, void* stream) {
   RGK_TRY(cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec),
                           static_cast<cudaStream_t>(stream)));
   return 0;
+}
+
+// One phase stamp (see above) on `stream`: acc is a device int64 vector,
+// last and slot indices into it (slot -1: mark only).  Returns the launch's
+// CUDA error as an int (0 = launched).
+extern "C" int rgk_stamp(void* acc, int last, int slot, void* stream) {
+  stamp<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(acc), last, slot);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rgk_while_graph_destroy(void* exec) {

@@ -21,6 +21,11 @@ warm-up steps on a side stream under `set_sync_debug_mode("error")`,
 the launch counters' delta added per replay, the runner keyed by
 `binned_mode` (a capture freezes `RGK_BINNED`), no eager fallback on
 the card.  On the CPU a call is plain autograd on the same leaves.
+
+With tracing on (`utils/trace.py`) the step stamps its phases into the
+runner's accumulator: a mark at its start, `grad_fwd_ns` after the loss,
+`grad_bwd_ns` after `torch.autograd.grad`; `tgraph.read_stats()` sums
+them with `grad_steps`, the calls since the capture.
 """
 
 from __future__ import annotations
@@ -28,7 +33,12 @@ from __future__ import annotations
 import torch
 
 from ..integrator import graph as tgraph
+from ..ops import graph_while as gw
+from ..utils import trace
 from .params import extract_params, make_loss_fn
+
+_FWD = tgraph._slot("grad", "grad_fwd_ns")
+_BWD = tgraph._slot("grad", "grad_bwd_ns")
 
 
 class ValueAndGrad(tgraph._Runner):
@@ -45,14 +55,26 @@ class ValueAndGrad(tgraph._Runner):
                                     sample_idx, seed, target, sampler_mode)
         self.leaves = extract_params(scene)
         self.out = None
+        if trace.enabled():
+            self.acc = torch.zeros(len(tgraph._SLOTS["grad"]),
+                                   dtype=torch.int64, device=dev)
         if dev.type == "cuda":
             with torch.cuda.device(dev):
                 self._build(self._warm, [("step", self._step)])
+        if self.acc is not None:
+            self._counter("grad")
 
     def _step(self) -> None:
+        acc = self.acc
+        if acc is not None:
+            gw.stamp(acc)
         loss = self.loss_fn(self.leaves)
+        if acc is not None:
+            gw.stamp(acc, _FWD)
         grads = torch.autograd.grad(loss, list(self.leaves.values()),
                                     allow_unused=True)
+        if acc is not None:
+            gw.stamp(acc, _BWD)
         self.out = (loss.detach(), dict(zip(self.leaves, grads)))
 
     def _warm(self) -> None:
@@ -60,7 +82,7 @@ class ValueAndGrad(tgraph._Runner):
             self._step()
 
     def __call__(self, params):
-        with self._device():
+        with trace.span("grad.step"), self._device():
             with torch.no_grad():
                 for k, leaf in self.leaves.items():
                     leaf.copy_(params[k])
@@ -68,6 +90,8 @@ class ValueAndGrad(tgraph._Runner):
                 self._replay("step")
             else:
                 self._step()
+        if self.acc is not None:
+            tgraph._bump(grad_steps=1)
         return self.out
 
 

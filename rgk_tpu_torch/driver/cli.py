@@ -8,7 +8,10 @@ devices (every visible card by default; with --cpu, N shards on the
 CPU); `--coordinator HOST:PORT --num-processes P --process-id I` renders
 with P processes, each a contiguous slice of the pixel blocks (NCCL on
 the card, gloo with --cpu).  `-d X Y` prints a per-bounce trace of one
-pixel before rendering.
+pixel before rendering.  `--trace-out FILE` writes the program's spans
+and the graph runners' counters as a Chrome trace at exit
+(`utils/trace.py`; a process other than 0 writes FILE with `.p<rank>`
+before its extension).
 
 Usage:
     python -m rgk_tpu_torch.driver.cli scene.json [options]
@@ -28,6 +31,7 @@ from ..parallel import multihost
 from ..parallel.mesh import MeshContext
 from ..scene.config import build_scene, load_config
 from ..utils import log as out
+from ..utils import trace
 from ..utils.format import format_time
 from .render import RenderDriver
 
@@ -84,6 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar=("X", "Y"),
                    help="print a per-bounce trace of one pixel before "
                         "rendering")
+    p.add_argument("--trace-out", metavar="FILE",
+                   help="write spans and graph counters as a Chrome trace "
+                        "(JSON) at exit")
     return p
 
 
@@ -113,6 +120,18 @@ def make_mesh(devices: int, device: torch.device):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    try:
+        return _run(args)
+    finally:
+        if args.trace_out:
+            path = args.trace_out
+            if multihost.process_index() != 0:
+                path = insert_file_suffix(
+                    path, f"p{multihost.process_index()}")
+            trace.write_chrome(path)
+
+
+def _run(args) -> int:
     out.set_verbosity(2 + args.verbose - args.quiet)
     device = select_device(args.cpu)
     if args.num_processes > 1 or args.coordinator:

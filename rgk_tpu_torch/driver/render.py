@@ -27,6 +27,11 @@ process's share of the pixels, each process renders a contiguous slice
 of them, and `fetch_accumulation` is a collective that sums the
 processes' accumulators and counters; process 0 alone writes the EXR
 and the checkpoint, decides the timed stop and loads a checkpoint.
+
+Spans (`utils/trace.py`): `render.round` around a round, in it
+`render.block` (a block's launch) and `render.accumulate` per block;
+`render.fetch`, `render.write_exr` and `render.checkpoint` in the frame
+loop.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ..integrator.graph import QueuedGraph, binned_mode
 from ..io import AccumulationImage
 from ..parallel import multihost
 from ..utils import log as out
+from ..utils import trace
 from ..utils.format import LowPass, format_int_thousands, format_time
 from .monitor import FrameMonitor
 
@@ -136,30 +142,41 @@ class RenderDriver:
     def render_round(self, round_idx: int, monitor=None) -> None:
         """Render this process's blocks, every pixel x multisample once;
         accumulate on the device."""
-        sample0 = round_idx * self.ms
-        runner = self._runner() if self.mesh is None else None
-        for px, py, pix_idx in zip(self._px, self._py, self._pix_idx):
-            if runner is not None:
-                runner.block(px, py, sample0, self.seed, self.camera)
-                runner.accumulate(self._acc_dev, self._rays_dev, pix_idx)
-            else:
-                out = self._sharded(self.scene, self.camera, px, py,
-                                    sample0, self.seed)
-                self._acc_dev.index_add_(0, pix_idx, out[0])
-                if self.bdpt:
-                    self._acc_dev += out[1]
-                self._rays_dev += out[-1]
-            if monitor is not None:
-                monitor.add_blocks(1)
+        with trace.span("render.round", round=round_idx):
+            self._render_blocks(round_idx * self.ms, monitor)
         self._lanes_done += self._local_lanes
         self.stats.lanes = self._lanes_done
         self.stats.rounds += 1
+
+    def _render_blocks(self, sample0: int, monitor) -> None:
+        runner = self._runner() if self.mesh is None else None
+        for px, py, pix_idx in zip(self._px, self._py, self._pix_idx):
+            if runner is not None:
+                with trace.span("render.block"):
+                    runner.block(px, py, sample0, self.seed, self.camera)
+                with trace.span("render.accumulate"):
+                    runner.accumulate(self._acc_dev, self._rays_dev, pix_idx)
+            else:
+                with trace.span("render.block"):
+                    out = self._sharded(self.scene, self.camera, px, py,
+                                        sample0, self.seed)
+                with trace.span("render.accumulate"):
+                    self._acc_dev.index_add_(0, pix_idx, out[0])
+                    if self.bdpt:
+                        self._acc_dev += out[1]
+                    self._rays_dev += out[-1]
+            if monitor is not None:
+                monitor.add_blocks(1)
 
     def fetch_accumulation(self) -> None:
         """Copy the device accumulation into the host AccumulationImage
         (called before EXR writes and checkpoints).  Under several
         processes a collective: every process calls it for the same
         round, and the sum over their disjoint pixels is the frame."""
+        with trace.span("render.fetch"):
+            self._fetch()
+
+    def _fetch(self) -> None:
         xres, yres = self.camera.xres, self.camera.yres
         acc = self._acc_dev[:-1]
         counters = torch.stack([
@@ -196,8 +213,10 @@ class RenderDriver:
             self.stats.seconds = time.time() - t0
             self.fetch_accumulation()  # a collective under processes
             if out_path and self.proc_id == 0:
-                self.acc.save(out_path, scale=s.output_scale)
-                self.save_checkpoint(out_path + ".ckpt.npz", round_idx)
+                with trace.span("render.write_exr"):
+                    self.acc.save(out_path, scale=s.output_scale)
+                with trace.span("render.checkpoint"):
+                    self.save_checkpoint(out_path + ".ckpt.npz", round_idx)
             monitor.set_rays(self.stats.rays)
             rays_s = self.stats.rays_per_sec
             if s.timed:

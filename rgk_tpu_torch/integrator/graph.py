@@ -45,6 +45,25 @@ launch counts times its runs into the kernel wrappers' counters.  So
 the wrappers' counts include a WHILE graph's launches only after
 `read_stats` (or `settle`).
 
+Phase stamps (`utils/trace.py`; on unless `trace.enable(False)` was
+called before the runner was built): the queued runner and the gradient
+step own an int64 accumulator whose slot 0 is the setter's counter and
+whose other slots the captured body adds into on the device
+(`gw.stamp`, one-thread nodes, and two small reductions), read at
+`settle`'s one read:
+* a queued step marks at its start, stamps `other_ns` on entering the
+  intersector and `intersect_ns` on leaving it (the runner wraps
+  `su.intersect`), adds its extension rays into `live_lanes` and the
+  any-hit queries' live rays (t_max > t_min) into `any_live_rays`, and
+  stamps `other_ns` at its end; its closest and any-hit queries are
+  counted once per captured body, like the launches;
+* the gradient step marks at its start and stamps `grad_fwd_ns` after
+  the loss and `grad_bwd_ns` after `torch.autograd.grad`.
+The accumulators are zeroed once the body is captured, so the eager
+warm-up steps are not counted.  On the CPU the same slots are kept with
+the host's clock.  The eager route (`path.trace_wavefront_queued_eager`,
+`make_loss_fn` called directly) carries no stamps.
+
 Where capture goes wrong, and what is done about it:
 * Python numbers are baked into a capture.  The sample range and the
   seed are device tensors (`_QueuedInputs`; `LaneGraph`'s seed, which
@@ -98,7 +117,6 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
-import time
 import weakref
 
 import torch
@@ -111,38 +129,64 @@ from ..ops import sampler as smp
 from ..ops import vecmath as vm
 from ..scene.camera import TENSOR_FIELDS
 from ..utils import log as out
+from ..utils import trace
 from . import path as tpath
 
 WARMUP_STEPS = 2  # eager runs of a captured body, on a side stream
-_COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches)
+_COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches,
+             gw.launches)
 
 # Summed over every runner of the process; `reset_stats` zeroes them.
 # steps: queued steps run (WHILE bodies, CPU steps); replays: step
 # graphs run; warmup_steps: eager runs of a body before its capture; flag_reads:
 # host reads of an end test (one sync each); iterations: steps that
 # found the loop live; while_launches: queued WHILE graph launches;
-# lane_replays: per-sample path launches; lane_bounces: its bounces
-# run; setter_runs: condition-setter runs; peak_before / peak_after:
-# max memory allocated around the latest build's captures.
+# lane_bounces: per-sample bounces run; setter_runs: condition-setter
+# runs; peak_before / peak_after: max memory allocated around the latest
+# build's captures.  From the phase stamps (module doc), over the queued
+# runners' iterations: lane_steps (lanes x iterations), live_lanes
+# (extension rays), closest_queries, any_queries, any_live_rays,
+# intersect_ns and other_ns (device time inside and outside the
+# intersector; `read_stats` adds step_ns, their sum); over the gradient
+# steps: grad_steps, grad_fwd_ns, grad_bwd_ns.
 stats = {"runners": 0, "blocks": 0, "captures": 0, "capture_ms": 0.0,
          "pool_bytes": 0, "peak_before": 0, "peak_after": 0, "steps": 0,
          "warmup_steps": 0, "replays": 0, "light_replays": 0,
          "flag_reads": 0, "iterations": 0, "while_launches": 0,
-         "lane_replays": 0, "lane_bounces": 0, "setter_runs": 0}
-# Every WHILE graph's counter (`_WhileCount`), read by `settle`.
+         "lane_bounces": 0, "setter_runs": 0, "lane_steps": 0,
+         "live_lanes": 0, "closest_queries": 0, "any_queries": 0,
+         "any_live_rays": 0, "intersect_ns": 0, "other_ns": 0,
+         "grad_steps": 0, "grad_fwd_ns": 0, "grad_bwd_ns": 0}
+# The slots of a runner's accumulator by kind: the setter's runs, the
+# latest stamp (`gw.LAST`), then what `settle` adds into `stats` by name.
+_SLOTS = {"queued": ("runs", "last", "other_ns", "intersect_ns",
+                     "live_lanes", "any_live_rays"),
+          "grad": ("runs", "last", "grad_fwd_ns", "grad_bwd_ns"),
+          "lanes": ("runs",)}
+_QUERIES = ("closest_queries", "any_queries")
+# Every runner's counter (`_WhileCount`), read by `settle`.
 _while = []
 _lock = threading.Lock()
 
 
-class _WhileCount:
-    """A WHILE graph's setter-run counter (int64 [] on its device), its
-    launches and what `settle` has taken of both; `kind` "queued" or
-    "lanes"; `delta` the body's launches a run."""
+def _slot(kind: str, name: str) -> int:
+    return _SLOTS[kind].index(name)
 
-    def __init__(self, runner, runs, delta, kind):
+
+class _WhileCount:
+    """A runner's device counters: `acc` int64 [n], slot 0 the WHILE
+    setter's runs, the others the phase stamps' (`_SLOTS[kind]`); its
+    WHILE launches; `delta` the body's launches and `per_body` its
+    counts (lanes, queries), added at `settle` times the bodies run; and
+    what `settle` has taken of each.  `kind` "queued", "lanes" or
+    "grad" (no setter)."""
+
+    def __init__(self, runner, acc, kind, delta=None, per_body=None):
         self.runner = weakref.ref(runner)
-        self.runs, self.delta, self.kind = runs, delta, kind
-        self.launches = self.seen_launches = self.seen_runs = 0
+        self.acc, self.kind, self.delta = acc, kind, delta
+        self.per_body = dict(per_body or {})
+        self.launches = self.seen_launches = 0
+        self.seen = [0] * acc.shape[0]
 
 
 def _bump(**deltas):
@@ -157,42 +201,54 @@ def reset_stats() -> None:
             stats[key] = type(stats[key])()
         _while[:] = [c for c in _while if c.runner() is not None]
         for c in _while:
-            c.runs.zero_()
-            c.launches = c.seen_launches = c.seen_runs = 0
+            c.acc.zero_()
+            c.seen = [0] * len(c.seen)
+            c.launches = c.seen_launches = 0
 
 
 def settle() -> None:
-    """Reads every WHILE graph's counter (a sync) and adds what ran
-    since the last read: setter runs, bodies as steps and iterations
-    (queued) or bounces (per-sample), the bodies' kernel launches."""
+    """Reads every runner's counters (one read each, a sync on the card)
+    and adds what ran since the last read: setter runs, bodies as steps
+    and iterations (queued) or bounces (per-sample), the bodies' kernel
+    launches and counts, and the stamp slots."""
     with _lock:
         counts = list(_while)
     for c in counts:
-        runs = int(c.runs)
+        vals = c.acc.tolist()
         with _lock:
-            new_runs, c.seen_runs = runs - c.seen_runs, runs
+            new = [v - s for v, s in zip(vals, c.seen)]
+            c.seen = vals
             new_launches = c.launches - c.seen_launches
             c.seen_launches = c.launches
-            bodies = new_runs - new_launches
-            gw.launches["setter"] += new_runs
-            stats["setter_runs"] += new_runs
+            for name, v in zip(_SLOTS[c.kind][2:], new[2:]):
+                stats[name] += v
+            if c.kind == "grad":
+                continue
+            bodies = new[0] - new_launches
+            gw.launches["setter"] += new[0]
+            stats["setter_runs"] += new[0]
             if c.kind == "queued":
                 for key in ("steps", "replays", "iterations"):
                     stats[key] += bodies
+                for key, v in c.per_body.items():
+                    stats[key] += v * bodies
             else:
                 stats["lane_bounces"] += bodies
-        _add_launches(c.delta, bodies)
+        if c.delta is not None:
+            _add_launches(c.delta, bodies)
     with _lock:
         _while[:] = [c for c in _while if c.runner() is not None]
 
 
 def read_stats() -> dict:
-    """`stats` after `settle`, and `overshoot`, the steps run past the
-    end."""
+    """`stats` after `settle`, `overshoot`, the steps run past the end,
+    and `step_ns`, the queued steps' device time (`intersect_ns` +
+    `other_ns`)."""
     settle()
     with _lock:
         got = dict(stats)
     got["overshoot"] = got["steps"] - got["iterations"]
+    got["step_ns"] = got["intersect_ns"] + got["other_ns"]
     return got
 
 
@@ -219,6 +275,29 @@ def _snapshot():
     return [dict(c) for c in _COUNTERS]
 
 
+def _traced_intersect(intersect, acc, queries):
+    """`intersect` (`path._Setup.intersect`) timed by phase stamps into
+    the queued accumulator `acc`, its queries counted in `queries` and
+    its any-hit queries' live rays added on the device (module doc)."""
+    other, inside = _slot("queued", "other_ns"), _slot("queued",
+                                                       "intersect_ns")
+    any_live = _slot("queued", "any_live_rays")
+
+    def query(scene, ro, rd, t_min, t_max, exclude=None, any_hit=False):
+        gw.stamp(acc, other)
+        hit = intersect(scene, ro, rd, t_min, t_max, exclude=exclude,
+                        any_hit=any_hit)
+        gw.stamp(acc, inside)
+        queries["any_queries" if any_hit else "closest_queries"] += 1
+        if any_hit:
+            # Lanes whose interval is not empty; an any-hit query's t_max
+            # is a tensor (`ops/intersect.visibility`).
+            acc[any_live].add_((t_max > t_min).expand(ro.shape[0]).sum())
+        return hit
+
+    return query
+
+
 def _add_launches(delta, times: int = 1):
     with _lock:
         for counter, d in zip(_COUNTERS, delta):
@@ -238,6 +317,7 @@ class _Runner:
         self.what = what           # for the log
         self._graphs = {}          # name -> (CUDAGraph, launch-counter delta)
         self._exec = self._count = None
+        self.acc = None            # the phase stamps' accumulator, if traced
         _bump(runners=1)
         if device.type == "cuda":
             self._stream = torch.cuda.Stream(device)
@@ -256,11 +336,12 @@ class _Runner:
         must leave the CUDA generator alone (module doc)."""
         dev = self.device
         rng = torch.cuda.get_rng_state(dev)
-        self._stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self._stream), _no_sync():
-            warm()
-        torch.cuda.current_stream(dev).wait_stream(self._stream)
-        torch.cuda.synchronize(dev)
+        with trace.span("graph.warm", runner=self.what):
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream), _no_sync():
+                warm()
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+            torch.cuda.synchronize(dev)
         if keep and not torch.equal(rng, torch.cuda.get_rng_state(dev)):
             raise RuntimeError(
                 f"{self.what}: the body draws from PyTorch's CUDA "
@@ -268,10 +349,10 @@ class _Runner:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         peak = torch.cuda.max_memory_allocated(dev)
-        t0 = time.perf_counter()
-        for name, body in captures:
-            self._capture(name, body, keep)
-        ms = (time.perf_counter() - t0) * 1e3
+        with trace.span("graph.capture", runner=self.what) as sp:
+            for name, body in captures:
+                self._capture(name, body, keep)
+        ms = sp.seconds * 1e3
         pool = torch.cuda.memory_reserved(dev) - reserved
         peak_after = torch.cuda.max_memory_allocated(dev)
         _bump(capture_ms=ms, pool_bytes=pool, warmup_steps=WARMUP_STEPS)
@@ -301,20 +382,32 @@ class _Runner:
             graph.replay()
         _add_launches(delta, times)
 
-    def _while_graph(self, kind, body, prologue=None, epilogue=None):
+    def _counter(self, kind, delta=None, per_body=None) -> None:
+        """Registers the runner's counters with `settle`: `self.acc`
+        (zeroed now), or a setter counter of its own when untraced."""
+        acc = self.acc
+        if acc is None:
+            acc = torch.zeros(1, dtype=torch.int64, device=self.device)
+        acc.zero_()
+        self._count = _WhileCount(self, acc, kind, delta, per_body)
+        with _lock:
+            _while.append(self._count)
+
+    def _while_graph(self, kind, body, prologue=None, epilogue=None,
+                     per_body=None):
         """The kept captures `prologue`, `body` and `epilogue` (names) as
-        one WHILE graph on `self.live`, its setter counting into a new
-        `_WhileCount` of `kind`."""
+        one WHILE graph on `self.live`, its setter counting into slot 0
+        of the runner's counters, registered as `kind` with the body's
+        `per_body` counts."""
         def graph(name):
             return None if name is None else self._graphs[name][0]
 
-        runs = torch.zeros((), dtype=torch.int64, device=self.device)
-        self._exec = gw.WhileGraph(graph(body), self.live, runs,
-                                   graph(prologue), graph(epilogue))
+        self._counter(kind, self._graphs[body][1], per_body)
+        with trace.span("graph.instantiate", runner=self.what):
+            self._exec = gw.WhileGraph(graph(body), self.live,
+                                       self._count.acc[0], graph(prologue),
+                                       graph(epilogue))
         self._ends = [n for n in (prologue, epilogue) if n is not None]
-        self._count = _WhileCount(self, runs, self._graphs[body][1], kind)
-        with _lock:
-            _while.append(self._count)
 
     def _launch(self) -> None:
         """One launch of the WHILE graph: the prologue's and epilogue's
@@ -359,6 +452,14 @@ class QueuedGraph(_Runner):
         self.bdpt = int(settings.reverse) > 0
         self.mode = binned_mode(meta)
         self.su = tpath._setup(scene, meta, settings)
+        # The step's setup: the intersector timed and counted when traced.
+        self._su_step = self.su
+        self._queries = dict.fromkeys(_QUERIES, 0)  # in the latest step
+        if trace.enabled():
+            self.acc = torch.zeros(len(_SLOTS["queued"]), dtype=torch.int64,
+                                   device=dev)
+            self._su_step = self.su._replace(intersect=_traced_intersect(
+                self.su.intersect, self.acc, self._queries))
         self.cam = cam.to(dev, copy=True)
         px = torch.zeros(self.lanes, dtype=torch.int32, device=dev)
         lpack = None
@@ -379,6 +480,8 @@ class QueuedGraph(_Runner):
         if dev.type == "cuda":
             with torch.no_grad(), torch.cuda.device(dev):
                 self._graphs_for(seed)
+        else:
+            self._counter("queued")
         out.log(3, f"queued loop on {dev}: {self.lanes} lanes x "
                    f"{self.n_samples} samples, "
                    f"{'BDPT' if self.bdpt else 'NEE'}, RGK_BINNED="
@@ -392,7 +495,9 @@ class QueuedGraph(_Runner):
         self._build(lambda: self._warm(seed),
                     ([("light", self._light)] if self.bdpt else [])
                     + [("step", self._step)], keep=True)
-        self._while_graph("queued", "step", "light" if self.bdpt else None)
+        # The step was captured last: its queries are the body's.
+        self._while_graph("queued", "step", "light" if self.bdpt else None,
+                          per_body=dict(self._queries, lane_steps=self.lanes))
 
     # ---- the bodies: run eagerly, or captured once
 
@@ -423,12 +528,25 @@ class QueuedGraph(_Runner):
         self.state.rays.copy_(rays)
 
     def _step(self) -> None:
-        q = tpath._queued_step(self.scene, self.meta, self.settings, self.su,
-                               self.cam, self.inp, self.state,
+        acc = self.acc
+        if acc is not None:
+            self._queries.update(dict.fromkeys(_QUERIES, 0))
+            gw.stamp(acc)
+        q = tpath._queued_step(self.scene, self.meta, self.settings,
+                               self._su_step, self.cam, self.inp, self.state,
                                self.sampler_mode)
+        if acc is not None:
+            acc[_slot("queued", "live_lanes")].add_(q.rays - self.state.rays)
         for buf, v in zip(self.state, q):
             buf.copy_(v)
         self.live.copy_(tpath._queued_live(self.state, self.inp))
+        if acc is not None:
+            gw.stamp(acc, _slot("queued", "other_ns"))
+
+    def _plain_step(self) -> None:
+        """`_step` on the CPU, its queries counted at once."""
+        self._step()
+        _bump(**self._queries)
 
     def _tail(self, acc, rays_acc) -> None:
         acc.index_add_(0, self.pix_idx, self.state.radiance)
@@ -453,9 +571,10 @@ class QueuedGraph(_Runner):
         with torch.no_grad(), self._device():
             self._load(px, py, sample0, seed, cam)
             if self.device.type != "cuda":
-                n = gw.run_plain(self._step, self.live,
+                n = gw.run_plain(self._plain_step, self.live,
                                  prologue=self._light if self.bdpt else None)
-                _bump(blocks=1, steps=n, iterations=n, flag_reads=n + 1)
+                _bump(blocks=1, steps=n, iterations=n, flag_reads=n + 1,
+                      lane_steps=n * self.lanes)
                 return
             self._launch()
             _bump(blocks=1, while_launches=1, light_replays=int(self.bdpt))
@@ -589,7 +708,6 @@ class LaneGraph(_Runner):
             self._load(px, py, sample_idx, seed, cam)
             if self.device.type == "cuda":
                 self._launch()
-                _bump(lane_replays=1)
             else:
                 n = gw.run_plain(self._bounce, self.live,
                                  prologue=self._init, epilogue=self._finish)

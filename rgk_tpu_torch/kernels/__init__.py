@@ -8,7 +8,9 @@ library is named by a hash of the sources and the headers they include
 (`csrc/*.cuh`), the flags and the compiler, so an edited source or
 header rebuilds and an unchanged tree loads from the cache.
 A failed build raises with nvcc's output.  Nothing is built or loaded
-at import time.
+at import time.  The first `load()` of a process is the span
+`kernels.load` (`utils/trace.py`), with attributes `built` (whether nvcc
+ran) and `nvcc_s` (its seconds).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import subprocess
 import threading
 import time
 from functools import lru_cache
+
+from ..utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -136,7 +140,10 @@ def load() -> ctypes.CDLL:
 
 @lru_cache(maxsize=1)
 def _load() -> ctypes.CDLL:
-    return _open(build()["path"])
+    with trace.span("kernels.load") as sp:
+        got = build()
+        sp.attrs.update(built=got["seconds"] > 0, nvcc_s=got["seconds"])
+        return _open(got["path"])
 
 
 def _open(path):
@@ -171,9 +178,10 @@ def _open(path):
     lib.rgk_while_graph_create.argtypes = [p, p, p, p, i, p, p, p]
     lib.rgk_while_graph_launch.argtypes = [p, p]
     lib.rgk_while_graph_destroy.argtypes = [p]
+    lib.rgk_stamp.argtypes = [p, i, i, p]
     for fn in (lib.rgk_cuda_driver_version, lib.rgk_graph_check,
                lib.rgk_while_graph_create, lib.rgk_while_graph_launch,
-               lib.rgk_while_graph_destroy):
+               lib.rgk_while_graph_destroy, lib.rgk_stamp):
         fn.restype = i
     lib.rgk_cuda_error_string.argtypes = [i]
     lib.rgk_cuda_error_string.restype = ctypes.c_char_p

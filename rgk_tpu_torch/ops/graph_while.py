@@ -23,23 +23,33 @@ than 12.4 and CPU tensors; nothing falls back.
 `run_plain` is the same loop with the host reading the flag before every
 body call: the setter's plain version, for CPU tensors.
 
+`stamp(acc, slot)` is the phase stamp of `csrc/graph_while.cu`: the
+time since the accumulator's last stamp added into one slot, on the
+device's clock and with no read on the host, so that a captured body
+times its own phases (`integrator/graph.py`).  On a CPU tensor it does
+the same with `time.perf_counter_ns()`.
+
 `launches["setter"]` counts the setter's runs, added from the device
-counters when `integrator.graph.read_stats` reads them.  A raw launch
-does not advance PyTorch's generators as `CUDAGraph.replay` does: the
-captured bodies must draw no random numbers from them (the port's
-sampler is a counter-based hash; `integrator/graph.py` checks that a
-body's warm-up leaves the generator's state alone).
+counters when `integrator.graph.read_stats` reads them;
+`launches["stamp"]` the stamps launched (a capture's at every replay).
+A raw launch does not advance PyTorch's generators as
+`CUDAGraph.replay` does: the captured bodies must draw no random numbers
+from them (the port's sampler is a counter-based hash;
+`integrator/graph.py` checks that a body's warm-up leaves the
+generator's state alone).
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
 from .. import kernels
 
-launches = {"setter": 0}
+launches = {"setter": 0, "stamp": 0}
+LAST = 1  # the slot of a stamp accumulator that holds its latest stamp
 
 
 def _raise(lib, rc: int, what: str):
@@ -124,6 +134,32 @@ class WhileGraph:
         exec_, self._exec = getattr(self, "_exec", None), None
         if exec_:
             self._lib.rgk_while_graph_destroy(exec_)
+
+
+def stamp(acc, slot: int = -1) -> None:
+    """Adds the nanoseconds since `acc[LAST]` into `acc[slot]` and sets
+    `acc[LAST]` to now (slot -1: only the latter).  `acc` is an int64
+    vector; on the card one thread reads `%globaltimer` on the current
+    stream (a node of the graph being captured, if any), on the CPU the
+    host reads `time.perf_counter_ns()`."""
+    if acc.dtype != torch.int64 or acc.dim() != 1 or not acc.is_contiguous():
+        raise TypeError(f"a stamp accumulator is a contiguous int64 vector, "
+                        f"got {acc.dtype} {tuple(acc.shape)}")
+    if not (-1 <= slot < acc.shape[0]) or slot == LAST or acc.shape[0] <= LAST:
+        raise ValueError(f"slot {slot} of a stamp accumulator of "
+                         f"{acc.shape[0]}")
+    if acc.device.type == "cpu":
+        now = time.perf_counter_ns()
+        if slot >= 0:
+            acc[slot] += now - int(acc[LAST])
+        acc[LAST] = now
+        return
+    lib = kernels.load()
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream(acc.device).cuda_stream
+        rc = lib.rgk_stamp(acc.data_ptr(), LAST, slot, stream)
+    kernels.check_launch(rc, "stamp")
+    launches["stamp"] += 1
 
 
 def run_plain(body, flag, prologue=None, epilogue=None) -> int:

@@ -9,13 +9,15 @@ Above `bvh_threshold` triangles (`FLAT_MAX_TRIANGLES` by default; never
 with `build_bvh=False`) the commit also builds the leaf-4 BVH
 (scene/bvh.py) and, on its triangle order, the chunk tree of the
 cluster kernel (scene/clusters.py), and sets `SceneMeta.has_bvh`.
-`SceneBuilder.timings` keeps the host seconds of the last commit.
+Each phase of a build is a span `scene.<phase>` (`utils/trace.py`):
+load (`config.build_scene`), sah, clusters and upload;
+`SceneBuilder.timings` is a view of them, host seconds by phase.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -24,6 +26,7 @@ import numpy as np
 from ..io import load_texture
 from ..ops.ltc import load_tables_np
 from ..utils import log as out
+from ..utils import trace
 from ..utils.lru import LRU
 from . import transforms as xf
 from . import bvh as bvh_mod
@@ -172,10 +175,23 @@ class SceneBuilder:
         self.sky_intensity = 1.0
         self.sky_rotate = 0.0
         self.sky_tex = -1
-        # Host seconds by stage of the last build ("load" is filled in
-        # by config.build_scene), and the SAH builder that ran.
-        self.timings: Dict[str, float] = {}
+        # The build's phase spans ("load" from config.build_scene), and
+        # the SAH builder that ran.
+        self._spans: List[trace.Span] = []
         self.sah_builder: Optional[str] = None
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Times the `with` block as span `scene.<name>`, kept for
+        `timings`."""
+        with trace.span("scene." + name) as sp:
+            self._spans.append(sp)
+            yield sp
+
+    @property
+    def timings(self) -> Dict[str, float]:
+        """Host seconds by phase of the latest build, from its spans."""
+        return {sp.name[len("scene."):]: sp.seconds for sp in self._spans}
 
     # ---------------- materials & textures ----------------
 
@@ -325,53 +341,50 @@ class SceneBuilder:
 
         has_bvh = build_bvh and self._tri_count > bvh_threshold
         if has_bvh:
-            t0 = time.perf_counter()
-            bvh = bvh_mod.build_bvh(vertices, tri_vidx, leaf_size=4,
-                                    device=device)
-            t1 = time.perf_counter()
+            with self.phase("sah"):
+                bvh = bvh_mod.build_bvh(vertices, tri_vidx, leaf_size=4,
+                                        device=device)
             # One SAH sweep feeds both structures: the chunk tree chops
             # the BVH's own triangle order.
-            clusters = build_clusters(vertices, tri_vidx, tri_pack,
-                                      order=bvh.prim_idx.cpu().numpy(),
-                                      device=device)
-            self.timings.update(sah=t1 - t0,
-                                clusters=time.perf_counter() - t1)
+            with self.phase("clusters"):
+                clusters = build_clusters(vertices, tri_vidx, tri_pack,
+                                          order=bvh.prim_idx.cpu().numpy(),
+                                          device=device)
             self.sah_builder = builder_name()
         else:
             bvh = placeholder_bvh(self._tri_count, device)
             clusters = empty_clusters(device)
 
         glass_pack, glass_ids = glass_subset(tri_pack)
-        t0 = time.perf_counter()
-        arrays = SceneArrays(
-            vertices=f32(vertices, device), normals=f32(normals, device),
-            tangents=f32(tangents, device), uvs=f32(uvs, device),
-            tri_vidx=i32(tri_vidx, device), tri_mat=i32(tri_mat, device),
-            tri_normal=f32(tri_normal, device),
-            tri_pack=f32(tri_pack, device),
-            tri_meta=i32(np.concatenate(
-                [tri_vidx, tri_mat[:, None]], axis=1), device),
-            tri_shade=f32(np.concatenate([
-                normals[tri_vidx].reshape(-1, 9),
-                uvs[tri_vidx].reshape(-1, 6),
-                tangents[tri_vidx].reshape(-1, 9)], axis=1), device),
-            glass_pack=f32(glass_pack, device),
-            glass_ids=i32(glass_ids, device),
-            ltc_rows=f32(load_tables_np(), device),
-            materials=self._pack_materials(device),
-            textures=self._pack_textures(device),
-            lights=self._pack_lights(vertices, normals, tri_vidx, device),
-            bvh=bvh,
-            clusters=clusters,
-            sky_color=f32(self.sky_color, device),
-            sky_intensity=f32(self.sky_intensity, device),
-            sky_rotate=f32(self.sky_rotate, device),
-            sky_tex=i32(self.sky_tex, device),
-            epsilon=f32(epsilon, device),
-            world_min=f32(wmin - epsilon, device),
-            world_max=f32(wmax + epsilon, device),
-        )
-        self.timings["upload"] = time.perf_counter() - t0
+        with self.phase("upload"):
+            arrays = SceneArrays(
+                vertices=f32(vertices, device), normals=f32(normals, device),
+                tangents=f32(tangents, device), uvs=f32(uvs, device),
+                tri_vidx=i32(tri_vidx, device), tri_mat=i32(tri_mat, device),
+                tri_normal=f32(tri_normal, device),
+                tri_pack=f32(tri_pack, device),
+                tri_meta=i32(np.concatenate(
+                    [tri_vidx, tri_mat[:, None]], axis=1), device),
+                tri_shade=f32(np.concatenate([
+                    normals[tri_vidx].reshape(-1, 9),
+                    uvs[tri_vidx].reshape(-1, 6),
+                    tangents[tri_vidx].reshape(-1, 9)], axis=1), device),
+                glass_pack=f32(glass_pack, device),
+                glass_ids=i32(glass_ids, device),
+                ltc_rows=f32(load_tables_np(), device),
+                materials=self._pack_materials(device),
+                textures=self._pack_textures(device),
+                lights=self._pack_lights(vertices, normals, tri_vidx, device),
+                bvh=bvh,
+                clusters=clusters,
+                sky_color=f32(self.sky_color, device),
+                sky_intensity=f32(self.sky_intensity, device),
+                sky_rotate=f32(self.sky_rotate, device),
+                sky_tex=i32(self.sky_tex, device),
+                epsilon=f32(epsilon, device),
+                world_min=f32(wmin - epsilon, device),
+                world_max=f32(wmax + epsilon, device),
+            )
         meta = SceneMeta(
             n_triangles=int(self._tri_count),
             n_materials=len(self.materials),

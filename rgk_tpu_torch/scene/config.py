@@ -10,7 +10,6 @@ through `scene/rtc.py` `ConfigRTC`.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -413,9 +412,8 @@ def build_scene(config: Config, device, build_bvh: bool = True,
     """config -> (SceneArrays on `device`, SceneMeta, SceneBuilder).
     `build_bvh` / `bvh_threshold` as in `SceneBuilder.commit`."""
     builder = SceneBuilder()
-    t0 = time.perf_counter()
-    config.install(builder)
-    builder.timings["load"] = time.perf_counter() - t0
+    with builder.phase("load"):
+        config.install(builder)
     arrays, meta = builder.commit(device=device, build_bvh=build_bvh,
                                   bvh_threshold=bvh_threshold)
     return arrays, meta, builder

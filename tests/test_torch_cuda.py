@@ -1082,6 +1082,69 @@ def test_while_graph_refuses_an_event_record(cuda_device):
         gw.WhileGraph(g, flag, runs)
 
 
+def test_stamp_kernel_times_a_stretch(cuda_device):
+    """The phase stamp on the card: a mark, then a stamp after a sleep of
+    the device adds the sleep's length into its slot, and a stamp into
+    another slot adds the rest; slot -1 only marks."""
+    from rgk_tpu_torch.ops import graph_while as gw
+
+    acc = torch.zeros(4, dtype=torch.int64, device="cuda")
+    gw.stamp(acc)
+    torch.cuda._sleep(2_000_000)
+    gw.stamp(acc, 2)
+    gw.stamp(acc, 3)
+    torch.cuda.synchronize()
+    got = acc.tolist()
+    assert got[2] > 100_000 and 0 <= got[3] < got[2]
+    assert got[1] > 0 and got[0] == 0
+
+
+def test_queued_graph_stamps_match_events(cuda_device, tmp_path):
+    """A block of the box with a 3,900-triangle sphere at 512x512 (K1):
+    the stamped step time `step_ns` lies within 2% of CUDA events around
+    the block's WHILE launch; `live_lanes` is the block's ray counter;
+    the captured body with its stamp nodes passes the WHILE graph's
+    node-type check and holds more nodes than the untraced body."""
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.ops import graph_while as gw
+    from rgk_tpu_torch.utils import trace
+
+    res = 512
+    cfg = scenes.add_sphere(tmp_path, scenes.box_config(res=res, ms=1),
+                            n_tris=3900)
+    arrays, meta, c = scenes.port_build(
+        scenes.write_config(tmp_path, cfg, "stamps.json"), "cuda")
+    s, cam = c.settings, c.get_camera().to("cuda")
+    pix = torch.arange(res * res, device="cuda")
+    px, py = (pix % res).to(torch.int32), (pix // res).to(torch.int32)
+    trace.enable(True)
+    runner = graph.QueuedGraph(arrays, meta, s, cam, res * res, 1)
+    runner.block(px, py, 0, 42, cam)
+    torch.cuda.synchronize()
+    graph.reset_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.no_grad():
+        runner._load(px, py, 1, 43, cam)
+        ev[0].record()
+        runner._launch()
+        ev[1].record()
+    torch.cuda.synchronize()
+    st = graph.read_stats()
+    ms = ev[0].elapsed_time(ev[1])
+    assert st["iterations"] > 0 and st["intersect_ns"] > 0
+    assert abs(st["step_ns"] / 1e6 - ms) <= 0.02 * ms, (st["step_ns"], ms)
+    assert st["live_lanes"] == int(runner.state.rays) > 0
+    assert st["lane_steps"] == res * res * st["iterations"]
+    n_on = gw.node_count(runner._graphs["step"][0], "body")
+    trace.enable(False)
+    try:
+        off = graph.QueuedGraph(arrays, meta, s, cam, res * res, 1)
+    finally:
+        trace.enable(True)
+    assert off.acc is None
+    assert n_on >= gw.node_count(off._graphs["step"][0], "body") + 6
+
+
 def test_lane_graph_stops_at_the_last_live_bounce(cuda_device, tmp_path,
                                                   monkeypatch):
     """The per-sample path at the JSON defaults (recursion-max 40,
