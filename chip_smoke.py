@@ -8,9 +8,11 @@ Run from the root of a checkout.  With --parent (an earlier version's
 kernel sources, unpacked for example by `git archive <commit>
 rgk_tpu_torch/csrc`), phases 3-5 and 7 also time that version's K1 and
 K2, phases 9 and 10 its K3 and K4, and phase 22 its K5, in turns with
-this tree's (earlier, new, new, earlier), and holds this tree's K3 and K4 bit-equal
-to that version's on the same inputs.  With --profile, phases 5, 7 and 14
-render their scene once more under torch.profiler, and phase 10 the
+this tree's (earlier, new, new, earlier), and holds this tree's K1, K3
+and K4 bit-equal to that version's on the same inputs.  Its K1 is
+called with the entry's arguments before the live-ray list (no scratch,
+no swept counter).  With --profile, phases 5, 7 and 14 render their
+scene once more under torch.profiler, and phase 10 the
 colonnade once more with RGK_BINNED=all, and print the round's device
 time per
 kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
@@ -35,7 +37,9 @@ the first that fails:
    every K1 launch of that run is counted (no K2 launch; K5's forward
    fetches the material rows, its backward never runs), and the first
    closest-hit and any-hit queries are replayed through kernel and plain
-   version at the render's shapes;
+   version at the render's shapes, as they are (the closest one fully
+   live) and with all but 27% and 2% of their live rays' windows
+   emptied, scattered (K1 sweeps only the rays with a window);
 6. the flat card image against the port's CPU image (64x64, 4 spp,
    depth 3) under the image parity bounds (rgk_tpu_torch/parity.py);
 7. the colonnade render: tools/make_bigscene's scene at 995,628
@@ -261,6 +265,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import ctypes
 import io
 import json
 import os
@@ -341,6 +346,10 @@ ROW_FLOPS = 31       # rd.n 5, ro.n + d 6, t 1, hit point 6, beta 6, gamma 6,
 SLAB_FLOPS = 22      # 6 subtractions, 6 multiplies, 10 min/max
 RAY_BYTES = 36       # ro, rd, t_min, t_max, exclude
 PARENT = None        # --parent: the earlier kernels' library, timed in turns
+PARENT_K1 = None     # --parent: the same library, K1 with its entry's
+#                      arguments before the live-ray list (no scratch, no
+#                      swept counter), through its own handle
+LIVE_SHARES = (0.27, 0.02)  # phase 5: K1 with the other rays' windows empty
 PROFILE = False      # --profile: one more round of phases 5 and 7, profiled
 TIMED_RUNS = 20
 SLEEP_CYCLES = 100_000_000  # ~50 ms at 1.98 GHz: queued_ms's cover
@@ -693,18 +702,66 @@ def device_kernels(fn, runs=3):
         f" (window {attempt})" if attempt > 1 else "")
 
 
-def ab_ms(fn, runs=TIMED_RUNS, timer=median_ms):
+def ab_ms(fn, runs=TIMED_RUNS, timer=median_ms, parent_fn=None):
     """-> (parent ms or None, new ms): `timer`'s ms of `fn` (median CUDA
-    event ms by default) through the parent's library and this tree's,
-    in turns parent, new, new, parent, each the mean of its two; without
-    --parent the new one only."""
+    event ms by default) through the parent's library (or of
+    `parent_fn`) and this tree's, in turns parent, new, new, parent, each
+    the mean of its two; without --parent the new one only."""
     if PARENT is None:
         return None, timer(fn, runs)
     got = {True: [], False: []}
     for is_parent in (True, False, False, True):
+        if is_parent and parent_fn is not None:
+            got[True].append(timer(parent_fn, runs))
+            continue
         with library(PARENT) if is_parent else contextlib.nullcontext():
             got[is_parent].append(timer(fn, runs))
     return statistics.mean(got[True]), statistics.mean(got[False])
+
+
+def parent_k1(args, any_hit):
+    """The parent's K1 (--parent) on `args`, as `fi.intersect_flat` takes
+    them, through the entry's earlier arguments."""
+    pack, ro, rd, t_min, t_max, exclude = args
+    r = ro.shape[0]
+    out = [torch.empty(r, dtype=dt, device=ro.device) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32)]
+    rc = PARENT_K1.rgk_flat_intersect(
+        pack.data_ptr(), pack.shape[0], ro.data_ptr(), rd.data_ptr(),
+        t_min.data_ptr(), t_max.data_ptr(), exclude.data_ptr(), r,
+        *(x.data_ptr() for x in out), int(any_hit),
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the parent's K1 launch failed: cudaError {rc}")
+    return out
+
+
+def k1_ab(args, any_hit):
+    """`ab_ms` for a K1 query, the parent's K1 launched through
+    `parent_k1`, whose records must equal this tree's bit for bit."""
+    new = lambda: fi.intersect_flat(*args, any_hit=any_hit)  # noqa: E731
+    if PARENT is None:
+        return ab_ms(new)
+    old = lambda: parent_k1(args, any_hit)  # noqa: E731
+    a, b = old(), new()
+    torch.cuda.synchronize()
+    for name, x, y in zip(("t", "tri", "bary_b", "bary_c"), a, b):
+        check(torch.equal(x, y), f"K1 {'any' if any_hit else 'closest'}: "
+              f"{name} differs from the parent's on "
+              f"{int((x != y).sum())} rays")
+    return ab_ms(new, parent_fn=old)
+
+
+def live_share(args, share, seed=5):
+    """`args` of a K1 query with every ray's window emptied (t_max -1)
+    but a scattered `share` of those that are live."""
+    t_min, t_max = args[3], args[4]
+    live = torch.nonzero(t_max > t_min).flatten()
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    keep = live[torch.randperm(live.numel(), generator=g)[
+        :int(round(share * live.numel()))].to(live.device)]
+    out = torch.full_like(t_max, -1.0)
+    out[keep] = t_max[keep]
+    return args[:4] + [out, args[5]]
 
 
 def fmt_ab(parent, new, bound_ms, digits=3):
@@ -831,7 +888,7 @@ def phase_build(parent_csrc=None):
     """Builds this tree's kernels and, with --parent, the earlier
     version's from `parent_csrc` (the same entry points), which the
     later phases time in turns with this tree's."""
-    global PARENT
+    global PARENT, PARENT_K1
     for who, csrc in (("", None), ("parent ", parent_csrc)):
         if who and csrc is None:
             continue
@@ -849,6 +906,11 @@ def phase_build(parent_csrc=None):
                 print(f"    {who}ptxas: {line.strip()}")
         if who:
             PARENT = lib
+            PARENT_K1 = ctypes.CDLL(info["path"])
+            p, i = ctypes.c_void_p, ctypes.c_int
+            PARENT_K1.rgk_flat_intersect.argtypes = [p, i, p, p, p, p, p, i,
+                                                     p, p, p, p, i, p]
+            PARENT_K1.rgk_flat_intersect.restype = i
 
 
 def random_soup(n_tris, seed, glass_every=97):
@@ -900,7 +962,7 @@ def phase_k1(dev):
     _, agree3, _ = compare(window, any_hit=True)
     times = []
     for m in (False, True):
-        parent, new = ab_ms(lambda: fi.intersect_flat(*window, any_hit=m))
+        parent, new = k1_ab(window, m)
         plain = median_ms(lambda: fi.flat_plain(*window, any_hit=m),
                           runs=PLAIN_RUNS, warmup=False)
         times.append(f"{'any' if m else 'closest'} "
@@ -1301,23 +1363,33 @@ def phase_render(d):
           f"{float(img.mean()):.5f}")
     print(f"    {graph_line()}")
 
+    # The render's first queries as they are (the closest one fully
+    # live), then with the windows of all but a scattered LIVE_SHARES of
+    # their live rays emptied, as the queued loop's straggler tail asks.
     entries = []
     for any_hit in (False, True):
-        args = first.args[any_hit]
-        _, agree, err = compare(args, any_hit)
-        parent, kms = ab_ms(
-            lambda: fi.intersect_flat(*args, any_hit=any_hit))
-        pms = median_ms(lambda: fi.flat_plain(*args, any_hit=any_hit),
-                        runs=PLAIN_RUNS, warmup=False)
-        bms, by = k1_bound(args, any_hit)
         mode = "any" if any_hit else "closest"
-        print(f"    K1 {mode} at the render's shapes ({args[1].shape[0]} "
-              f"rays x {n_tris} tris): agree {agree:.6f} max|err| "
-              f"{err:.3g}, median ms {fmt_ab(parent, kms, bms)} by {by}, "
-              f"plain {pms:.3f} (over {PLAIN_RUNS} runs); {clocks()}")
-        entries.append(kernel_entry(
-            f"flat_intersect_{mode}", K1_SOURCE, K1_REPLACES,
-            launches[mode], err, kms, pms, bms, by, parent))
+        for share in (None,) + LIVE_SHARES:
+            args = first.args[any_hit]
+            if share is not None:
+                args = live_share(args, share)
+            _, agree, err = compare(args, any_hit)
+            parent, kms = k1_ab(args, any_hit)
+            pms = median_ms(lambda: fi.flat_plain(*args, any_hit=any_hit),
+                            runs=PLAIN_RUNS, warmup=False)
+            bms, by = k1_bound(args, any_hit)
+            live = int((args[4] > args[3]).sum())
+            print(f"    K1 {mode} at the render's shapes ({args[1].shape[0]}"
+                  f" rays, {live} live, x {n_tris} tris): agree "
+                  f"{agree:.6f} max|err| {err:.3g}, median ms "
+                  f"{fmt_ab(parent, kms, bms)} by {by}, plain {pms:.3f} "
+                  f"(over {PLAIN_RUNS} runs); {clocks()}")
+            name = f"flat_intersect_{mode}" + (
+                "" if share is None else f"_live{round(share * 100)}")
+            entries.append(kernel_entry(
+                name, K1_SOURCE, K1_REPLACES,
+                launches[mode] if share is None else None, err, kms, pms,
+                bms, by, parent))
     profiled_round(path, os.path.join(d, "render_prof"), isect,
                    "intersect_flat", ("flat_sweep",))
     print(f"    ({time.perf_counter() - t_phase:.1f} s)")
@@ -2153,7 +2225,7 @@ def phase_bdpt_k1(d):
     agree = same.double().mean().item()
     check(agree >= MIN_AGREE, f"splat query: K1 any-hit ids agree with "
           f"flat_plain on {agree:.6f} of the rays")
-    parent, kms = ab_ms(lambda: fi.intersect_flat(*args, any_hit=True))
+    parent, kms = k1_ab(args, True)
     pms = median_ms(lambda: fi.flat_plain(*args, any_hit=True),
                     runs=PLAIN_RUNS, warmup=False)
     bms, by = k1_bound(args, True)

@@ -53,10 +53,13 @@ whose other slots the captured body adds into on the device
 `settle`'s one read:
 * a queued step marks at its start, stamps `other_ns` on entering the
   intersector and `intersect_ns` on leaving it (the runner wraps
-  `su.intersect`), adds its extension rays into `live_lanes` and the
-  any-hit queries' live rays (t_max > t_min) into `any_live_rays`, and
-  stamps `other_ns` at its end; its closest and any-hit queries are
-  counted once per captured body, like the launches;
+  `su.intersect`), adds its extension rays into `live_lanes`, the
+  any-hit queries' live rays (t_max > t_min) into `any_live_rays` and
+  the rays that K1's front end lists for its sweep, closest and any-hit
+  (`flat_intersect.count_swept`; none on a BVH scene), into
+  `swept_rays`, and stamps `other_ns` at its end; its closest and
+  any-hit queries are counted once per captured body, like the
+  launches;
 * the gradient step marks at its start and stamps `grad_fwd_ns` after
   the loss and `grad_bwd_ns` after `torch.autograd.grad`.
 The accumulators are zeroed once the body is captured, so the eager
@@ -146,21 +149,23 @@ _COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches,
 # build's captures.  From the phase stamps (module doc), over the queued
 # runners' iterations: lane_steps (lanes x iterations), live_lanes
 # (extension rays), closest_queries, any_queries, any_live_rays,
-# intersect_ns and other_ns (device time inside and outside the
-# intersector; `read_stats` adds step_ns, their sum); over the gradient
-# steps: grad_steps, grad_fwd_ns, grad_bwd_ns.
+# swept_rays (the rays K1's front end lists), intersect_ns and other_ns
+# (device time inside and outside the intersector; `read_stats` adds
+# step_ns, their sum); over the gradient steps: grad_steps, grad_fwd_ns,
+# grad_bwd_ns.
 stats = {"runners": 0, "blocks": 0, "captures": 0, "capture_ms": 0.0,
          "pool_bytes": 0, "peak_before": 0, "peak_after": 0, "steps": 0,
          "warmup_steps": 0, "replays": 0, "light_replays": 0,
          "flag_reads": 0, "iterations": 0, "while_launches": 0,
          "lane_bounces": 0, "setter_runs": 0, "lane_steps": 0,
          "live_lanes": 0, "closest_queries": 0, "any_queries": 0,
-         "any_live_rays": 0, "intersect_ns": 0, "other_ns": 0,
-         "grad_steps": 0, "grad_fwd_ns": 0, "grad_bwd_ns": 0}
+         "any_live_rays": 0, "swept_rays": 0, "intersect_ns": 0,
+         "other_ns": 0, "grad_steps": 0, "grad_fwd_ns": 0,
+         "grad_bwd_ns": 0}
 # The slots of a runner's accumulator by kind: the setter's runs, the
 # latest stamp (`gw.LAST`), then what `settle` adds into `stats` by name.
 _SLOTS = {"queued": ("runs", "last", "other_ns", "intersect_ns",
-                     "live_lanes", "any_live_rays"),
+                     "live_lanes", "any_live_rays", "swept_rays"),
           "grad": ("runs", "last", "grad_fwd_ns", "grad_bwd_ns"),
           "lanes": ("runs",)}
 _QUERIES = ("closest_queries", "any_queries")
@@ -277,16 +282,19 @@ def _snapshot():
 
 def _traced_intersect(intersect, acc, queries):
     """`intersect` (`path._Setup.intersect`) timed by phase stamps into
-    the queued accumulator `acc`, its queries counted in `queries` and
-    its any-hit queries' live rays added on the device (module doc)."""
+    the queued accumulator `acc`, its queries counted in `queries`, and
+    its any-hit queries' live rays and K1's swept rays added on the
+    device (module doc)."""
     other, inside = _slot("queued", "other_ns"), _slot("queued",
                                                        "intersect_ns")
     any_live = _slot("queued", "any_live_rays")
+    swept = _slot("queued", "swept_rays")
 
     def query(scene, ro, rd, t_min, t_max, exclude=None, any_hit=False):
         gw.stamp(acc, other)
-        hit = intersect(scene, ro, rd, t_min, t_max, exclude=exclude,
-                        any_hit=any_hit)
+        with fi.count_swept(acc[swept:swept + 1]):
+            hit = intersect(scene, ro, rd, t_min, t_max, exclude=exclude,
+                            any_hit=any_hit)
         gw.stamp(acc, inside)
         queries["any_queries" if any_hit else "closest_queries"] += 1
         if any_hit:

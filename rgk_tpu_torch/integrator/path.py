@@ -178,8 +178,11 @@ def _extend_path(scene, meta, settings, su: _Setup, ctx, ro, rd, last_tri,
     ray.  `bounce` (an int or a per-lane tensor) is the vertex index
     within the path; `russian` < 0 disables roulette (the light
     subpath).  Returns (next ray state, sp, p0, act, rays traced,
-    sky_mask)."""
-    hit = su.intersect(scene, ro, rd, 0.0, RAY_FAR, exclude=last_tri)
+    sky_mask).  A dead lane's query has an empty window, so it gets the
+    no-hit record, as the shadow queries of inactive lanes do: every use
+    of its record below is masked by `alive` or `act`."""
+    hit = su.intersect(scene, ro, rd, 0.0, torch.where(alive, RAY_FAR, -1.0),
+                       exclude=last_tri)
     rays = alive.sum()
 
     sky_mask = alive & ~hit.valid

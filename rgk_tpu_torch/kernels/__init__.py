@@ -152,7 +152,7 @@ def _open(path):
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rgk_flat_intersect.argtypes = [p, i, p, p, p, p, p, i, p, p, p, p,
-                                       i, p]
+                                       i, p, p, p]
     lib.rgk_flat_intersect.restype = i
     lib.rgk_cluster_intersect.argtypes = [p, p, p, i, i, p, i, p, p, p, p,
                                           p, p, p, i, p, p, p, p, i, p]

@@ -5,19 +5,33 @@ version (port of rgk_tpu/ops/pallas_intersect.py, kernel K1).
 min id) or any hit against every Badouel row of `tri_pack` [M, 13],
 honouring the (t_min, t_max) window and the `exclude` id and skipping
 thin-glass rows (col 12 > 0.5).  Any-hit returns K1's witness: tri 0
-when a hit exists, else -1, with zero barycentrics.
+when a hit exists, else -1, with zero barycentrics, and the t of the
+lowest accepted id.  A ray whose window is empty (not t_min < t_max)
+gets the no-hit record (t BIG, tri -1, barycentrics 0): the path
+tracer hands its dead lanes and inactive shadow rays such a window, and
+K1 sweeps only the others.
 
 * A CUDA tensor launches `csrc/flat_intersect.cu` (built at first use
-  by `rgk_tpu_torch.kernels`), or raises.
+  by `rgk_tpu_torch.kernels`), or raises: a front end that lists the
+  rays with a non-empty window on the device, a sweep of that list that
+  splits the rows over the card when the rays are few, and a pass that
+  writes a split query's records.
 * A CPU tensor takes `flat_plain`, the same function written as plain
   PyTorch: K1's elementwise formula over [r, M] planes, chunked over
   rays under a fixed byte budget.  The CPU tests run it, and the chip
   smoke test holds the kernel to it on the card.
 
-`launches` counts kernel launches by variant; nothing else adds to it.
+`launches` counts queries launched by variant (each a memset and three
+kernels); nothing else adds to it.  Inside `count_swept(into)` every
+query adds the rays it sweeps (those with a non-empty window) into
+`into` on the device: K1's front end counts them on the card,
+`flat_plain`'s caller on the CPU.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -29,6 +43,29 @@ PLAIN_CHUNK_BYTES = 512 << 20
 _PLAIN_PLANES = 12
 
 launches = {"closest": 0, "any": 0}
+# The counter of the innermost `count_swept` on this thread (the threads
+# of a device mesh query concurrently).
+_swept = threading.local()
+
+
+def scratch_bytes(r: int) -> int:
+    """A query's device scratch for r rays, as `csrc/flat_intersect.cu`
+    lays it out: an 8-byte key and a 4-byte list entry a ray, then two
+    int32 counters."""
+    return 12 * r + 8
+
+
+@contextlib.contextmanager
+def count_swept(into):
+    """Inside, each query adds the number of rays it sweeps into `into`,
+    an int64 [1] tensor on the rays' device, without a sync (module
+    doc)."""
+    prev = getattr(_swept, "into", None)
+    _swept.into = into
+    try:
+        yield
+    finally:
+        _swept.into = prev
 
 
 def _check(tri_pack, ro, rd, t_min, t_max, exclude):
@@ -67,7 +104,16 @@ def intersect_flat(tri_pack, ro, rd, t_min, t_max, exclude,
     winner's row, as `flat_plain` does: the card and the CPU
     differentiate the hit point along the ray alike."""
     _check(tri_pack, ro, rd, t_min, t_max, exclude)
+    into = getattr(_swept, "into", None)
+    if into is not None and (into.device != ro.device
+                             or into.dtype != torch.int64
+                             or into.shape != (1,)):
+        raise ValueError(f"the swept-ray counter must be int64 [1] on "
+                         f"{ro.device}, got {into.dtype} "
+                         f"{tuple(into.shape)} on {into.device}")
     if ro.device.type == "cpu":
+        if into is not None:
+            into.add_((t_max > t_min).sum())
         return flat_plain(tri_pack, ro, rd, t_min, t_max, exclude, any_hit)
     if ro.device.type != "cuda":
         raise RuntimeError(
@@ -90,13 +136,17 @@ def _launch(tri_pack, ro, rd, t_min, t_max, exclude, any_hit):
     bc = torch.empty(r, dtype=torch.float32, device=dev)
     if r == 0:
         return t, tri, bb, bc
+    # Freed after the launch: the stream orders its next use after it.
+    scratch = torch.empty(scratch_bytes(r), dtype=torch.uint8, device=dev)
+    into = getattr(_swept, "into", None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.rgk_flat_intersect(
             tri_pack.data_ptr(), m, ro.data_ptr(), rd.data_ptr(),
             t_min.data_ptr(), t_max.data_ptr(), exclude.data_ptr(), r,
             t.data_ptr(), tri.data_ptr(), bb.data_ptr(), bc.data_ptr(),
-            int(any_hit), stream)
+            int(any_hit), scratch.data_ptr(),
+            None if into is None else into.data_ptr(), stream)
     kernels.check_launch(rc, "flat_intersect")
     launches["any" if any_hit else "closest"] += 1
     return t, tri, bb, bc
@@ -147,12 +197,15 @@ def flat_plain(tri_pack, ro, rd, t_min, t_max, exclude,
         ok = (safe & (beta >= 0.0) & (gamma >= 0.0) & (beta + gamma <= 1.0)
               & (t > t_min[s:e, None]) & (t < t_max[s:e, None]) & usable
               & (ids != exclude[s:e, None]))
-        t_sel = torch.where(ok, t, BIG)
         if any_hit:
-            best = t_sel.amin(dim=1)
-            t_out[s:e] = best
-            tri_out[s:e] = torch.where(best < BIG, 0, -1).to(torch.int32)
+            # argmax returns the first maximal index: the lowest accepted
+            # id, the row K1's ascending sweep accepts first.
+            idx = torch.argmax(ok.to(torch.uint8), dim=1, keepdim=True)
+            found = ok.gather(1, idx)[:, 0]
+            t_out[s:e] = torch.where(found, t.gather(1, idx)[:, 0], BIG)
+            tri_out[s:e] = torch.where(found, 0, -1).to(torch.int32)
             continue
+        t_sel = torch.where(ok, t, BIG)
         # argmin returns the first minimal index: min t, then min id.
         idx = torch.argmin(t_sel, dim=1, keepdim=True)
         best = t_sel.gather(1, idx)[:, 0]

@@ -231,6 +231,131 @@ def test_kernel_equals_plain_bit_for_bit(cuda_device, scene):
                        fi.flat_plain(*args, any_hit=True)[1])
 
 
+LIVE_RAYS = 1 << 18    # the box's block: one slice at 100% live, sliced below
+LIVE_SHARES = (0.0, "one", 0.002, 0.02, 0.27, 1.0)
+
+
+def _tie_scene(dev, n_rays=LIVE_RAYS, seed=5):
+    """3,870 rows: a 16 x 16 grid of unit squares (512 triangles) in the
+    plane z = 5, a random soup, and the grid again as the last 512 rows;
+    half the rays run up +z from points on the grid's lines, where t
+    ties between triangles that share an edge and always between a grid
+    row and its copy 3,358 rows on (another slice of a sliced query);
+    the rest random, through the soup.  The windows start at 0.5."""
+    g = 16
+    x, y = np.meshgrid(np.arange(g, dtype=np.float32) - g / 2,
+                       np.arange(g, dtype=np.float32) - g / 2)
+    x, y = x.ravel(), y.ravel()
+    quad = np.stack([np.stack([x + a, y + b, np.full_like(x, 5.0)], axis=1)
+                     for a, b in ((0, 0), (1, 0), (1, 1), (0, 1))], axis=1)
+    grid = np.concatenate([quad[:, [0, 1, 2]], quad[:, [0, 2, 3]]])
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-10, 10, (3870 - 2 * grid.shape[0], 3))
+    soup = centers[:, None, :] + rng.normal(0, 0.6, (centers.shape[0], 3, 3))
+    verts = np.concatenate([grid, soup, grid]).astype(np.float32)
+    pack = np.zeros((verts.shape[0], 13), np.float32)
+    pack[:, :12] = build_tri_pack(verts.reshape(-1, 3),
+                                  np.arange(verts.shape[0] * 3).reshape(-1, 3))
+    pack[1000::97, 12] = 1.0  # thin glass in the soup
+    half = n_rays // 2
+    on_line = rng.integers(-g // 2, g // 2, (half, 2)).astype(np.float32)
+    along = rng.integers(0, 4 * g, half).astype(np.float32) / 4 - g / 2
+    axis = rng.integers(0, 2, half)
+    on_line[np.arange(half), axis] = along
+    ro = rng.uniform(-12, 12, (n_rays, 3)).astype(np.float32)
+    rd = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    ro[:half, :2], ro[:half, 2] = on_line, 0.0
+    rd[:half] = (0.0, 0.0, 1.0)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return [torch.from_numpy(a).to(dev) for a in (
+        pack, ro, rd, np.full(n_rays, 0.5, np.float32),
+        np.full(n_rays, 1e4, np.float32), np.full(n_rays, -1, np.int32))]
+
+
+def _empty_windows(t_min, t_max, share, seed):
+    """t_max with every ray but a scattered `share` of them ("one": a
+    single ray) given an empty window: t_max = t_min, -1 or NaN."""
+    n = t_max.shape[0]
+    rng = np.random.default_rng(seed)
+    live = np.zeros(n, bool)
+    if share == "one":
+        live[rng.integers(n)] = True
+    else:
+        live[rng.permutation(n)[:int(round(share * n))]] = True
+    empty = np.stack([t_min.cpu().numpy(), np.full(n, -1.0, np.float32),
+                      np.full(n, np.nan, np.float32)])[rng.integers(0, 3, n),
+                                                        np.arange(n)]
+    out = np.where(live, t_max.cpu().numpy(), empty).astype(np.float32)
+    return torch.from_numpy(out).to(t_max.device), int(live.sum())
+
+
+def _assert_bit_equal(got, want, what):
+    for name, x, y in zip(("t", "tri", "bary_b", "bary_c"), got, want):
+        diff = int((x.view(torch.int32) != y.view(torch.int32)).sum())
+        assert diff == 0, f"{what}: {name} differs from flat_plain on " \
+                          f"{diff} rays"
+
+
+@pytest.mark.parametrize("scene", ["soup", "ties"])
+@pytest.mark.parametrize("share", LIVE_SHARES)
+def test_kernel_sweeps_only_live_rays(cuda_device, scene, share):
+    """K1 at every live share, from one ray to all 262,144 (one slice an
+    item) and below (the rows sliced), the empty windows scattered:
+    every output equals flat_plain's bit for bit, closest and any hit
+    (any: the lowest accepted id's t), the swept counter reads the live
+    rays, and a second run gives the same bits (the slices' atomics)."""
+    args = (_inputs(3870, LIVE_RAYS, seed=21, dev=cuda_device)
+            if scene == "soup" else _tie_scene(cuda_device))
+    args[4], live = _empty_windows(args[3], args[4], share, seed=22)
+    for any_hit in (False, True):
+        swept = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+        with fi.count_swept(swept):
+            k = fi.intersect_flat(*args, any_hit=any_hit)
+        again = fi.intersect_flat(*args, any_hit=any_hit)
+        torch.cuda.synchronize()
+        what = f"{scene} {share} {'any' if any_hit else 'closest'}"
+        _assert_bit_equal(k, fi.flat_plain(*args, any_hit=any_hit), what)
+        _assert_bit_equal(again, k, what + " run to run")
+        assert int(swept) == live
+        if share == 1.0:
+            hits = k[1] >= 0
+            assert 0.05 < hits.double().mean().item()
+            if scene == "ties" and not any_hit:
+                assert int((k[1][hits] < 512).sum()) > 10_000
+
+
+def test_kernel_graph_serves_every_live_count(cuda_device):
+    """One captured K1 query (a closest and an any-hit one) replayed
+    with another live count each time: the grid fixed at capture serves
+    all of them, bit-equal to flat_plain, the swept counter in the graph
+    reading each count."""
+    args = _tie_scene(cuda_device)
+    full = args[4].clone()
+    swept = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    outs = {}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), fi.count_swept(swept):
+        for any_hit in (False, True):
+            fi.intersect_flat(*args, any_hit=any_hit)  # build, warm
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g), fi.count_swept(swept):
+        for any_hit in (False, True):
+            outs[any_hit] = fi.intersect_flat(*args, any_hit=any_hit)
+    for i, share in enumerate((0.27, 1.0, "one", 0.0, 0.002, 0.02, 1.0)):
+        t_max, live = _empty_windows(args[3], full, share, seed=30 + i)
+        args[4].copy_(t_max)
+        swept.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(swept) == 2 * live, share
+        for any_hit in (False, True):
+            _assert_bit_equal(outs[any_hit],
+                              fi.flat_plain(*args, any_hit=any_hit),
+                              f"replay {i} ({share})")
+
+
 def test_slice_render_on_card_matches_cpu(cuda_device, tmp_path):
     mod = _module("_bdpt_scene", os.path.join(TOOLS, "bdpt_scene.py"))
     path = tmp_path / "box.json"

@@ -8,7 +8,9 @@ Contracts:
 * a queued block's `live_lanes` equals its ray counter exactly and
   `lane_steps` equals lanes x iterations, on a flat and a BVH scene; its
   query counts and any-hit live rays equal what
-  `rgkbench.profiling.count_queries` counts on the same block;
+  `rgkbench.profiling.count_queries` counts on the same block; its
+  `swept_rays` (K1's) equals `live_lanes` + `any_live_rays` on the flat
+  scene and is 0 on the BVH scene;
 * with `trace.enable(False)` a runner holds no accumulator and its
   block's radiance and rays are bit-equal to a traced runner's;
 * the gradient step counts its calls and stamps a forward and a
@@ -78,6 +80,9 @@ def test_queued_counters_match_the_block(tmp_path, traced, bvh):
     assert st["closest_queries"] == counted["closest"] == st["iterations"]
     assert st["any_queries"] == counted["any"] > 0
     assert st["any_live_rays"] == counted["any_rays"] > 0
+    # K1 sweeps the live rays and no others; a BVH scene's K2 counts none.
+    assert st["swept_rays"] == (0 if bvh else st["live_lanes"]
+                                + st["any_live_rays"])
     assert st["intersect_ns"] > 0 and st["other_ns"] > 0
     assert st["step_ns"] == st["intersect_ns"] + st["other_ns"]
 
