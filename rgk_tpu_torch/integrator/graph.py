@@ -52,7 +52,7 @@ whose other slots the captured body adds into on the device
 (`gw.stamp`, one-thread nodes, and two small reductions), read at
 `settle`'s one read:
 * a queued step marks at its start, stamps `other_ns` on entering the
-  intersector and `intersect_ns` on leaving it (the runner wraps
+  intersector and `intersect_ns` on leaving it (`_Probe`, which wraps
   `su.intersect`), adds its extension rays into `live_lanes`, the
   any-hit queries' live rays (t_max > t_min) into `any_live_rays` and
   the rays that K1's front end lists for its sweep, closest and any-hit
@@ -60,6 +60,16 @@ whose other slots the captured body adds into on the device
   `swept_rays`, and stamps `other_ns` at its end; its closest and
   any-hit queries are counted once per captured body, like the
   launches;
+* a BDPT step's connections (`path._queued_step` marks them through
+  `_Setup.probe`) stamp into `connect_ns` and `connect_intersect_ns`
+  instead, and add their live shadow rays into `connect_rays`; the
+  step's time slots partition it, `step_ns` their sum;
+* the BDPT light phase, the WHILE graph's prologue, marks at its start,
+  stamps `light_ns` and `light_intersect_ns` likewise, adds the live
+  rays of all its queries into `light_live_rays` (the splat query's
+  also into `light_any_rays`), its valid light vertices into
+  `light_vertices` and the splats that land in view into `splats`, and
+  stamps `light_ns` at its end; its queries are counted once a block;
 * the gradient step marks at its start and stamps `grad_fwd_ns` after
   the loss and `grad_bwd_ns` after `torch.autograd.grad`.
 The accumulators are zeroed once the body is captured, so the eager
@@ -121,6 +131,7 @@ import contextlib
 import os
 import threading
 import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -151,8 +162,17 @@ _COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches,
 # (extension rays), closest_queries, any_queries, any_live_rays,
 # swept_rays (the rays K1's front end lists), intersect_ns and other_ns
 # (device time inside and outside the intersector; `read_stats` adds
-# step_ns, their sum); over the gradient steps: grad_steps, grad_fwd_ns,
-# grad_bwd_ns.
+# step_ns, the sum of the step's four time slots with connect_ns and
+# connect_intersect_ns); over the gradient steps: grad_steps, grad_fwd_ns,
+# grad_bwd_ns.  A BDPT runner adds, over its light phases (the WHILE
+# graph's prologue, one a block): light_ns and light_intersect_ns (device
+# time outside and inside the intersector), light_live_rays (the live
+# rays of every query, the splat query's included), light_any_rays (the
+# splat query's), light_vertices (valid stored light vertices), splats
+# (splats that land in view), light_closest_queries and
+# light_any_queries; over its steps' connections: connect_ns and
+# connect_intersect_ns, connect_rays (live connection shadow rays) and
+# connect_queries.
 stats = {"runners": 0, "blocks": 0, "captures": 0, "capture_ms": 0.0,
          "pool_bytes": 0, "peak_before": 0, "peak_after": 0, "steps": 0,
          "warmup_steps": 0, "replays": 0, "light_replays": 0,
@@ -161,14 +181,49 @@ stats = {"runners": 0, "blocks": 0, "captures": 0, "capture_ms": 0.0,
          "live_lanes": 0, "closest_queries": 0, "any_queries": 0,
          "any_live_rays": 0, "swept_rays": 0, "intersect_ns": 0,
          "other_ns": 0, "grad_steps": 0, "grad_fwd_ns": 0,
-         "grad_bwd_ns": 0}
+         "grad_bwd_ns": 0, "light_ns": 0, "light_intersect_ns": 0,
+         "light_live_rays": 0, "light_any_rays": 0, "light_vertices": 0,
+         "splats": 0, "light_closest_queries": 0, "light_any_queries": 0,
+         "connect_ns": 0, "connect_intersect_ns": 0, "connect_rays": 0,
+         "connect_queries": 0}
 # The slots of a runner's accumulator by kind: the setter's runs, the
 # latest stamp (`gw.LAST`), then what `settle` adds into `stats` by name.
 _SLOTS = {"queued": ("runs", "last", "other_ns", "intersect_ns",
                      "live_lanes", "any_live_rays", "swept_rays"),
           "grad": ("runs", "last", "grad_fwd_ns", "grad_bwd_ns"),
           "lanes": ("runs",)}
-_QUERIES = ("closest_queries", "any_queries")
+_SLOTS["bdpt"] = _SLOTS["queued"] + (
+    "light_ns", "light_intersect_ns", "light_live_rays", "light_any_rays",
+    "light_vertices", "splats", "connect_ns", "connect_intersect_ns",
+    "connect_rays")
+
+
+class _Phase(NamedTuple):
+    """Where a traced queued runner's phase (`_Probe`) puts its stamps
+    and counts."""
+    outside: str          # the slot of the time outside the intersector
+    inside: str           # the slot of the time inside it
+    closest_rays: tuple   # the slots a closest query's live rays go to
+    any_rays: tuple       # the slots an any-hit query's live rays go to
+    swept: bool           # K1's swept rays counted into `swept_rays`
+    closest: str          # the stats key of the closest queries' count
+    any: str              # the stats key of the any-hit queries' count
+
+
+# A step's closest rays are its ray counter, `live_lanes`, added apart.
+_PHASES = {
+    "eye": _Phase("other_ns", "intersect_ns", (), ("any_live_rays",), True,
+                  "closest_queries", "any_queries"),
+    "connect": _Phase("connect_ns", "connect_intersect_ns", (),
+                      ("connect_rays",), True, "closest_queries",
+                      "connect_queries"),
+    "light": _Phase("light_ns", "light_intersect_ns", ("light_live_rays",),
+                    ("light_live_rays", "light_any_rays"), False,
+                    "light_closest_queries", "light_any_queries")}
+# A step's query counts, added times the bodies run, and a light
+# phase's, added once a block.
+_QUERIES = ("closest_queries", "any_queries", "connect_queries")
+_LIGHT_QUERIES = ("light_closest_queries", "light_any_queries")
 # Every runner's counter (`_WhileCount`), read by `settle`.
 _while = []
 _lock = threading.Lock()
@@ -183,8 +238,8 @@ class _WhileCount:
     setter's runs, the others the phase stamps' (`_SLOTS[kind]`); its
     WHILE launches; `delta` the body's launches and `per_body` its
     counts (lanes, queries), added at `settle` times the bodies run; and
-    what `settle` has taken of each.  `kind` "queued", "lanes" or
-    "grad" (no setter)."""
+    what `settle` has taken of each.  `kind` "queued", "bdpt" (a BDPT
+    queued runner, `_SLOTS`), "lanes" or "grad" (no setter)."""
 
     def __init__(self, runner, acc, kind, delta=None, per_body=None):
         self.runner = weakref.ref(runner)
@@ -232,7 +287,7 @@ def settle() -> None:
             bodies = new[0] - new_launches
             gw.launches["setter"] += new[0]
             stats["setter_runs"] += new[0]
-            if c.kind == "queued":
+            if c.kind in ("queued", "bdpt"):
                 for key in ("steps", "replays", "iterations"):
                     stats[key] += bodies
                 for key, v in c.per_body.items():
@@ -248,12 +303,13 @@ def settle() -> None:
 def read_stats() -> dict:
     """`stats` after `settle`, `overshoot`, the steps run past the end,
     and `step_ns`, the queued steps' device time (`intersect_ns` +
-    `other_ns`)."""
+    `other_ns` + `connect_ns` + `connect_intersect_ns`)."""
     settle()
     with _lock:
         got = dict(stats)
     got["overshoot"] = got["steps"] - got["iterations"]
-    got["step_ns"] = got["intersect_ns"] + got["other_ns"]
+    got["step_ns"] = (got["intersect_ns"] + got["other_ns"]
+                      + got["connect_ns"] + got["connect_intersect_ns"])
     return got
 
 
@@ -280,30 +336,64 @@ def _snapshot():
     return [dict(c) for c in _COUNTERS]
 
 
-def _traced_intersect(intersect, acc, queries):
-    """`intersect` (`path._Setup.intersect`) timed by phase stamps into
-    the queued accumulator `acc`, its queries counted in `queries`, and
-    its any-hit queries' live rays and K1's swept rays added on the
-    device (module doc)."""
-    other, inside = _slot("queued", "other_ns"), _slot("queued",
-                                                       "intersect_ns")
-    any_live = _slot("queued", "any_live_rays")
-    swept = _slot("queued", "swept_rays")
+class _Probe:
+    """A traced queued runner's phase stamps and device counts (module
+    doc), handed to the tracers as `path._Setup.probe`, and `intersect`
+    as `_Setup.intersect`.  The phase (`_PHASES`) picks the slots of a
+    query's stamps and counts: "eye" from `start("eye")` at a step's
+    start, "connect" between `phase("connect")` and `phase("eye")`
+    around its BDPT connections, "light" from `start("light")` at the
+    light phase's start; `end()` closes a step or light phase.  The
+    slots partition the time: each stamp adds the time since the last
+    into one slot.  `queries` counts the queries of the latest step and
+    light phase by stats key."""
 
-    def query(scene, ro, rd, t_min, t_max, exclude=None, any_hit=False):
-        gw.stamp(acc, other)
-        with fi.count_swept(acc[swept:swept + 1]):
-            hit = intersect(scene, ro, rd, t_min, t_max, exclude=exclude,
-                            any_hit=any_hit)
-        gw.stamp(acc, inside)
-        queries["any_queries" if any_hit else "closest_queries"] += 1
-        if any_hit:
-            # Lanes whose interval is not empty; an any-hit query's t_max
-            # is a tensor (`ops/intersect.visibility`).
-            acc[any_live].add_((t_max > t_min).expand(ro.shape[0]).sum())
+    def __init__(self, intersect, acc, kind: str, queries: dict):
+        self._intersect, self.acc, self.kind = intersect, acc, kind
+        self.queries = queries
+        self._p = _PHASES["eye"]
+
+    def start(self, name) -> None:
+        """A step's or the light phase's start: a mark, no slot; its
+        query counts zeroed."""
+        gw.stamp(self.acc)
+        self._p = _PHASES[name]
+        for key in (_LIGHT_QUERIES if name == "light" else _QUERIES):
+            self.queries[key] = 0
+
+    def phase(self, name) -> None:
+        """The time since the last stamp into the current phase's outside
+        slot, then phase `name`."""
+        self.end()
+        self._p = _PHASES[name]
+
+    def end(self) -> None:
+        gw.stamp(self.acc, _slot(self.kind, self._p.outside))
+
+    def add(self, name, value) -> None:
+        """`value`, an int64 [] on the device, into slot `name`."""
+        self.acc[_slot(self.kind, name)].add_(value)
+
+    def intersect(self, scene, ro, rd, t_min, t_max, exclude=None,
+                  any_hit=False):
+        """`path._Setup.intersect`, stamped and counted."""
+        p = self._p
+        gw.stamp(self.acc, _slot(self.kind, p.outside))
+        swept = _slot(self.kind, "swept_rays")
+        with (fi.count_swept(self.acc[swept:swept + 1]) if p.swept
+              else contextlib.nullcontext()):
+            hit = self._intersect(scene, ro, rd, t_min, t_max,
+                                  exclude=exclude, any_hit=any_hit)
+        gw.stamp(self.acc, _slot(self.kind, p.inside))
+        self.queries[p.any if any_hit else p.closest] += 1
+        into = p.any_rays if any_hit else p.closest_rays
+        if into:
+            # Lanes whose interval is not empty: t_max is a tensor in every
+            # query of the tracers (`_extend_path`, `ops/intersect.visibility`).
+            live = (t_max > t_min).expand(ro.shape[0]).sum()
+            for name in into:
+                self.add(name, live)
         return hit
-
-    return query
 
 
 def _add_launches(delta, times: int = 1):
@@ -459,15 +549,21 @@ class QueuedGraph(_Runner):
         self.sampler_mode = sampler_mode
         self.bdpt = int(settings.reverse) > 0
         self.mode = binned_mode(meta)
+        self.kind = "bdpt" if self.bdpt else "queued"
         self.su = tpath._setup(scene, meta, settings)
-        # The step's setup: the intersector timed and counted when traced.
-        self._su_step = self.su
-        self._queries = dict.fromkeys(_QUERIES, 0)  # in the latest step
+        # The setup the step and light phase run on: with the probe's
+        # stamps and counts when traced.
+        self._su_run = self.su
+        self.probe = None
+        # In the latest step and light phase (`_Probe`).
+        self._queries = dict.fromkeys(_QUERIES + _LIGHT_QUERIES, 0)
         if trace.enabled():
-            self.acc = torch.zeros(len(_SLOTS["queued"]), dtype=torch.int64,
+            self.acc = torch.zeros(len(_SLOTS[self.kind]), dtype=torch.int64,
                                    device=dev)
-            self._su_step = self.su._replace(intersect=_traced_intersect(
-                self.su.intersect, self.acc, self._queries))
+            self.probe = _Probe(self.su.intersect, self.acc, self.kind,
+                                self._queries)
+            self._su_run = self.su._replace(intersect=self.probe.intersect,
+                                            probe=self.probe)
         self.cam = cam.to(dev, copy=True)
         px = torch.zeros(self.lanes, dtype=torch.int32, device=dev)
         lpack = None
@@ -489,7 +585,7 @@ class QueuedGraph(_Runner):
             with torch.no_grad(), torch.cuda.device(dev):
                 self._graphs_for(seed)
         else:
-            self._counter("queued")
+            self._counter(self.kind)
         out.log(3, f"queued loop on {dev}: {self.lanes} lanes x "
                    f"{self.n_samples} samples, "
                    f"{'BDPT' if self.bdpt else 'NEE'}, RGK_BINNED="
@@ -504,8 +600,9 @@ class QueuedGraph(_Runner):
                     ([("light", self._light)] if self.bdpt else [])
                     + [("step", self._step)], keep=True)
         # The step was captured last: its queries are the body's.
-        self._while_graph("queued", "step", "light" if self.bdpt else None,
-                          per_body=dict(self._queries, lane_steps=self.lanes))
+        self._while_graph(self.kind, "step", "light" if self.bdpt else None,
+                          per_body=dict(self._step_queries(),
+                                        lane_steps=self.lanes))
 
     # ---- the bodies: run eagerly, or captured once
 
@@ -527,34 +624,41 @@ class QueuedGraph(_Runner):
             buf.copy_(v)
         self.live.copy_(tpath._queued_live(self.state, i))
 
+    def _step_queries(self) -> dict:
+        return {key: self._queries[key] for key in _QUERIES}
+
     def _light(self) -> None:
+        probe = self.probe
+        if probe is not None:
+            probe.start("light")
         lpack, splat, rays = tpath._light_phase(
-            self.scene, self.meta, self.settings, self.su, self.cam,
+            self.scene, self.meta, self.settings, self._su_run, self.cam,
             self.inp, self.n_samples, self.sampler_mode)
         self.inp.lpack.copy_(lpack)
         self.splat.copy_(splat)
         self.state.rays.copy_(rays)
+        if probe is not None:
+            probe.end()
 
     def _step(self) -> None:
-        acc = self.acc
-        if acc is not None:
-            self._queries.update(dict.fromkeys(_QUERIES, 0))
-            gw.stamp(acc)
+        probe = self.probe
+        if probe is not None:
+            probe.start("eye")
         q = tpath._queued_step(self.scene, self.meta, self.settings,
-                               self._su_step, self.cam, self.inp, self.state,
+                               self._su_run, self.cam, self.inp, self.state,
                                self.sampler_mode)
-        if acc is not None:
-            acc[_slot("queued", "live_lanes")].add_(q.rays - self.state.rays)
+        if probe is not None:
+            probe.add("live_lanes", q.rays - self.state.rays)
         for buf, v in zip(self.state, q):
             buf.copy_(v)
         self.live.copy_(tpath._queued_live(self.state, self.inp))
-        if acc is not None:
-            gw.stamp(acc, _slot("queued", "other_ns"))
+        if probe is not None:
+            probe.end()
 
     def _plain_step(self) -> None:
         """`_step` on the CPU, its queries counted at once."""
         self._step()
-        _bump(**self._queries)
+        _bump(**self._step_queries())
 
     def _tail(self, acc, rays_acc) -> None:
         acc.index_add_(0, self.pix_idx, self.state.radiance)
@@ -583,9 +687,12 @@ class QueuedGraph(_Runner):
                                  prologue=self._light if self.bdpt else None)
                 _bump(blocks=1, steps=n, iterations=n, flag_reads=n + 1,
                       lane_steps=n * self.lanes)
-                return
-            self._launch()
-            _bump(blocks=1, while_launches=1, light_replays=int(self.bdpt))
+            else:
+                self._launch()
+                _bump(blocks=1, while_launches=1,
+                      light_replays=int(self.bdpt))
+            if self.bdpt:
+                _bump(**{key: self._queries[key] for key in _LIGHT_QUERIES})
 
     def trace(self, px, py, sample0: int, seed: int, cam):
         """`block`, then the outputs of `path.trace_wavefront_queued`

@@ -105,6 +105,10 @@ class _Setup(NamedTuple):
     clamp: float
     n_set: int
     tint: bool  # the tint-thinglass extension is on and the scene has glass
+    # A traced queued runner's phase stamps and device counts
+    # (`graph._Probe`), or None: the BDPT light phase adds its counts
+    # through it, and the queued step marks its connections.
+    probe: Optional[object] = None
 
 
 def _setup(scene, meta, settings) -> _Setup:
@@ -581,6 +585,8 @@ def _queued_step(scene, meta, settings, su: _Setup, cam, inp: _QueuedInputs,
                                             contribution * sky, 0.0)
     total_here = _vertex_radiance(scene, meta, su, light, sp, p0, active=act)
     if inp.lpack is not None:
+        if su.probe is not None:
+            su.probe.phase("connect")
         r = inp.px.shape[0]
         # The slot of the lane's sample, from the block's first sample
         # on the device (not a Python number, which a capture would bake).
@@ -589,6 +595,8 @@ def _queued_step(scene, meta, settings, su: _Setup, cam, inp: _QueuedInputs,
         for k in range(inp.lpack.shape[2] // _LV_ROW):
             total_here = total_here + _connect_to_light_vertex(
                 scene, meta, su, _unpack_light_vertex(rows, k), sp, p0, act)
+        if su.probe is not None:
+            su.probe.phase("eye")
     total_here = torch.clamp(total_here, max=su.clamp)
     sample_rad = sample_rad + torch.where(act[..., None],
                                           contribution * total_here, 0.0)
@@ -635,6 +643,9 @@ def _light_phase(scene, meta, settings, su: _Setup, cam, inp: _QueuedInputs,
     lrec, splat_pix, splat_val, rays = _trace_light_subpaths(
         scene, meta, settings, cam, ctx_f, su, _sample_path_light(scene, ctx_f),
         smp.sample_2d(ctx_f, smp.DIM_LIGHTDIR), int(settings.reverse))
+    if su.probe is not None:
+        su.probe.add("light_vertices", lrec["valid"].sum())
+        su.probe.add("splats", (splat_pix >= 0).sum())
     splat_img = _splat_image(splat_pix.reshape(-1), splat_val.reshape(-1, 3),
                              cam.xres * cam.yres)
     return _pack_light_vertices(lrec, r, n_samples), splat_img, rays

@@ -1270,6 +1270,48 @@ def test_queued_graph_stamps_match_events(cuda_device, tmp_path):
     assert n_on >= gw.node_count(off._graphs["step"][0], "body") + 6
 
 
+def test_bdpt_graph_stamps_match_events(cuda_device, tmp_path):
+    """A BDPT block of the box with a 3,900-triangle sphere at 256x256, 2
+    samples, reverse 4 (K1): the light phase's and the steps' stamped
+    time lies within 2% of CUDA events around the block's WHILE launch,
+    the connections have slots of their own, and the light phase's
+    counts are positive."""
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.utils import trace
+
+    res = 256
+    cfg = scenes.add_sphere(tmp_path, scenes.box_config(res=res, ms=2,
+                                                        reverse=4),
+                            n_tris=3900)
+    arrays, meta, c = scenes.port_build(
+        scenes.write_config(tmp_path, cfg, "bdpt_stamps.json"), "cuda")
+    s, cam = c.settings, c.get_camera().to("cuda")
+    pix = torch.arange(res * res, device="cuda")
+    px, py = (pix % res).to(torch.int32), (pix // res).to(torch.int32)
+    trace.enable(True)
+    runner = graph.QueuedGraph(arrays, meta, s, cam, res * res, 2)
+    assert runner.kind == "bdpt"
+    runner.block(px, py, 0, 42, cam)
+    torch.cuda.synchronize()
+    graph.reset_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.no_grad():
+        runner._load(px, py, 2, 43, cam)
+        ev[0].record()
+        runner._launch()
+        ev[1].record()
+    torch.cuda.synchronize()
+    st = graph.read_stats()
+    ms = ev[0].elapsed_time(ev[1])
+    stamped = (st["step_ns"] + st["light_ns"] + st["light_intersect_ns"]) / 1e6
+    assert abs(stamped - ms) <= 0.02 * ms, (st, ms)
+    for key in ("connect_ns", "connect_intersect_ns", "connect_rays",
+                "light_vertices", "splats", "light_live_rays"):
+        assert st[key] > 0, key
+    assert st["step_ns"] == (st["intersect_ns"] + st["other_ns"]
+                             + st["connect_ns"] + st["connect_intersect_ns"])
+
+
 def test_lane_graph_stops_at_the_last_live_bounce(cuda_device, tmp_path,
                                                   monkeypatch):
     """The per-sample path at the JSON defaults (recursion-max 40,
