@@ -17,7 +17,7 @@ colonnade once more with RGK_BINNED=all, and print the round's device
 time per
 kernel (K3, K4 and pass 2's K2 in the binned round) and the device's
 busy share.  It drives
-rgk_tpu_torch, never JAX, through twenty-three phases and exits non-zero at
+rgk_tpu_torch, never JAX, through twenty-four phases and exits non-zero at
 the first that fails:
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -207,7 +207,16 @@ the first that fails:
    finite), the step as one CUDA graph against the eager step in turns
    as in phase 16 (bit for bit), `mat_diffuse` of the white walls by
    central difference (eager and graph gradients, eps 1e-3, rtol 0.03),
-   forward and backward ms, peak memory, K1 and K5 launches.
+   forward and backward ms, peak memory, K1 and K5 launches;
+24. the sampler kernel (`ops/sampler.py`, `csrc/sampler.cu`) at the box
+   cell's step (262,144 lanes, Halton, a 0-d device seed): each sampler
+   call of a queued NEE step (pixel jitter, areal and light-choice
+   samples, the per-bounce seed, the BxDF and roulette samples) against
+   the plain version on the card bit for bit, kernel and plain ms
+   beside the bound by bytes, the plain version's ATen ops a call, and
+   the kernel's launches by entry over phases 1-23 (phase 20 prints each
+   queued body's nodes beside the same body captured with the plain
+   sampler).
 
 Every CLI render on the card runs the queued loop as one CUDA graph
 with a WHILE node a block (`rgk_tpu_torch/integrator/graph.py`): the
@@ -254,7 +263,8 @@ phases 20 and 21's WHILE-graph rounds, the phase stamp its launches in
 the graph rounds of phases 20 and 21 and the graph steps of phases 16,
 17 and 23, each held to the stamps a step makes; ms, plain_ms,
 bound_ms, bound_by, share, library_ms null but for K5's rows, parent_ms
-for K1-K5 with --parent), and last
+for K1-K5 with --parent; the sampler's rows their entry's launches over
+phases 1-23 and `plain_ops`), and last
 `{"ok": true, "device": {...}}`.  Without CUDA it exits 2 and prints no
 result.
 """
@@ -327,6 +337,10 @@ SETTER_SOURCE = "rgk_tpu_torch/csrc/graph_while.cu"
 SETTER_REPLACES = "rgk_tpu/integrator/path.py:344"  # the queued loop's cond
 SETTER_RUNS = []  # the setter's runs in phases 20 and 21, counted from 0
 STAMP_RUNS = []   # the phase stamp's launches in phases 16, 17, 20, 21, 23
+SAMPLER_SOURCE = "rgk_tpu_torch/csrc/sampler.cu"
+SAMPLER_REPLACES = "none: rgk_tpu/ops/sampler.py, jnp that XLA fuses"
+SAMPLER_LANES = 262_144  # the box cell's block: 512 x 512 pixels
+SAMPLER_RUNS = []  # the sampler's launches by entry, read with K5's
 PROBE_SOURCE = "rgk_tpu_torch/csrc/probes.cu"
 P1_REPLACES = "tools/prof_smem_probe.py:23"
 P2_REPLACES = "tools/prof_sync.py:24"
@@ -441,6 +455,7 @@ def reset_launches():
     p1.launches.update(smem=0, unpack=0, row_copy=0)
     p2.launches.update(sync=0, fetch=0)
     gw.launches.update(setter=0, stamp=0)
+    smp.launches.update(hash_u32=0, sample_1d=0, sample_2d=0)
     tgraph.reset_stats()
 
 
@@ -449,6 +464,14 @@ def launched(module):
     launches of the WHILE graphs' bodies (read from the devices)."""
     tgraph.settle()
     return dict(module.launches)
+
+
+def render_k5():
+    """K5's launches since the last reset_launches(), read just after a
+    render.  The sampler kernel's launches of the same run go to
+    SAMPLER_RUNS, so phase 24 counts the renders' launches alone."""
+    SAMPLER_RUNS.append(launched(smp))
+    return launched(vm)
 
 
 def check_k5_render(k5, what):
@@ -879,7 +902,7 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(f"[1/23 device] {torch.cuda.get_device_name(0)} | torch "
+    print(f"[1/24 device] {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} | CUDA {torch.version.cuda} | "
           f"devices {torch.cuda.device_count()}")
 
@@ -899,7 +922,7 @@ def phase_build(parent_csrc=None):
         else:
             info, lib = kernels.build(), kernels.load()
         secs = time.perf_counter() - t0
-        print(f"[2/23 build] {who}{os.path.relpath(info['path'], ROOT)} "
+        print(f"[2/24 build] {who}{os.path.relpath(info['path'], ROOT)} "
               f"nvcc {info['seconds']:.3f} s, build+load {secs:.3f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -968,7 +991,7 @@ def phase_k1(dev):
         times.append(f"{'any' if m else 'closest'} "
                      f"{fmt_ab(parent, new, k1_bound(window, m)[0])}, "
                      f"plain {plain:.3f}")
-    print(f"[3/23 K1 {n_tris} tris x {n_rays} rays] closest agree "
+    print(f"[3/24 K1 {n_tris} tris x {n_rays} rays] closest agree "
           f"{agree1:.6f} (excl pass {agree2:.6f}) max|err| "
           f"{max(err1, err2):.3g}; any-hit agree {agree3:.6f}; median ms "
           + "; ".join(times) + f" (plain over {PLAIN_RUNS} runs); "
@@ -1022,7 +1045,7 @@ def phase_k2(dev):
             times.append(f"{'any' if m else 'closest'} "
                          f"{fmt_ab(parent, new, b)}, plain {plain:.3f}")
         tpc = max(1, halves // 2)
-        print(f"[4/23 K2 {n_tris} tris x {n_rays} rays, {layout}: "
+        print(f"[4/24 K2 {n_tris} tris x {n_rays} rays, {layout}: "
               f"chunk_halves {halves}, tpc {tpc}, "
               f"{cl.boxes_q.shape[0] // 3} nodes, host build {build_s:.3f} s]"
               f" closest agree {s1['agree']:.6f} (excl pass "
@@ -1163,20 +1186,20 @@ class HostReadGraph(tgraph.QueuedGraph):
         super().__init__(*args, **kw)
 
     def _graphs_for(self, seed):
-        self.probe = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.flags = torch.zeros(2, dtype=torch.int64, device=self.device)
         self._build(lambda: self._warm(seed),
                     ([("light", self._light)] if self.bdpt else [])
                     + [("step", self._step)])
 
     def _step(self):
-        self.probe[1].add_(self.live)
+        self.flags[1].add_(self.live)
         super()._step()
-        self.probe[0].copy_(self.live)
+        self.flags[0].copy_(self.live)
 
     def block(self, px, py, sample0, seed, cam):
         with torch.no_grad(), self._device():
             self._load(px, py, sample0, seed, cam)
-            self.probe.zero_()
+            self.flags.zero_()
             if self.bdpt:
                 self._replay("light")
             n = reads = 0
@@ -1185,7 +1208,7 @@ class HostReadGraph(tgraph.QueuedGraph):
                 self._replay("step", self.k)
                 n += self.k
                 reads += 1
-                live, work = self.probe.tolist()  # the end test: one sync
+                live, work = self.flags.tolist()  # the end test: one sync
         tgraph._bump(blocks=1, steps=n, replays=n, flag_reads=reads,
                      iterations=work, light_replays=int(self.bdpt))
 
@@ -1346,7 +1369,7 @@ def phase_render(d):
         img, rays = render(path, out_dir)
         wall = time.perf_counter() - t0
     launches, k2 = launched(fi), launched(ci)
-    k5 = launched(vm)
+    k5 = render_k5()
     check(img.shape == (res, res, 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()), "the image has non-finite pixels")
     check(float(img.mean()) > 0.0, "the image is black")
@@ -1356,7 +1379,7 @@ def phase_render(d):
     check_k5_render(k5, "the render")
     n_tris = first.args[False][0].shape[0]
     check(n_tris == 3870, f"scene has {n_tris} triangles, not 3870")
-    print(f"[5/23 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
+    print(f"[5/24 flat render {res}x{res} {ms}spp {n_tris} tris] wall "
           f"{wall:.3f} s, "
           f"{rays} extension rays, {rays / wall:.1f} rays/s, K1 launches "
           f"{launches}, K5 launches {k5}, image mean "
@@ -1403,7 +1426,7 @@ def phase_cpu_parity(d):
     cpu, _ = render(path, os.path.join(d, "cpu64"), "--cpu")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"card vs CPU image parity failed: {stats}")
-    print(f"[6/23 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
+    print(f"[6/24 flat card vs CPU 64x64 4spp depth 3] corr {stats['corr']:.6f}"
           f" trimmed {stats['corr_trim']:.6f} mean rel diff "
           f"{stats['mean_rel_diff']:.3g} max|diff| {stats['max_abs_diff']:.3g}"
           f" outlier pixels {stats['outlier_pixels']}, max per tile "
@@ -1446,7 +1469,7 @@ def phase_colonnade(d):
     finally:
         cli.build_scene = build_scene
     launches, k1 = launched(ci), launched(fi)
-    k5 = launched(vm)
+    k5 = render_k5()
     check(img.shape == (res[1], res[0], 3), f"image shape {img.shape}")
     check(bool(np.isfinite(img).all()), "the image has non-finite pixels")
     check(float(img.mean()) > 0.0, "the image is black")
@@ -1459,7 +1482,7 @@ def phase_colonnade(d):
           f"SAH builder {builder.sah_builder}")
     host = builder.timings
     round_s = t1 - first.first_t
-    print(f"[7/23 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
+    print(f"[7/24 colonnade {res[0]}x{res[1]} {COLONNADE_MS}spp depth 2 "
           f"{n_tris} tris]"
           f" CLI wall {t1 - t0:.3f} s, of which host build "
           f"{sum(host.values()):.3f} s ({builder.sah_builder} SAH builder: "
@@ -1654,7 +1677,7 @@ def phase_colonnade_parity(d):
         gpu_plain, _ = render_eager(path, os.path.join(d, "col_gpu_plain"))
     check(ci.launches == {"closest": 0, "any": 0},
           f"the plain-K2 card render launched K2: {ci.launches}")
-    print(f"[8/23 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
+    print(f"[8/24 colonnade card vs CPU {n_tris} tris 64x36 4spp depth 2] "
           f"card (eager loop; the CLI's CUDA-graph image equal bit for "
           f"bit) vs CPU: "
           f"{fmt_parity(stats)}; card with cluster_plain vs CPU: "
@@ -1815,7 +1838,7 @@ def phase_binned_soup(dev, trees):
             k2, af = compare_front(args, False, K)
             _, ax = compare_front(args[:6] + [k2[1].contiguous()], False, K)
             _, aa = compare_front(args, True, K)
-            line = (f"[9/23 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
+            line = (f"[9/24 K3+K4 {n_tris} tris x {n_rays} rays, {layout}, "
                     f"K={K}] K3 lists agree {a3:.6f} (lanes overflowing "
                     f"{over:.4f}); K4 ids agree {a4:.6f}, t within rtol "
                     f"{t4:.6f}, {c4:.6f} of the {s4:.6f} well-conditioned "
@@ -1882,7 +1905,7 @@ def render_binned(path, out_dir, mode):
         img, rays = render(path, out_dir)
         t1 = time.perf_counter()
     launches = {"K1": launched(fi), "K2": launched(ci),
-                "K3/K4": launched(bi), "K5": launched(vm)}
+                "K3/K4": launched(bi), "K5": render_k5()}
     st = tgraph.read_stats()
     return img, rays, launches, {
         "wall": t1 - t0, "round": t1 - front.first_t,
@@ -1924,7 +1947,7 @@ def phase_binned_colonnade(d, path, k2_img):
         stats = image_parity(img, k2_img)
         check(stats["ok"], f"RGK_BINNED={mode} image against the K2 image: "
               f"{stats}")
-        print(f"[10/23 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
+        print(f"[10/24 colonnade RGK_BINNED={mode} {res[0]}x{res[1]} "
               f"{COLONNADE_MS}spp] CLI wall {st['wall']:.3f} s, round "
               f"(first query to EXR) {st['round']:.3f} s, {rays} extension "
               f"rays, {rays / st['round']:.1f} rays/s; launches K3 "
@@ -2005,7 +2028,7 @@ def phase_binned_small(d, path, cpu):
           f"K2 {ci.launches}")
     stats = image_parity(gpu, cpu)
     check(stats["ok"], f"binned colonnade card vs CPU parity failed: {stats}")
-    print(f"[11/23 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
+    print(f"[11/24 colonnade RGK_BINNED=all card vs CPU 33960 tris 64x36 "
           f"4spp depth 2] launches K3/K4 {launched(bi)}, K2 "
           f"{launched(ci)}; corr {stats['corr']:.6f} trimmed "
           f"{stats['corr_trim']:.6f} mean rel diff "
@@ -2021,7 +2044,7 @@ def phase_probes(dev):
     there), then one kernel of each timed against its plain version."""
     t_phase = time.perf_counter()
     reset_launches()
-    print("[12/23 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
+    print("[12/24 probes] P1 (rgk_tpu_torch/tools/prof_smem_probe.py):")
     check(p1.main([]) == 0, "P1 failed")
     print("    P2 (rgk_tpu_torch/tools/prof_sync.py):")
     check(p2.main([]) == 0, "P2 failed")
@@ -2139,7 +2162,7 @@ def phase_glass(d):
             img, rays = render(path, os.path.join(d, f"glass_{kernel}_out"))
             wall = time.perf_counter() - t0
         k1, k2 = launched(fi), launched(ci)
-        k5 = launched(vm)
+        k5 = render_k5()
         check_image(img, (FLAT_RES, FLAT_RES, 3))
         used, unused = (k1, k2) if kernel == "K1" else (k2, k1)
         check(used["closest"] > 0 and used["any"] > 0
@@ -2151,7 +2174,7 @@ def phase_glass(d):
         got[kernel] = used
         got["K5"] = add_counts(got["K5"], k5)
         stats = card_vs_cpu(d, f"glass_{kernel}_64", 0, sphere, True)
-        print(f"[13/23 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
+        print(f"[13/24 thin glass, tint on, {FLAT_RES}x{FLAT_RES} {FLAT_MS}spp"
               f" via {kernel}{f', + {sphere}-tri sphere' if sphere else ''}]"
               f" wall {wall:.3f} s, {rays} extension rays, "
               f"{rays / wall:.1f} rays/s, launches {kernel} {used} (the other "
@@ -2189,7 +2212,7 @@ def phase_bdpt_k1(d):
         img, rays = render(path, os.path.join(d, "bdpt_out"))
         t1 = time.perf_counter()
     launches, k2 = launched(fi), launched(ci)
-    k5 = launched(vm)
+    k5 = render_k5()
     check_image(img, (BDPT_RES, BDPT_RES, 3))
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the BDPT render did not go through K1: {launches}")
@@ -2202,7 +2225,7 @@ def phase_bdpt_k1(d):
           f"{st['light_replays']} light-phase replays, {st['blocks']} "
           f"blocks, for {n_blocks} blocks")
     round_s = t1 - first.first_t
-    print(f"[14/23 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
+    print(f"[14/24 BDPT {BDPT_RES}x{BDPT_RES} {BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} depth 4 via K1] CLI wall {t1 - t0:.3f} s, round "
           f"(first query to EXR) {round_s:.3f} s, {rays} extension rays "
           f"(light + eye), {rays / round_s:.1f} rays/s; {n_blocks} blocks of "
@@ -2266,14 +2289,14 @@ def phase_bdpt_k2(d):
         img, rays = render(path, os.path.join(d, "bdpt_k2_out"))
         t1 = time.perf_counter()
     launches, k1 = launched(ci), launched(fi)
-    k5 = launched(vm)
+    k5 = render_k5()
     check_image(img, (K2_BDPT_RES, K2_BDPT_RES, 3))
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the BDPT render did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
     check_k5_render(k5, "the BDPT render")
     round_s = t1 - first.first_t
-    print(f"[15/23 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
+    print(f"[15/24 BDPT {K2_BDPT_RES}x{K2_BDPT_RES} {K2_BDPT_MS}spp reverse "
           f"{BDPT_REVERSE} via K2, box + {BVH_SPHERE}-tri sphere] CLI wall "
           f"{t1 - t0:.3f} s, round {round_s:.3f} s, {rays} extension rays, "
           f"{rays / round_s:.1f} rays/s, "
@@ -2681,7 +2704,7 @@ def phase_grad_k1(d):
     reset_launches()
     index = {k: 0 if m is None else 3 * meta.material_names.index(m)
              for k, m in GRAD_K1_CHECKS}
-    print(f"[16/23 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
+    print(f"[16/24 gradients via K1, {res}x{res} {ms}spp = {res * res * ms} "
           f"lanes, depth 4, 3870 tris + a point light, L2 against albedo "
           f"x 0.8] {clocks()}")
     with FirstCalls(isect, "intersect_flat") as first, \
@@ -2699,7 +2722,7 @@ def phase_grad_k1(d):
         before, after = sgd_step_lowers(loss_fn, params, grads)
     rough_g, rough_fd, rough_cpu = grad_roughness(sub)
     launches, k2 = launched(fi), launched(ci)
-    k5 = launched(vm)
+    k5 = render_k5()
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the gradient runs did not go through K1: {launches}")
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
@@ -2744,7 +2767,7 @@ def phase_grad_k2(d):
     check(meta.has_bvh, "phase 17's scene has no BVH")
     ball = 3 * meta.material_names.index("ball")
     reset_launches()
-    print(f"[17/23 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
+    print(f"[17/24 gradients via K2, box + {BVH_SPHERE}-tri sphere, "
           f"{res}x{res} {ms}spp]")
     fwd, bwd, peak, loss, grads = timed_grads(loss_fn, params, runs=1)
     profile_grad_step(loss_fn, params, fwd, bwd)
@@ -2755,7 +2778,7 @@ def phase_grad_k2(d):
     gg = fd_agrees(g_grads, "mat_diffuse", ball, fd, route="graph")
     check(abs(g) > 1e-7, "no gradient reaches the sphere's albedo")
     launches, k1 = launched(ci), launched(fi)
-    k5 = launched(vm)
+    k5 = render_k5()
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the gradient runs did not go through K2: {launches}")
     check(k1 == {"closest": 0, "any": 0}, f"a BVH scene launched K1: {k1}")
@@ -2805,7 +2828,7 @@ def phase_debug_rtc(d):
                            / np.maximum(np.abs(cpu["pos"]), 1e-30)))
     check(np.allclose(gpu["pos"], cpu["pos"], rtol=1e-4, atol=0.0),
           f"bounce 0 position: card {gpu['pos']}, CPU {cpu['pos']}")
-    debug_k1, debug_k5 = launched(fi), launched(vm)
+    debug_k1, debug_k5 = launched(fi), render_k5()
     check_k5_render(debug_k5, "the debug replay")
 
     rtc_dir = os.path.join(d, "rtc")
@@ -2814,7 +2837,7 @@ def phase_debug_rtc(d):
     reset_launches()
     check(cli.main([rtc, "-q", "-D", os.path.join(rtc_dir, "gpu")]) == 0,
           "the CLI failed on the .rtc scene")
-    rtc_k1, rtc_k5 = launched(fi), launched(vm)
+    rtc_k1, rtc_k5 = launched(fi), render_k5()
     rtc_graphs = graph_line()
     check(rtc_k1["closest"] > 0 and rtc_k1["any"] > 0,
           f"the .rtc render did not go through K1: {rtc_k1}")
@@ -2827,7 +2850,7 @@ def phase_debug_rtc(d):
     check_image(gpu_img, (RTC_RES[1], RTC_RES[0], 3))
     stats = image_parity(gpu_img, cpu_img)
     check(stats["ok"], f".rtc card vs CPU image parity failed: {stats}")
-    print(f"[18/23 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
+    print(f"[18/24 debug replay -d {x} {y} on the {FLAT_RES}x{FLAT_RES} flat "
           f"scene; .rtc scene {RTC_RES[0]}x{RTC_RES[1]} 4spp depth 3] the "
           f"CLI printed {len(printed.splitlines())} lines; {len(recs['card'])}"
           f" bounces on the card, {len(recs['cpu'])} on the CPU; bounce 0 "
@@ -2871,7 +2894,7 @@ def phase_distribution(d):
     world = torch.distributed.get_world_size()
     backend = torch.distributed.get_backend()
     torch.distributed.destroy_process_group()
-    launches, k5 = launched(fi), launched(vm)
+    launches, k5 = launched(fi), render_k5()
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the distributed renders did not go through K1: {launches}")
     check_k5_render(k5, "the distributed renders")
@@ -2890,7 +2913,7 @@ def phase_distribution(d):
     else:
         refused = False
     check(refused, "a mesh listing the card twice was built")
-    print(f"[19/23 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
+    print(f"[19/24 distribution on one card, {DIST_RES}x{DIST_RES} 4spp] "
           f"--devices 1 and {backend} world size {world} (--coordinator "
           f"localhost) write the plain render's EXR and checkpoint bit for "
           f"bit; a mesh listing the card twice is refused; K1 launches "
@@ -3057,13 +3080,18 @@ def graph_vs_eager(label, scene, names):
     gst = tgraph.read_stats()
     SETTER_RUNS.append(gst["setter_runs"])
     # A traced step: a mark, two stamps around each ray query, one at
-    # its end (integrator/graph.py); the eager loop runs none.
+    # its end; a BDPT step two more around its connections, and a BDPT
+    # block's light phase a mark, two around each query and one at its
+    # end (integrator/graph.py `_Probe`); the eager loop runs none.
     stamps = launched(gw)["stamp"]
-    check(stamps == 2 * (gst["iterations"] + gst["closest_queries"]
-                         + gst["any_queries"]) > 0,
-          f"{label}: {stamps} phase stamps in {gst['iterations']} steps of "
-          f"{gst['closest_queries']} closest and {gst['any_queries']} "
-          f"any-hit queries")
+    queries = sum(gst[k] for k in (
+        "closest_queries", "any_queries", "connect_queries",
+        "light_closest_queries", "light_any_queries"))
+    check(stamps == 2 * (gst["iterations"] * (2 if bdpt else 1) + queries
+                         + gst["light_replays"]) > 0,
+          f"{label}: {stamps} phase stamps in {gst['iterations']} steps, "
+          f"{gst['light_replays']} light phases and {queries} queries "
+          f"({gst})")
     STAMP_RUNS.append(stamps)
     check(rays["graph"] == rays["eager"],
           f"{label}: rays of rounds 2 and 3, graph {rays['graph']}, eager "
@@ -3119,17 +3147,50 @@ def graph_vs_eager(label, scene, names):
           f"allocated {build['peak_before'] / 2**30:.3f} -> "
           f"{build['peak_after'] / 2**30:.3f} GiB across the capture")
     body = gw.node_count(runner._graphs["step"][0], "step")
+    plain_body = plain_sampler_nodes(g)
     print(f"      block 0 (graph, eager, eager, graph) graph "
           f"{mean_block['graph'] * 1e3:.3f} ms, eager "
           f"{mean_block['eager'] * 1e3:.3f} ms; profiled: graph "
           f"{fmt_prof(prof['graph'], mean_block['graph'], prof['eager'])} "
-          f"(the block ran {iters} bodies of {body} nodes); eager "
+          f"(the block ran {iters} bodies of {body} nodes, {plain_body} "
+          f"with the plain sampler in the kernel's place); eager "
           f"{fmt_prof(prof['eager'], mean_block['eager'])}")
     out = {"times": times, "rays": rays, "syncs": syncs, "stats": gst,
            "build": build, "prof": prof, "block_s": mean_block,
+           "nodes": body, "plain_sampler_nodes": plain_body,
            "routes": end_test_routes(label, scene, g)}
     print(f"      ({time.perf_counter() - t_case:.1f} s)")
     return out
+
+
+SAMPLER_ENTRIES = ("hash_u32", "sample_1d", "sample_2d")
+
+
+@contextlib.contextmanager
+def plain_sampler():
+    """The sampler's public functions replaced by its plain version (the
+    int64 ops the card ran before the sampler kernel)."""
+    saved = {name: getattr(smp, name) for name in SAMPLER_ENTRIES}
+    try:
+        for name in SAMPLER_ENTRIES:
+            setattr(smp, name, getattr(smp, f"{name}_plain"))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(smp, name, fn)
+
+
+def plain_sampler_nodes(drv):
+    """Nodes of the queued step that `drv`'s runner captures, captured
+    once more with the plain sampler in the kernel's place."""
+    with plain_sampler():
+        runner = tgraph.QueuedGraph(drv.scene, drv.meta, drv.settings,
+                                    drv.camera, drv.block, drv.ms,
+                                    drv.sampler_mode, seed=drv.seed)
+        nodes = gw.node_count(runner._graphs["step"][0], "step")
+    del runner
+    torch.cuda.empty_cache()
+    return nodes
 
 
 def end_test_routes(label, scene, g):
@@ -3371,7 +3432,7 @@ def phase_graph(flat_path, col_path, bdpt_path):
     condition setter and the phase stamp alone.  -> (numbers, the
     setter's entry, the stamp's entry)."""
     t_phase = time.perf_counter()
-    print(f"[20/23 queued loop: one CUDA graph with a WHILE node vs the "
+    print(f"[20/24 queued loop: one CUDA graph with a WHILE node vs the "
           f"eager loop and the host route] {clocks()}")
     v = gw.driver_version()
     print(f"    conditional WHILE nodes: CUDA driver {v // 1000}."
@@ -3619,7 +3680,7 @@ def phase_lane_graph(d, col_path):
     (`default_depth`).  -> {"K1": launches, "K2": launches, "K5":
     launches} of the phase's renders."""
     t_phase = time.perf_counter()
-    print(f"[21/23 per-sample path: one CUDA graph with a WHILE node vs "
+    print(f"[21/24 per-sample path: one CUDA graph with a WHILE node vs "
           f"the eager bounce loop] {clocks()}")
     sub = os.path.join(d, "lanes")
     os.makedirs(sub)
@@ -3628,7 +3689,7 @@ def phase_lane_graph(d, col_path):
     lane_round_vs_eager(f"flat smoke {FLAT_RES}x{FLAT_RES} {LANE_MS}spp",
                         load_scene(flat), ("flat_sweep",))
     k1, k2_flat = launched(fi), launched(ci)
-    k5_flat = launched(vm)
+    k5_flat = render_k5()
     check(k1["closest"] > 0 and k1["any"] > 0 and k2_flat == {
         "closest": 0, "any": 0}, f"flat rounds: K1 {k1}, K2 {k2_flat}")
     check_k5_render(k5_flat, "the flat rounds")
@@ -3638,14 +3699,14 @@ def phase_lane_graph(d, col_path):
                         f"{COLONNADE_MS}spp", load_scene(col_path),
                         ("cluster_walk",))
     k2, k1_col = launched(ci), launched(fi)
-    k5_col = launched(vm)
+    k5_col = render_k5()
     check(k2["closest"] > 0 and k2["any"] > 0 and k1_col == {
         "closest": 0, "any": 0}, f"colonnade rounds: K2 {k2}, K1 {k1_col}")
     check_k5_render(k5_col, "the colonnade rounds")
     torch.cuda.empty_cache()
     reset_launches()
     default_depth(d)
-    k1_deep, k5_deep = launched(fi), launched(vm)
+    k1_deep, k5_deep = launched(fi), render_k5()
     check(k1_deep["closest"] > 0 and k1_deep["any"] > 0,
           f"the default-depth renders: K1 {k1_deep}")
     check_k5_render(k5_deep, "the default-depth renders")
@@ -3717,7 +3778,7 @@ def phase_take_rows(grad_path, gathers):
     comparison launches are not counted.  -> K5's two kernel entries
     (the material pack's shape, 4 of the step's 6 fetches)."""
     t_phase = time.perf_counter()
-    print(f"[22/23 K5 take_rows at phase 16's gathers] {clocks()}")
+    print(f"[22/24 K5 take_rows at phase 16's gathers] {clocks()}")
     check(sorted(gathers) == [8, 15, 20], f"phase 16's K5 tables: widths "
           f"{sorted(gathers)}")
     table, idx = gathers[20]
@@ -3881,7 +3942,7 @@ def phase_grad_bdpt(d):
     check(not meta.has_bvh, "phase 23's scene has a BVH")
     white = 3 * meta.material_names.index("white")
     reset_launches()
-    print(f"[23/23 BDPT gradients via K1, bench.py's box {res}x{res} {ms}spp "
+    print(f"[23/24 BDPT gradients via K1, bench.py's box {res}x{res} {ms}spp "
           f"= {res * res * ms} lanes, reverse {BDPT_REVERSE}, depth 4, L2 "
           f"against albedo x 0.8] {clocks()}")
     # timed_grads fails on a non-finite gradient of any leaf.
@@ -3891,7 +3952,7 @@ def phase_grad_bdpt(d):
     fd = central_diff(held_loss, params, "mat_diffuse", white)
     g = fd_agrees(grads, "mat_diffuse", white, fd)
     gg = fd_agrees(g_grads, "mat_diffuse", white, fd, route="graph")
-    launches, k2, k5 = launched(fi), launched(ci), launched(vm)
+    launches, k2, k5 = launched(fi), launched(ci), render_k5()
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the BDPT gradient runs did not go through K1: {launches}")
     check(k2 == {"closest": 0, "any": 0}, f"a flat scene launched K2: {k2}")
@@ -3907,6 +3968,91 @@ def phase_grad_bdpt(d):
           f"K2 none, K5 launches {k5} "
           f"({time.perf_counter() - t_phase:.1f} s)")
     return launches, k5
+
+
+def aten_ops(fn):
+    """ATen operations `fn` dispatches: on a card, about one kernel each
+    (the plain sampler's count of launches a call)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def phase_sampler(launches):
+    """Phase 24: the sampler kernel at the box cell's step (one block of
+    SAMPLER_LANES lanes, Halton, a 0-d device seed, per-lane pixel ids,
+    samples and bounces): each sampler call of a queued NEE step against
+    the plain version on the card, bit for bit, kernel and plain ms
+    (`queued_ms`), the bound by bytes (per-lane inputs read once, the
+    output written once) and the plain version's ATen ops a call.
+    `launches`: the kernel's launches by entry in the renders of phases
+    1-23.  -> the kernel entries; an entry's launches are on its first
+    row, and 0 on the rows after it that share the entry."""
+    t_phase = time.perf_counter()
+    print(f"[24/24 sampler kernel at the box step's {SAMPLER_LANES} lanes] "
+          f"{clocks()}; launches in the renders of phases 1-23 "
+          f"{launches}")
+    launches = dict(launches)  # each entry's count goes on one row
+    n = SAMPLER_LANES
+    seed = torch.tensor(42, dtype=torch.int64, device=CUDA)
+    pixel = torch.arange(n, dtype=torch.int64, device=CUDA)
+    sample = 40 + pixel % 4
+    bounce1 = pixel % 21 + 1
+    ctx = smp.SampleCtx(seed=seed, pixel=pixel, sample=sample,
+                        mode=smp.MODE_HALTON, n_set=4)
+    bseed = smp.hash_u32(seed, 1, bounce1)
+    bctx = ctx._replace(seed=bseed, mode=smp.MODE_INDEPENDENT)
+    # (name, entry, the call, its per-lane inputs)
+    calls = (
+        ("jitter", "sample_2d",
+         lambda f: f(ctx, smp.DIM_PIXEL_JITTER), (pixel, sample)),
+        ("areal", "sample_2d", lambda f: f(ctx, smp.DIM_AREAL),
+         (pixel, sample)),
+        ("light_choice", "sample_2d",
+         lambda f: f(ctx, smp.DIM_LIGHT_CHOICE), (pixel, sample)),
+        ("bounce_seed", "hash_u32", lambda f: f(seed, 1, bounce1),
+         (bounce1,)),
+        ("bxdf", "sample_2d", lambda f: f(bctx, smp.DIM_EYE_BOUNCE),
+         (pixel, sample, bseed)),
+        ("roulette", "sample_1d",
+         lambda f: f(bctx, smp.DIM_EYE_BOUNCE + 2), (pixel, sample, bseed)))
+    entries, sums = [], {"kernel": 0.0, "plain": 0.0, "bound": 0.0, "ops": 0}
+    for name, entry, call, inputs in calls:
+        kernel, plain = (getattr(smp, entry),
+                         getattr(smp, f"{entry}_plain"))
+        got, want = call(kernel), call(plain)
+        same = (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                if got.dtype == torch.float32 else torch.equal(got, want))
+        check(same and got.shape == want.shape,
+              f"the sampler kernel's {name} differs from the plain version")
+        k_ms = queued_ms(lambda: call(kernel))
+        p_ms = queued_ms(lambda: call(plain))
+        ops = aten_ops(lambda: call(plain))
+        b_ms, by = bound(0, nbytes(*inputs, got))
+        print(f"    {name} ({entry}): {fmt_ab(None, k_ms, b_ms, 4)}; plain "
+              f"{p_ms:.4f} ms in {ops} ATen ops; bit-equal")
+        e = kernel_entry(f"sampler_{name}", SAMPLER_SOURCE,
+                         SAMPLER_REPLACES, launches.pop(entry, 0), 0.0,
+                         k_ms, p_ms, b_ms, by)
+        e["plain_ops"] = ops
+        entries.append(e)
+        for key, v in (("kernel", k_ms), ("plain", p_ms), ("bound", b_ms),
+                       ("ops", ops)):
+            sums[key] += v
+    print(f"    a queued NEE step's {len(calls)} calls: kernel "
+          f"{sums['kernel']:.4f} ms in {len(calls)} launches, bound "
+          f"{sums['bound']:.4f} ms, plain {sums['plain']:.4f} ms in "
+          f"{sums['ops']} ATen ops ({time.perf_counter() - t_phase:.1f} s)")
+    return entries
 
 
 def parse_args(argv=None):
@@ -3957,8 +4103,13 @@ def main(argv=None):
         lanes = phase_lane_graph(d, col_path)
         k5_entries = phase_take_rows(grad_path, gathers)
         k1_bdpt_grad, k5_bdpt_grad = phase_grad_bdpt(d)
-    # The K1, K2 and K5 rows count every run of their kernel's paths,
-    # each set to 0 just before the run and read just after it.
+    # The sampler, K1, K2 and K5 rows count every run of their kernel's
+    # paths, each set to 0 just before the run and read just after it.
+    launches = add_counts(*SAMPLER_RUNS)
+    check(all(launches[e] > 0 for e in ("hash_u32", "sample_1d",
+                                         "sample_2d")),
+          f"the renders did not go through the sampler kernel: {launches}")
+    sampler = phase_sampler(launches)
     k5 = add_counts(k5_flat, k5_col, *k5_binned.values(), glass["K5"],
                     k5_bdpt1, k5_bdpt2, k5_grad1, k5_grad2, k5_debug,
                     k5_dist, lanes["K5"], k5_bdpt_grad)
@@ -3981,7 +4132,7 @@ def main(argv=None):
     stamp["launches"] = sum(STAMP_RUNS)
     check(len(STAMP_RUNS) == 8 and all(STAMP_RUNS),
           f"the phase stamp's launches by path: {STAMP_RUNS}")
-    entries += bdpt1 + bdpt2 + k5_entries + [setter, stamp]
+    entries += bdpt1 + bdpt2 + k5_entries + [setter, stamp] + sampler
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -148,7 +148,7 @@ from . import path as tpath
 
 WARMUP_STEPS = 2  # eager runs of a captured body, on a side stream
 _COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches,
-             gw.launches)
+             gw.launches, smp.launches)
 
 # Summed over every runner of the process; `reset_stats` zeroes them.
 # steps: queued steps run (WHILE bodies, CPU steps); replays: step
@@ -302,11 +302,17 @@ def settle() -> None:
 
 def read_stats() -> dict:
     """`stats` after `settle`, `overshoot`, the steps run past the end,
-    and `step_ns`, the queued steps' device time (`intersect_ns` +
-    `other_ns` + `connect_ns` + `connect_intersect_ns`)."""
+    `step_ns`, the queued steps' device time (`intersect_ns` +
+    `other_ns` + `connect_ns` + `connect_intersect_ns`), and the sampler
+    kernel's launches since the process started (`ops/sampler.py`
+    `launches`, replays and WHILE bodies included): `sampler_<entry>`
+    by entry and `sampler_launches` in all."""
     settle()
     with _lock:
         got = dict(stats)
+        sampled = dict(smp.launches)
+    got.update({f"sampler_{k}": v for k, v in sampled.items()})
+    got["sampler_launches"] = sum(sampled.values())
     got["overshoot"] = got["steps"] - got["iterations"]
     got["step_ns"] = (got["intersect_ns"] + got["other_ns"]
                       + got["connect_ns"] + got["connect_intersect_ns"])

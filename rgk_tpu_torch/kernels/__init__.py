@@ -171,6 +171,11 @@ def _open(path):
     lib.rgk_take_rows_backward_smem.restype = ctypes.c_longlong
     lib.rgk_take_rows_backward.argtypes = [p, p, i, i, i, p, p, p]
     lib.rgk_take_rows_backward.restype = i
+    if hasattr(lib, "rgk_sampler_hash"):  # an older library has none
+        lib.rgk_sampler_hash.argtypes = [p, i, ctypes.c_longlong, p, p]
+        lib.rgk_sampler_hash.restype = i
+        lib.rgk_sampler_sample.argtypes = [p, ctypes.c_longlong, p, p]
+        lib.rgk_sampler_sample.restype = i
     lib.rgk_while_graph_error.argtypes = []
     lib.rgk_while_graph_error.restype = ctypes.c_char_p
     lib.rgk_cuda_driver_version.argtypes = [p]

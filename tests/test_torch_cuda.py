@@ -7,7 +7,10 @@ runs where JAX is not installed (tests/conftest.py imports JAX, hence
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
-Tolerance: K1 equals flat_plain bit for bit (it rounds each operation
+Tolerance: the sampler kernel equals the plain sampler on the CPU bit for
+bit, and a render through it equals one through the plain sampler on the
+card (the BDPT splat image within rtol 1e-5: atomics).  K1 equals
+flat_plain bit for bit (it rounds each operation
 as the plain version does); elsewhere triangle ids equal on >= 99.99% of
 rays (nvcc contracts multiply-adds to FMA, the plain versions do not,
 which can flip a hit exactly on an edge); t within rtol 3e-4 / atol 1e-6
@@ -1618,3 +1621,262 @@ def test_take_rows_backward_limit_raises(cuda_device):
         vm.take_rows_backward(g, idx, 1024)
     with pytest.raises(ValueError, match="1024 rows"):
         vm.take_rows_backward(g, idx, 1025)
+
+
+# ---- the sampler kernel (csrc/sampler.cu, ops/sampler.py)
+
+SAMPLER_MODES = (0, 1, 2, 3, 4)   # independent, Halton, stratified, LHS, VdC
+SAMPLER_DIMS = tuple(range(13)) + (255, 256, 257)
+SAMPLER_N_SETS = (1, 2, 4, 8, 9)
+
+
+def _sampler_lanes(n=64, seed=20):
+    """(pixel, sample) int64 [n] on the CPU: the edges (samples 0, 2^31-1,
+    2^32-1, 2^32+5; pixel ids up to 2^22), then random values."""
+    rng = np.random.default_rng(seed)
+    pixel = np.concatenate([[0, 1, 2**22 - 1, 2**22, 2**22, 0, 7, 2**21],
+                            rng.integers(0, 2**22 + 1, n)])[:n]
+    sample = np.concatenate([[0, 2**31 - 1, 2**32 - 1, 2**32 + 5, 1, 2**31,
+                              3, 2**32 + 2**31 - 1],
+                             rng.integers(0, 2**20, n // 2),
+                             rng.integers(0, 2**33, n)])[:n]
+    return (torch.from_numpy(pixel.astype(np.int64)),
+            torch.from_numpy(sample.astype(np.int64)))
+
+
+def _sampler_seeds(n):
+    """(name, seed) for each shape a seed takes, on the CPU: Python ints
+    and 0-d tensors at 0 and 2^32-1, and a seed a lane."""
+    per_lane = torch.tensor([0, 2**32 - 1, 12345, 2**31]).repeat(n)[:n]
+    out = []
+    for s in (0, 2**32 - 1):
+        out += [(f"int {s}", s), (f"0-d {s}", torch.tensor(s))]
+    return out + [("lanes", per_lane)]
+
+
+def _to_card(x):
+    return x.cuda() if isinstance(x, torch.Tensor) else x
+
+
+def _card_ctx(ctx):
+    return ctx._replace(seed=_to_card(ctx.seed), pixel=ctx.pixel.cuda(),
+                        sample=ctx.sample.cuda())
+
+
+def _same_bits(got, want, what):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want), what
+
+
+@pytest.mark.parametrize("mode", SAMPLER_MODES)
+def test_sampler_kernel_equals_plain(cuda_device, mode):
+    """sample_1d and sample_2d on CUDA tensors (one launch a call)
+    against the plain version on the CPU, bit for bit, at the edges:
+    n_set 1-9, dims 0-12 and 255-257, every seed shape."""
+    from rgk_tpu_torch.ops import sampler as smp
+
+    pixel, sample = _sampler_lanes()
+    for n_set in SAMPLER_N_SETS:
+        for name, seed in _sampler_seeds(pixel.shape[0]):
+            ctx = smp.SampleCtx(seed=seed, pixel=pixel, sample=sample,
+                                mode=mode, n_set=n_set)
+            card = _card_ctx(ctx)
+            for dim in SAMPLER_DIMS:
+                what = f"mode {mode} n_set {n_set} seed {name} dim {dim}"
+                for entry in ("sample_1d", "sample_2d"):
+                    n0 = smp.launches[entry]
+                    got = getattr(smp, entry)(card, dim)
+                    assert smp.launches[entry] == n0 + 1
+                    want = getattr(smp, f"{entry}_plain")(ctx, dim)
+                    _same_bits(got, want, f"{entry} {what}")
+
+
+def test_sampler_kernel_hashes_equal_plain(cuda_device):
+    """hash_u32 (int64 u32 values, one launch) and hash01 on CUDA tensors
+    against the plain version on the CPU: every part shape, negative
+    int32 parts (cast to int64) and wide int64 parts, eight parts (the most a launch takes), a
+    0-d result; nine parts raise."""
+    from rgk_tpu_torch.ops import sampler as smp
+
+    pixel, sample = _sampler_lanes()
+    neg = -torch.arange(1, 65, dtype=torch.int32)
+    cases = [(pixel, sample, 7, torch.tensor(2**32 - 1)),
+             (torch.tensor(5), 1, sample + 1),
+             (neg, pixel, 2**40 + 3, -1),
+             tuple([sample] + list(range(7))),
+             (torch.tensor(3), 4)]
+    for parts in cases:
+        card = tuple(_to_card(p) for p in parts)
+        for entry in ("hash_u32", "hash01"):
+            n0 = smp.launches["hash_u32"]
+            got = getattr(smp, entry)(*card)
+            assert smp.launches["hash_u32"] == n0 + 1
+            want = getattr(smp, f"{entry}_plain")(*parts)
+            _same_bits(got, want, f"{entry} of {len(parts)} parts")
+    with pytest.raises(ValueError, match="at most 8 parts"):
+        smp.hash_u32(sample.cuda(), *range(8))
+
+
+@pytest.mark.parametrize("n", [0, 1, (1 << 20) + 3])
+def test_sampler_kernel_lane_counts_and_views(cuda_device, n):
+    """0, 1 and 2^20+3 lanes in every mode at n_set 9, and strided views
+    of the pixel and sample (copied by the wrapper), bit for bit the
+    plain version's."""
+    from rgk_tpu_torch.ops import sampler as smp
+
+    pixel, sample = _sampler_lanes(max(n, 1), seed=n)
+    pixel, sample = pixel[:n], sample[:n]
+    for mode in SAMPLER_MODES:
+        for seed in (3, torch.tensor(2**32 - 1),
+                     torch.arange(n, dtype=torch.int64) * 977):
+            ctx = smp.SampleCtx(seed=seed, pixel=pixel, sample=sample,
+                                mode=mode, n_set=9)
+            for dim in (0, 4, 11):
+                for entry in ("sample_1d", "sample_2d"):
+                    got = getattr(smp, entry)(_card_ctx(ctx), dim)
+                    want = getattr(smp, f"{entry}_plain")(ctx, dim)
+                    _same_bits(got, want, f"{entry} mode {mode} n {n}")
+    both = torch.stack([pixel, sample]).cuda()
+    ctx = smp.SampleCtx(seed=5, pixel=both[0, ::2], sample=both[1, ::2],
+                        mode=1)
+    assert not ctx.pixel.is_contiguous() or n <= 2
+    plain = smp.SampleCtx(seed=5, pixel=pixel[::2], sample=sample[::2],
+                          mode=1)
+    _same_bits(smp.sample_2d(ctx, 2), smp.sample_2d_plain(plain, 2), "views")
+    _same_bits(smp.hash_u32(ctx.pixel, ctx.sample),
+               smp.hash_u32_plain(plain.pixel, plain.sample), "hash views")
+
+
+def test_sampler_kernel_in_a_captured_graph(cuda_device):
+    """The queued step's calls captured once (a 0-d device seed, per-lane
+    sample and bounce), replayed with other seeds and samples: each
+    replay equals the plain version on the CPU bit for bit; the capture
+    records one launch a call."""
+    from rgk_tpu_torch.ops import sampler as smp
+
+    n = 4096
+    seed = torch.zeros((), dtype=torch.int64, device="cuda")
+    pixel = torch.arange(n, dtype=torch.int64, device="cuda") * 31
+    sample = torch.zeros(n, dtype=torch.int64, device="cuda")
+    bounce = torch.zeros(n, dtype=torch.int64, device="cuda")
+
+    def body(seed, pixel, sample, bounce):
+        ctx = smp.SampleCtx(seed=seed, pixel=pixel, sample=sample, mode=1,
+                            n_set=4)
+        bseed = smp.hash_u32(seed, 1, bounce + 1)
+        bctx = ctx._replace(seed=bseed, mode=0)
+        return (smp.sample_2d(ctx, 0), smp.sample_2d(ctx, 4),
+                smp.sample_2d(bctx, 11), smp.sample_1d(bctx, 13), bseed)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body(seed, pixel, sample, bounce)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    n0 = dict(smp.launches)
+    with torch.cuda.graph(g):
+        outs = body(seed, pixel, sample, bounce)
+    assert {k: smp.launches[k] - n0[k] for k in n0} == {
+        "hash_u32": 1, "sample_1d": 1, "sample_2d": 3}
+    for s, s0 in ((42, 0), (2**32 - 1, 2**31 - 1), (7, 2**32 + 5)):
+        seed.fill_(s)
+        sample.copy_(torch.arange(n, device="cuda") + s0)
+        bounce.copy_(torch.arange(n, device="cuda") % 7)
+        g.replay()
+        torch.cuda.synchronize()
+        plain = body(torch.tensor(s), pixel.cpu(), sample.cpu(), bounce.cpu())
+        for got, want in zip(outs, plain):
+            # body's calls on CPU tensors take the plain version.
+            _same_bits(got, want, f"replay seed {s} sample0 {s0}")
+
+
+def _plain_sampler(monkeypatch):
+    """The sampler's public functions replaced by its plain version, as
+    the port ran it on the card before the kernel."""
+    from rgk_tpu_torch.ops import sampler as smp
+
+    for name in ("hash_u32", "sample_1d", "sample_2d"):
+        monkeypatch.setattr(smp, name, getattr(smp, f"{name}_plain"))
+
+
+@pytest.mark.parametrize("case", ["nee", "bdpt", "lanes", "grad"])
+def test_render_paths_equal_the_plain_sampler(cuda_device, tmp_path,
+                                              monkeypatch, case):
+    """A queued NEE block, a queued BDPT block (the light phase too), a
+    LaneGraph round and the gradient step through the sampler kernel,
+    against the same run with the plain sampler in its place: outputs
+    bit-equal (the BDPT splat image within rtol 1e-5: atomics).  The
+    sampler's launches are counted per step of the captured body (at
+    most 10 a queued NEE step) and none with the plain sampler."""
+    from rgk_tpu_torch.diff.graph import make_value_and_grad
+    from rgk_tpu_torch.diff.params import extract_params
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.ops import sampler as smp
+
+    if case == "grad":
+        path = scenes.write_config(tmp_path, scenes.box_config(
+            res=16, ms=4, reverse=0), "grad.json")
+        from rgk_tpu_torch.scene import config as tconfig
+
+        cfg = tconfig.load_config(path)
+        arrays, meta, _ = tconfig.build_scene(cfg, cuda_device)
+        pix = torch.arange(256)
+        args = (arrays, meta, cfg.settings, cfg.get_camera(),
+                (pix % 16).to(torch.int32).repeat(4),
+                (pix // 16).to(torch.int32).repeat(4),
+                torch.arange(4).repeat_interleave(256), 3,
+                torch.zeros(1024, 3))
+    else:
+        arrays, meta, s, cam = _graph_scene(
+            tmp_path, "bdpt" if case == "bdpt" else "flat")
+
+    def run():
+        """-> (outputs, sampler launches a body, bodies run)."""
+        if case == "grad":
+            fn = make_value_and_grad(*args)
+            n0 = sum(smp.launches.values())
+            loss, grads = fn(extract_params(arrays))
+            torch.cuda.synchronize()
+            out = [loss.clone()] + [g.clone() for g in grads.values()
+                                    if g is not None]
+            return out, sum(smp.launches.values()) - n0, 1
+        if case == "lanes":
+            runner = graph.LaneGraph(arrays, meta, s, cam, 2048)
+            px, py, si = _lanes_on_card()
+            graph.settle()
+            n0 = sum(smp.launches.values())
+            graph.reset_stats()
+            out = [t.clone() for t in runner.trace(px, py, si, 42, cam)]
+            st = graph.read_stats()
+            return out, sum(smp.launches.values()) - n0, st["lane_bounces"]
+        runner = graph.QueuedGraph(arrays, meta, s, cam, 1024, 4)
+        px, py = _graph_block()
+        graph.settle()
+        n0 = sum(smp.launches.values())
+        graph.reset_stats()
+        out = [t.clone() for t in runner.trace(px, py, 0, 42, cam)]
+        st = graph.read_stats()
+        at = [c is smp.launches for c in graph._COUNTERS].index(True)
+        body = runner._graphs["step"][1][at]
+        launched = sum(smp.launches.values()) - n0
+        assert launched - sum(body.values()) * st["iterations"] == (
+            sum(runner._graphs["light"][1][at].values())
+            if case == "bdpt" else 0)
+        return out, sum(body.values()), st["iterations"]
+
+    got, per_body, bodies = run()
+    assert bodies > 0 and per_body > 0
+    if case == "nee":
+        assert per_body <= 10
+    _plain_sampler(monkeypatch)
+    want, plain_launches, _ = run()
+    assert plain_launches == 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if case == "bdpt" and i == 1:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(a, b), f"{case}: output {i}"
