@@ -3025,7 +3025,7 @@ def graph_vs_eager(label, scene, names):
     tgraph.reset_stats()
     g.render_round(0)
     build = tgraph.read_stats()
-    runner = g._runner()
+    runner = g._runner
     check(type(runner) is tgraph.QueuedGraph and runner._exec is not None,
           f"{label}: the driver's runner has no WHILE graph")
     bdpt = g.bdpt
@@ -3341,8 +3341,9 @@ def setter_entry():
 
 
 def stamp_entry():
-    """The phase stamp alone, on an accumulator of the queued runner's
-    shape (int64 [6], `tgraph._SLOTS["queued"]`), in captured bodies
+    """The phase stamp alone, on a queued runner's accumulator (a
+    `tgraph._Probe`, its slots named `other_ns` and `intersect_ns`), in
+    captured bodies
     replayed from the host, as the queued and gradient steps run it:
     STAMP_ITERS stamps back to back, timed by CUDA events around the
     replay (a stamp's ms: its node's launch latency and the kernel); and
@@ -3355,9 +3356,9 @@ def stamp_entry():
     kernels line's entry (launches 0 here; main() sets those of phases
     16, 17, 20, 21 and 23)."""
     dev = CUDA
-    slots = tgraph._SLOTS["queued"]
-    other, inside = slots.index("other_ns"), slots.index("intersect_ns")
-    acc = torch.zeros(len(slots), dtype=torch.int64, device=dev)
+    probe = tgraph._Probe(dev)
+    other, inside = probe.slot("other_ns"), probe.slot("intersect_ns")
+    acc = probe.acc
     side = torch.cuda.Stream(dev)
 
     def bare():
@@ -3405,7 +3406,7 @@ def stamp_entry():
     err = max(errs)
     check(err <= STAMP_RTOL, f"the stamps saw {seen} ms (stamped, events) "
           f"of device sleeps, {err:.3g} apart")
-    host = torch.zeros(len(slots), dtype=torch.int64)
+    host = torch.zeros_like(acc, device="cpu")
     t0 = time.perf_counter()
     gw.stamp(host)
     for _ in range(STAMP_ITERS):

@@ -18,14 +18,13 @@ light-pick tables held by `apply_params`.  The seed and the lanes are
 baked into the capture, as `make_loss_fn` fixes them: a new seed or new
 lanes need a new runner.  The capture follows `integrator/graph.py`:
 warm-up steps on a side stream under `set_sync_debug_mode("error")`,
-the launch counters' delta added per replay, the runner keyed by
-`binned_mode` (a capture freezes `RGK_BINNED`), no eager fallback on
-the card.  On the CPU a call is plain autograd on the same leaves.
+the launch counters' delta added per replay, no eager fallback on the
+card.  On the CPU a call is plain autograd on the same leaves.
 
-With tracing on (`utils/trace.py`) the step stamps its phases into the
-runner's accumulator: a mark at its start, `grad_fwd_ns` after the loss,
-`grad_bwd_ns` after `torch.autograd.grad`; `tgraph.read_stats()` sums
-them with `grad_steps`, the calls since the capture.
+The step stamps its phases into the runner's probe (`tgraph._Probe`):
+a mark at its start, `grad_fwd_ns` after the loss, `grad_bwd_ns` after
+`torch.autograd.grad`; `tgraph.read_stats()` sums them with
+`grad_steps`, the calls since the capture.
 """
 
 from __future__ import annotations
@@ -33,12 +32,8 @@ from __future__ import annotations
 import torch
 
 from ..integrator import graph as tgraph
-from ..ops import graph_while as gw
 from ..utils import trace
 from .params import extract_params, make_loss_fn
-
-_FWD = tgraph._slot("grad", "grad_fwd_ns")
-_BWD = tgraph._slot("grad", "grad_bwd_ns")
 
 
 class ValueAndGrad(tgraph._Runner):
@@ -50,31 +45,22 @@ class ValueAndGrad(tgraph._Runner):
                  target, sampler_mode: int = 1):
         dev = scene.tri_pack.device
         super().__init__(dev, "gradient step")
-        self.mode = tgraph.binned_mode(meta)
         self.loss_fn = make_loss_fn(scene, meta, settings, cam, px, py,
                                     sample_idx, seed, target, sampler_mode)
         self.leaves = extract_params(scene)
         self.out = None
-        if trace.enabled():
-            self.acc = torch.zeros(len(tgraph._SLOTS["grad"]),
-                                   dtype=torch.int64, device=dev)
         if dev.type == "cuda":
             with torch.cuda.device(dev):
                 self._build(self._warm, [("step", self._step)])
-        if self.acc is not None:
-            self._counter("grad")
+        self._register()
 
     def _step(self) -> None:
-        acc = self.acc
-        if acc is not None:
-            gw.stamp(acc)
+        self.probe.stamp()
         loss = self.loss_fn(self.leaves)
-        if acc is not None:
-            gw.stamp(acc, _FWD)
+        self.probe.stamp("grad_fwd_ns")
         grads = torch.autograd.grad(loss, list(self.leaves.values()),
                                     allow_unused=True)
-        if acc is not None:
-            gw.stamp(acc, _BWD)
+        self.probe.stamp("grad_bwd_ns")
         self.out = (loss.detach(), dict(zip(self.leaves, grads)))
 
     def _warm(self) -> None:
@@ -90,8 +76,7 @@ class ValueAndGrad(tgraph._Runner):
                 self._replay("step")
             else:
                 self._step()
-        if self.acc is not None:
-            tgraph._bump(grad_steps=1)
+        tgraph._bump(grad_steps=1)
         return self.out
 
 

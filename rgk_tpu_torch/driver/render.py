@@ -7,7 +7,7 @@ of at most `chunk_lanes` pixels through the queued NEE tracer;
 bidirectional ones blocks of `chunk_lanes // multisample` pixels through
 the queued BDPT tracer, whose light-subpath phase runs on every
 (pixel, sample) of the block at once.  The driver keeps one
-`integrator.graph.QueuedGraph` per `RGK_BINNED` mode: on a card a block
+`integrator.graph.QueuedGraph`, built at its first block: on a card a block
 is one launch of a CUDA graph whose WHILE node runs the loop's step
 while its end test holds (after the BDPT light phase), then the replay
 of the accumulation, as the reference runs a block as one device
@@ -44,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..integrator.graph import QueuedGraph, binned_mode
+from ..integrator.graph import QueuedGraph
 from ..io import AccumulationImage
 from ..parallel import multihost
 from ..utils import log as out
@@ -124,20 +124,11 @@ class RenderDriver:
                                     device=dev)
         self._rays_dev = torch.zeros((), dtype=torch.int64, device=dev)
 
-        # One block runner per RGK_BINNED mode (a capture freezes it).
-        self._runners = {}
+        self._runner = None  # the block runner, built at the first block
         if mesh is not None:
             self._sharded = (mesh.make_queued_bdpt_fn if self.bdpt
                              else mesh.make_queued_fn)(meta, settings,
                                                        sampler_mode)
-
-    def _runner(self) -> QueuedGraph:
-        mode = binned_mode(self.meta)
-        if mode not in self._runners:
-            self._runners[mode] = QueuedGraph(
-                self.scene, self.meta, self.settings, self.camera,
-                self.block, self.ms, self.sampler_mode, seed=self.seed)
-        return self._runners[mode]
 
     def render_round(self, round_idx: int, monitor=None) -> None:
         """Render this process's blocks, every pixel x multisample once;
@@ -149,7 +140,11 @@ class RenderDriver:
         self.stats.rounds += 1
 
     def _render_blocks(self, sample0: int, monitor) -> None:
-        runner = self._runner() if self.mesh is None else None
+        if self.mesh is None and self._runner is None:
+            self._runner = QueuedGraph(
+                self.scene, self.meta, self.settings, self.camera,
+                self.block, self.ms, self.sampler_mode, seed=self.seed)
+        runner = self._runner
         for px, py, pix_idx in zip(self._px, self._py, self._pix_idx):
             if runner is not None:
                 with trace.span("render.block"):

@@ -37,45 +37,11 @@ buffers, and captures `trace_wavefront`'s pieces over them:
 as the epilogue: the reference's `while_loop` (`differentiable=False`),
 which stops at the first bounce where no lane is alive.
 
-Counters: a WHILE graph's setter adds 1 to a device counter at each of
-its runs (bodies + 1 a launch).  `read_stats` reads those counters (a
-sync) and adds what the graphs ran since the last read: the bodies as
-queued steps and iterations (or per-sample bounces), and each body's
-launch counts times its runs into the kernel wrappers' counters.  So
-the wrappers' counts include a WHILE graph's launches only after
-`read_stats` (or `settle`).
-
-Phase stamps (`utils/trace.py`; on unless `trace.enable(False)` was
-called before the runner was built): the queued runner and the gradient
-step own an int64 accumulator whose slot 0 is the setter's counter and
-whose other slots the captured body adds into on the device
-(`gw.stamp`, one-thread nodes, and two small reductions), read at
-`settle`'s one read:
-* a queued step marks at its start, stamps `other_ns` on entering the
-  intersector and `intersect_ns` on leaving it (`_Probe`, which wraps
-  `su.intersect`), adds its extension rays into `live_lanes`, the
-  any-hit queries' live rays (t_max > t_min) into `any_live_rays` and
-  the rays that K1's front end lists for its sweep, closest and any-hit
-  (`flat_intersect.count_swept`; none on a BVH scene), into
-  `swept_rays`, and stamps `other_ns` at its end; its closest and
-  any-hit queries are counted once per captured body, like the
-  launches;
-* a BDPT step's connections (`path._queued_step` marks them through
-  `_Setup.probe`) stamp into `connect_ns` and `connect_intersect_ns`
-  instead, and add their live shadow rays into `connect_rays`; the
-  step's time slots partition it, `step_ns` their sum;
-* the BDPT light phase, the WHILE graph's prologue, marks at its start,
-  stamps `light_ns` and `light_intersect_ns` likewise, adds the live
-  rays of all its queries into `light_live_rays` (the splat query's
-  also into `light_any_rays`), its valid light vertices into
-  `light_vertices` and the splats that land in view into `splats`, and
-  stamps `light_ns` at its end; its queries are counted once a block;
-* the gradient step marks at its start and stamps `grad_fwd_ns` after
-  the loss and `grad_bwd_ns` after `torch.autograd.grad`.
-The accumulators are zeroed once the body is captured, so the eager
-warm-up steps are not counted.  On the CPU the same slots are kept with
-the host's clock.  The eager route (`path.trace_wavefront_queued_eager`,
-`make_loss_fn` called directly) carries no stamps.
+Counters and phase stamps: every runner owns one `_Probe`, whose
+device accumulator its WHILE graph's setter counts into and whose named
+slots the captured bodies stamp and add into; `read_stats` reads them
+all (one read each, a sync) and reports them by name.  `_Probe` lists
+what is counted.
 
 Where capture goes wrong, and what is done about it:
 * Python numbers are baked into a capture.  The sample range and the
@@ -92,10 +58,10 @@ Where capture goes wrong, and what is done about it:
   captured prologue made (held by the runner, written in place by the
   body), and the pixel shards and camera that a mesh makes anew on
   every call are copied in.
-* `RGK_BINNED` is read at every intersection call; a capture freezes
-  it.  A runner records the mode it was built under (`binned_mode`) and
-  callers key their runners by it.  The binned route has static shapes
-  ([R*K] sorted pairs) and captures like the others.
+* The intersection route (`ops/intersect.binned_mode`) is read when a
+  runner's intersector is made, so a runner keeps the route it was
+  built under.  The binned route has static shapes ([R*K] sorted pairs)
+  and captures like the others.
 * Hidden syncs.  The warm-up and the captures run under
   `torch.cuda.set_sync_debug_mode("error")`, and a capture refuses a
   sync in any case; the plain versions of the kernels (loops over
@@ -127,8 +93,8 @@ read before every step): the buffer discipline without graphs.
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import os
 import threading
 import weakref
 from typing import NamedTuple
@@ -150,57 +116,14 @@ WARMUP_STEPS = 2  # eager runs of a captured body, on a side stream
 _COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches,
              gw.launches, smp.launches)
 
-# Summed over every runner of the process; `reset_stats` zeroes them.
-# steps: queued steps run (WHILE bodies, CPU steps); replays: step
-# graphs run; warmup_steps: eager runs of a body before its capture; flag_reads:
-# host reads of an end test (one sync each); iterations: steps that
-# found the loop live; while_launches: queued WHILE graph launches;
-# lane_bounces: per-sample bounces run; setter_runs: condition-setter
-# runs; peak_before / peak_after: max memory allocated around the latest
-# build's captures.  From the phase stamps (module doc), over the queued
-# runners' iterations: lane_steps (lanes x iterations), live_lanes
-# (extension rays), closest_queries, any_queries, any_live_rays,
-# swept_rays (the rays K1's front end lists), intersect_ns and other_ns
-# (device time inside and outside the intersector; `read_stats` adds
-# step_ns, the sum of the step's four time slots with connect_ns and
-# connect_intersect_ns); over the gradient steps: grad_steps, grad_fwd_ns,
-# grad_bwd_ns.  A BDPT runner adds, over its light phases (the WHILE
-# graph's prologue, one a block): light_ns and light_intersect_ns (device
-# time outside and inside the intersector), light_live_rays (the live
-# rays of every query, the splat query's included), light_any_rays (the
-# splat query's), light_vertices (valid stored light vertices), splats
-# (splats that land in view), light_closest_queries and
-# light_any_queries; over its steps' connections: connect_ns and
-# connect_intersect_ns, connect_rays (live connection shadow rays) and
-# connect_queries.
-stats = {"runners": 0, "blocks": 0, "captures": 0, "capture_ms": 0.0,
-         "pool_bytes": 0, "peak_before": 0, "peak_after": 0, "steps": 0,
-         "warmup_steps": 0, "replays": 0, "light_replays": 0,
-         "flag_reads": 0, "iterations": 0, "while_launches": 0,
-         "lane_bounces": 0, "setter_runs": 0, "lane_steps": 0,
-         "live_lanes": 0, "closest_queries": 0, "any_queries": 0,
-         "any_live_rays": 0, "swept_rays": 0, "intersect_ns": 0,
-         "other_ns": 0, "grad_steps": 0, "grad_fwd_ns": 0,
-         "grad_bwd_ns": 0, "light_ns": 0, "light_intersect_ns": 0,
-         "light_live_rays": 0, "light_any_rays": 0, "light_vertices": 0,
-         "splats": 0, "light_closest_queries": 0, "light_any_queries": 0,
-         "connect_ns": 0, "connect_intersect_ns": 0, "connect_rays": 0,
-         "connect_queries": 0}
-# The slots of a runner's accumulator by kind: the setter's runs, the
-# latest stamp (`gw.LAST`), then what `settle` adds into `stats` by name.
-_SLOTS = {"queued": ("runs", "last", "other_ns", "intersect_ns",
-                     "live_lanes", "any_live_rays", "swept_rays"),
-          "grad": ("runs", "last", "grad_fwd_ns", "grad_bwd_ns"),
-          "lanes": ("runs",)}
-_SLOTS["bdpt"] = _SLOTS["queued"] + (
-    "light_ns", "light_intersect_ns", "light_live_rays", "light_any_rays",
-    "light_vertices", "splats", "connect_ns", "connect_intersect_ns",
-    "connect_rays")
+# The counters of every runner of the process by name (`_Probe` lists
+# them); `reset_stats` zeroes them.
+stats = collections.Counter()
 
 
 class _Phase(NamedTuple):
-    """Where a traced queued runner's phase (`_Probe`) puts its stamps
-    and counts."""
+    """Where a queued runner's phase (`_Probe`) puts its stamps and
+    counts."""
     outside: str          # the slot of the time outside the intersector
     inside: str           # the slot of the time inside it
     closest_rays: tuple   # the slots a closest query's live rays go to
@@ -220,33 +143,142 @@ _PHASES = {
     "light": _Phase("light_ns", "light_intersect_ns", ("light_live_rays",),
                     ("light_live_rays", "light_any_rays"), False,
                     "light_closest_queries", "light_any_queries")}
-# A step's query counts, added times the bodies run, and a light
-# phase's, added once a block.
-_QUERIES = ("closest_queries", "any_queries", "connect_queries")
-_LIGHT_QUERIES = ("light_closest_queries", "light_any_queries")
-# Every runner's counter (`_WhileCount`), read by `settle`.
-_while = []
+# Every runner's probe, read by `settle`.
+_probes = []
 _lock = threading.Lock()
 
 
-def _slot(kind: str, name: str) -> int:
-    return _SLOTS[kind].index(name)
+class _Probe:
+    """A runner's device counters, and the one account of what
+    `read_stats` reports.
 
+    `acc` int64 [SLOTS] on the runner's device: slot 0 counts the WHILE
+    setter's runs (the bodies, plus 1 a launch), slot `gw.LAST` holds the
+    latest stamp, and a counter's name takes the next slot the first
+    time it is stamped or added (`slot`): in the warm-up on a card, so
+    the index is a Python number baked into the capture.  A body stamps
+    (`gw.stamp`, a one-thread node: the time since the last stamp into a
+    slot) and adds device counts (small reductions).  `settle` adds each
+    named slot into `stats` under its name, and `per_body` (counts a
+    WHILE body, the captured body's query counts among them) times the
+    bodies run.  The runner zeroes the accumulator once its bodies are
+    captured, so the warm-up is not counted; on the CPU the slots are
+    kept with the host's clock.  The eager route (`path.*_eager`,
+    `make_loss_fn` called directly) has no probe.
 
-class _WhileCount:
-    """A runner's device counters: `acc` int64 [n], slot 0 the WHILE
-    setter's runs, the others the phase stamps' (`_SLOTS[kind]`); its
-    WHILE launches; `delta` the body's launches and `per_body` its
-    counts (lanes, queries), added at `settle` times the bodies run; and
-    what `settle` has taken of each.  `kind` "queued", "bdpt" (a BDPT
-    queued runner, `_SLOTS`), "lanes" or "grad" (no setter)."""
+    A queued step (`QueuedGraph`) marks at its start (`start("eye")`); its
+    queries (`counted`) stamp the time before them into `other_ns` and
+    their own into `intersect_ns`; it adds its extension rays into
+    `live_lanes`, the any-hit queries' live rays (t_max > t_min) into
+    `any_live_rays` and the rays that K1's front end lists for its
+    sweep, closest and any-hit, into `swept_rays`
+    (`flat_intersect.count_swept`; none on a BVH scene), and stamps
+    `other_ns` at its end.  A BDPT step's connections (`path._queued_step`
+    marks them through `_Setup.probe`) stamp into `connect_ns` and
+    `connect_intersect_ns` instead and add their live shadow rays into
+    `connect_rays`.  These four time slots partition the step, and
+    `read_stats` adds `step_ns`, their sum.  The BDPT light phase, the
+    WHILE graph's prologue, stamps `light_ns` and `light_intersect_ns`
+    likewise and adds the live rays of all its queries into
+    `light_live_rays` (the splat query's also into `light_any_rays`), its
+    valid light vertices into `light_vertices` and the splats that land
+    in view into `splats`.  `_PHASES` says where each phase's stamps and
+    live rays go.  The gradient step (`diff/graph.py`) marks at its
+    start and stamps `grad_fwd_ns` after the loss and `grad_bwd_ns`
+    after `torch.autograd.grad`.
 
-    def __init__(self, runner, acc, kind, delta=None, per_body=None):
-        self.runner = weakref.ref(runner)
-        self.acc, self.kind, self.delta = acc, kind, delta
-        self.per_body = dict(per_body or {})
+    Counted on the host, once per captured body as the launches are:
+    `closest_queries`, `any_queries` and `connect_queries` a step,
+    `light_closest_queries` and `light_any_queries` a light phase.  And
+    by the runners: `runners`, `captures`, `capture_ms`, `pool_bytes`,
+    `peak_before` / `peak_after` (max memory allocated around the latest
+    build's captures), `warmup_steps` (eager runs of a body before its
+    capture), `blocks`, `steps` (queued steps run: WHILE bodies, CPU
+    steps), `replays` (step graphs run), `iterations` (steps that found
+    the loop live), `lane_steps` (lanes x iterations), `flag_reads` (host
+    reads of an end test, one sync each), `while_launches`,
+    `light_replays`, `setter_runs`, `lane_bounces` (per-sample bounces
+    run) and `grad_steps`."""
+
+    SLOTS = 32
+
+    def __init__(self, device):
+        self.acc = torch.zeros(self.SLOTS, dtype=torch.int64, device=device)
+        self.slots = {}    # counter name -> slot
+        # Phase ("eye", "light") -> its latest run's query counts by name.
+        self.queries = {}
+        self._p, self._q = _PHASES["eye"], collections.Counter()
+        # For `settle`, set by the runner: its weak reference, its WHILE
+        # body's launch-counter delta and counts, its WHILE launches;
+        # and what `settle` has taken.
+        self.owner = self.delta = None
+        self.per_body = {}
         self.launches = self.seen_launches = 0
-        self.seen = [0] * acc.shape[0]
+        self.seen = [0] * self.SLOTS
+
+    def slot(self, name: str) -> int:
+        """The slot of counter `name`: the next free one at its first
+        use."""
+        at = self.slots.get(name)
+        if at is None:
+            at = gw.LAST + 1 + len(self.slots)
+            if at >= self.SLOTS:
+                raise RuntimeError(f"no slot left for counter {name!r}: a "
+                                   f"probe holds {self.SLOTS}")
+            self.slots[name] = at
+        return at
+
+    def stamp(self, name: str = None) -> None:
+        """The time since the last stamp into slot `name`; a mark
+        without one."""
+        gw.stamp(self.acc, -1 if name is None else self.slot(name))
+
+    def add(self, name: str, value) -> None:
+        """`value`, an int64 [] on the device, into slot `name`."""
+        self.acc[self.slot(name)].add_(value)
+
+    def start(self, name: str) -> None:
+        """A step's ("eye") or the light phase's ("light") start: a mark,
+        and its query counts begun anew."""
+        self.stamp()
+        self._p = _PHASES[name]
+        self._q = self.queries[name] = collections.Counter()
+
+    def phase(self, name: str) -> None:
+        """The time since the last stamp into the current phase's outside
+        slot, then phase `name`."""
+        self.end()
+        self._p = _PHASES[name]
+
+    def end(self) -> None:
+        """A step's or the light phase's end."""
+        self.stamp(self._p.outside)
+
+    def counted(self, intersect):
+        """`intersect` (`path._Setup.intersect`), stamped and counted."""
+        def query(scene, ro, rd, t_min, t_max, exclude=None, any_hit=False):
+            p = self._p
+            self.stamp(p.outside)
+            swept = contextlib.nullcontext()
+            if p.swept:
+                at = self.slot("swept_rays")
+                swept = fi.count_swept(self.acc[at:at + 1])
+            with swept:
+                hit = intersect(scene, ro, rd, t_min, t_max, exclude=exclude,
+                                any_hit=any_hit)
+            self.stamp(p.inside)
+            self._q[p.any if any_hit else p.closest] += 1
+            into = p.any_rays if any_hit else p.closest_rays
+            if into:
+                # Lanes whose interval is not empty: t_max is a tensor in
+                # every query of the tracers (`_extend_path`,
+                # `ops/intersect.visibility`).
+                live = (t_max > t_min).expand(ro.shape[0]).sum()
+                for name in into:
+                    self.add(name, live)
+            return hit
+
+        return query
 
 
 def _bump(**deltas):
@@ -259,71 +291,57 @@ def reset_stats() -> None:
     with _lock:
         for key in stats:
             stats[key] = type(stats[key])()
-        _while[:] = [c for c in _while if c.runner() is not None]
-        for c in _while:
-            c.acc.zero_()
-            c.seen = [0] * len(c.seen)
-            c.launches = c.seen_launches = 0
+        _probes[:] = [p for p in _probes if p.owner() is not None]
+        for p in _probes:
+            p.acc.zero_()
+            p.seen = [0] * p.SLOTS
+            p.launches = p.seen_launches = 0
 
 
 def settle() -> None:
-    """Reads every runner's counters (one read each, a sync on the card)
-    and adds what ran since the last read: setter runs, bodies as steps
-    and iterations (queued) or bounces (per-sample), the bodies' kernel
-    launches and counts, and the stamp slots."""
+    """Reads every runner's probe (one read each, a sync on the card) and
+    adds what ran since the last read into `stats`: the setter's runs,
+    the named slots, and the bodies' counts and kernel launches times the
+    bodies run."""
     with _lock:
-        counts = list(_while)
-    for c in counts:
-        vals = c.acc.tolist()
+        probes = list(_probes)
+    for p in probes:
+        vals = p.acc.tolist()
         with _lock:
-            new = [v - s for v, s in zip(vals, c.seen)]
-            c.seen = vals
-            new_launches = c.launches - c.seen_launches
-            c.seen_launches = c.launches
-            for name, v in zip(_SLOTS[c.kind][2:], new[2:]):
-                stats[name] += v
-            if c.kind == "grad":
-                continue
-            bodies = new[0] - new_launches
-            gw.launches["setter"] += new[0]
+            new = [v - s for v, s in zip(vals, p.seen)]
+            p.seen = vals
+            bodies = new[0] - (p.launches - p.seen_launches)
+            p.seen_launches = p.launches
+            for name, at in list(p.slots.items()):
+                stats[name] += new[at]
+            for name, v in p.per_body.items():
+                stats[name] += v * bodies
             stats["setter_runs"] += new[0]
-            if c.kind in ("queued", "bdpt"):
-                for key in ("steps", "replays", "iterations"):
-                    stats[key] += bodies
-                for key, v in c.per_body.items():
-                    stats[key] += v * bodies
-            else:
-                stats["lane_bounces"] += bodies
-        if c.delta is not None:
-            _add_launches(c.delta, bodies)
+            gw.launches["setter"] += new[0]
+        if p.delta is not None:
+            _add_launches(p.delta, bodies)
     with _lock:
-        _while[:] = [c for c in _while if c.runner() is not None]
+        _probes[:] = [p for p in _probes if p.owner() is not None]
 
 
 def read_stats() -> dict:
-    """`stats` after `settle`, `overshoot`, the steps run past the end,
-    `step_ns`, the queued steps' device time (`intersect_ns` +
-    `other_ns` + `connect_ns` + `connect_intersect_ns`), and the sampler
-    kernel's launches since the process started (`ops/sampler.py`
-    `launches`, replays and WHILE bodies included): `sampler_<entry>`
-    by entry and `sampler_launches` in all."""
+    """`stats` after `settle` (`_Probe` lists them; a name never counted
+    reads 0), `overshoot`, the steps run past the end, `step_ns`, the
+    queued steps' device time (the "eye" and "connect" phases' slots),
+    and the sampler kernel's launches since the process started
+    (`ops/sampler.py` `launches`, replays and WHILE bodies included):
+    `sampler_<entry>` by entry and `sampler_launches` in all."""
     settle()
     with _lock:
-        got = dict(stats)
+        got = collections.Counter(stats)
         sampled = dict(smp.launches)
-    got.update({f"sampler_{k}": v for k, v in sampled.items()})
+    for key, v in sampled.items():
+        got[f"sampler_{key}"] = v
     got["sampler_launches"] = sum(sampled.values())
     got["overshoot"] = got["steps"] - got["iterations"]
-    got["step_ns"] = (got["intersect_ns"] + got["other_ns"]
-                      + got["connect_ns"] + got["connect_intersect_ns"])
+    got["step_ns"] = sum(got[_PHASES[p].outside] + got[_PHASES[p].inside]
+                         for p in ("eye", "connect"))
     return got
-
-
-def binned_mode(meta) -> str:
-    """The `RGK_BINNED` mode a BVH scene's card queries run under now
-    ("off" for a flat scene, which does not read it): part of a runner's
-    key."""
-    return os.environ.get("RGK_BINNED", "off") if meta.has_bvh else "off"
 
 
 @contextlib.contextmanager
@@ -342,66 +360,6 @@ def _snapshot():
     return [dict(c) for c in _COUNTERS]
 
 
-class _Probe:
-    """A traced queued runner's phase stamps and device counts (module
-    doc), handed to the tracers as `path._Setup.probe`, and `intersect`
-    as `_Setup.intersect`.  The phase (`_PHASES`) picks the slots of a
-    query's stamps and counts: "eye" from `start("eye")` at a step's
-    start, "connect" between `phase("connect")` and `phase("eye")`
-    around its BDPT connections, "light" from `start("light")` at the
-    light phase's start; `end()` closes a step or light phase.  The
-    slots partition the time: each stamp adds the time since the last
-    into one slot.  `queries` counts the queries of the latest step and
-    light phase by stats key."""
-
-    def __init__(self, intersect, acc, kind: str, queries: dict):
-        self._intersect, self.acc, self.kind = intersect, acc, kind
-        self.queries = queries
-        self._p = _PHASES["eye"]
-
-    def start(self, name) -> None:
-        """A step's or the light phase's start: a mark, no slot; its
-        query counts zeroed."""
-        gw.stamp(self.acc)
-        self._p = _PHASES[name]
-        for key in (_LIGHT_QUERIES if name == "light" else _QUERIES):
-            self.queries[key] = 0
-
-    def phase(self, name) -> None:
-        """The time since the last stamp into the current phase's outside
-        slot, then phase `name`."""
-        self.end()
-        self._p = _PHASES[name]
-
-    def end(self) -> None:
-        gw.stamp(self.acc, _slot(self.kind, self._p.outside))
-
-    def add(self, name, value) -> None:
-        """`value`, an int64 [] on the device, into slot `name`."""
-        self.acc[_slot(self.kind, name)].add_(value)
-
-    def intersect(self, scene, ro, rd, t_min, t_max, exclude=None,
-                  any_hit=False):
-        """`path._Setup.intersect`, stamped and counted."""
-        p = self._p
-        gw.stamp(self.acc, _slot(self.kind, p.outside))
-        swept = _slot(self.kind, "swept_rays")
-        with (fi.count_swept(self.acc[swept:swept + 1]) if p.swept
-              else contextlib.nullcontext()):
-            hit = self._intersect(scene, ro, rd, t_min, t_max,
-                                  exclude=exclude, any_hit=any_hit)
-        gw.stamp(self.acc, _slot(self.kind, p.inside))
-        self.queries[p.any if any_hit else p.closest] += 1
-        into = p.any_rays if any_hit else p.closest_rays
-        if into:
-            # Lanes whose interval is not empty: t_max is a tensor in every
-            # query of the tracers (`_extend_path`, `ops/intersect.visibility`).
-            live = (t_max > t_min).expand(ro.shape[0]).sum()
-            for name in into:
-                self.add(name, live)
-        return hit
-
-
 def _add_launches(delta, times: int = 1):
     with _lock:
         for counter, d in zip(_COUNTERS, delta):
@@ -413,15 +371,16 @@ class _Runner:
     """Graphs of one device: a side stream and a graph pool of their own
     (module doc).  `_build` warms a body up and captures; `_replay`
     replays a capture and adds its launches; `_while_graph` builds the
-    WHILE graph of captures kept for it, `_launch` launches it.  On the
-    CPU none runs: the subclasses call their bodies eagerly."""
+    WHILE graph of captures kept for it, `_launch` launches it;
+    `_register` hands the runner's `probe` to `settle`.  On the CPU none
+    runs: the subclasses call their bodies eagerly."""
 
     def __init__(self, device, what: str):
         self.device = device
         self.what = what           # for the log
         self._graphs = {}          # name -> (CUDAGraph, launch-counter delta)
-        self._exec = self._count = None
-        self.acc = None            # the phase stamps' accumulator, if traced
+        self._exec = None
+        self.probe = _Probe(device)
         _bump(runners=1)
         if device.type == "cuda":
             self._stream = torch.cuda.Stream(device)
@@ -486,30 +445,28 @@ class _Runner:
             graph.replay()
         _add_launches(delta, times)
 
-    def _counter(self, kind, delta=None, per_body=None) -> None:
-        """Registers the runner's counters with `settle`: `self.acc`
-        (zeroed now), or a setter counter of its own when untraced."""
-        acc = self.acc
-        if acc is None:
-            acc = torch.zeros(1, dtype=torch.int64, device=self.device)
-        acc.zero_()
-        self._count = _WhileCount(self, acc, kind, delta, per_body)
+    def _register(self) -> None:
+        """The probe zeroed (the warm-up is not counted) and handed to
+        `settle`."""
+        self.probe.acc.zero_()
+        self.probe.owner = weakref.ref(self)
         with _lock:
-            _while.append(self._count)
+            _probes.append(self.probe)
 
-    def _while_graph(self, kind, body, prologue=None, epilogue=None,
-                     per_body=None):
+    def _while_graph(self, body, prologue=None, epilogue=None, *,
+                     per_body):
         """The kept captures `prologue`, `body` and `epilogue` (names) as
         one WHILE graph on `self.live`, its setter counting into slot 0
-        of the runner's counters, registered as `kind` with the body's
-        `per_body` counts."""
+        of the probe, which takes the body's launches and `per_body`
+        counts."""
         def graph(name):
             return None if name is None else self._graphs[name][0]
 
-        self._counter(kind, self._graphs[body][1], per_body)
+        self.probe.delta = self._graphs[body][1]
+        self.probe.per_body = per_body
         with trace.span("graph.instantiate", runner=self.what):
             self._exec = gw.WhileGraph(graph(body), self.live,
-                                       self._count.acc[0], graph(prologue),
+                                       self.probe.acc[0], graph(prologue),
                                        graph(epilogue))
         self._ends = [n for n in (prologue, epilogue) if n is not None]
 
@@ -518,7 +475,7 @@ class _Runner:
         launches are added now, the body's at `settle`."""
         self._exec.launch()
         with _lock:
-            self._count.launches += 1
+            self.probe.launches += 1
         for name in self._ends:
             _add_launches(self._graphs[name][1])
 
@@ -541,10 +498,11 @@ class _Runner:
 class QueuedGraph(_Runner):
     """A block of `lanes` pixels, `n_samples` samples each, of the queued
     NEE tracer (`settings.reverse` == 0) or BDPT tracer, on the scene's
-    device (module doc).  Built once per (device, lanes, tracer,
-    `binned_mode`); on a card the graphs are captured here, after
-    warm-up steps on the frame's first `lanes` pixels, samples from 0,
-    under `seed` (for a driver: its first block)."""
+    device (module doc).  Built once per (device, lanes, tracer); on a
+    card the graphs are captured here, after warm-up steps on the
+    frame's first `lanes` pixels, samples from 0, under `seed` (for a
+    driver: its first block).  The step and the light phase run on `su`,
+    whose queries and phases the probe stamps and counts."""
 
     def __init__(self, scene, meta, settings, cam, lanes: int,
                  n_samples: int, sampler_mode: int = 1, seed: int = 0):
@@ -554,22 +512,9 @@ class QueuedGraph(_Runner):
         self.lanes, self.n_samples = int(lanes), int(n_samples)
         self.sampler_mode = sampler_mode
         self.bdpt = int(settings.reverse) > 0
-        self.mode = binned_mode(meta)
-        self.kind = "bdpt" if self.bdpt else "queued"
-        self.su = tpath._setup(scene, meta, settings)
-        # The setup the step and light phase run on: with the probe's
-        # stamps and counts when traced.
-        self._su_run = self.su
-        self.probe = None
-        # In the latest step and light phase (`_Probe`).
-        self._queries = dict.fromkeys(_QUERIES + _LIGHT_QUERIES, 0)
-        if trace.enabled():
-            self.acc = torch.zeros(len(_SLOTS[self.kind]), dtype=torch.int64,
-                                   device=dev)
-            self.probe = _Probe(self.su.intersect, self.acc, self.kind,
-                                self._queries)
-            self._su_run = self.su._replace(intersect=self.probe.intersect,
-                                            probe=self.probe)
+        su = tpath._setup(scene, meta, settings)
+        self.su = su._replace(intersect=self.probe.counted(su.intersect),
+                              probe=self.probe)
         self.cam = cam.to(dev, copy=True)
         px = torch.zeros(self.lanes, dtype=torch.int32, device=dev)
         lpack = None
@@ -590,12 +535,11 @@ class QueuedGraph(_Runner):
         if dev.type == "cuda":
             with torch.no_grad(), torch.cuda.device(dev):
                 self._graphs_for(seed)
-        else:
-            self._counter(self.kind)
+        self._register()
         out.log(3, f"queued loop on {dev}: {self.lanes} lanes x "
                    f"{self.n_samples} samples, "
-                   f"{'BDPT' if self.bdpt else 'NEE'}, RGK_BINNED="
-                   f"{self.mode}, " + ("one CUDA graph with a WHILE node"
+                   f"{'BDPT' if self.bdpt else 'NEE'}, binned route "
+                   f"{su.binned}, " + ("one CUDA graph with a WHILE node"
                                        if dev.type == "cuda" else
                                        "eager steps"))
 
@@ -606,8 +550,9 @@ class QueuedGraph(_Runner):
                     ([("light", self._light)] if self.bdpt else [])
                     + [("step", self._step)], keep=True)
         # The step was captured last: its queries are the body's.
-        self._while_graph(self.kind, "step", "light" if self.bdpt else None,
-                          per_body=dict(self._step_queries(),
+        self._while_graph("step", "light" if self.bdpt else None,
+                          per_body=dict(self.probe.queries["eye"], steps=1,
+                                        replays=1, iterations=1,
                                         lane_steps=self.lanes))
 
     # ---- the bodies: run eagerly, or captured once
@@ -630,41 +575,26 @@ class QueuedGraph(_Runner):
             buf.copy_(v)
         self.live.copy_(tpath._queued_live(self.state, i))
 
-    def _step_queries(self) -> dict:
-        return {key: self._queries[key] for key in _QUERIES}
-
     def _light(self) -> None:
-        probe = self.probe
-        if probe is not None:
-            probe.start("light")
+        self.probe.start("light")
         lpack, splat, rays = tpath._light_phase(
-            self.scene, self.meta, self.settings, self._su_run, self.cam,
+            self.scene, self.meta, self.settings, self.su, self.cam,
             self.inp, self.n_samples, self.sampler_mode)
         self.inp.lpack.copy_(lpack)
         self.splat.copy_(splat)
         self.state.rays.copy_(rays)
-        if probe is not None:
-            probe.end()
+        self.probe.end()
 
     def _step(self) -> None:
-        probe = self.probe
-        if probe is not None:
-            probe.start("eye")
+        self.probe.start("eye")
         q = tpath._queued_step(self.scene, self.meta, self.settings,
-                               self._su_run, self.cam, self.inp, self.state,
+                               self.su, self.cam, self.inp, self.state,
                                self.sampler_mode)
-        if probe is not None:
-            probe.add("live_lanes", q.rays - self.state.rays)
+        self.probe.add("live_lanes", q.rays - self.state.rays)
         for buf, v in zip(self.state, q):
             buf.copy_(v)
         self.live.copy_(tpath._queued_live(self.state, self.inp))
-        if probe is not None:
-            probe.end()
-
-    def _plain_step(self) -> None:
-        """`_step` on the CPU, its queries counted at once."""
-        self._step()
-        _bump(**self._step_queries())
+        self.probe.end()
 
     def _tail(self, acc, rays_acc) -> None:
         acc.index_add_(0, self.pix_idx, self.state.radiance)
@@ -689,16 +619,18 @@ class QueuedGraph(_Runner):
         with torch.no_grad(), self._device():
             self._load(px, py, sample0, seed, cam)
             if self.device.type != "cuda":
-                n = gw.run_plain(self._plain_step, self.live,
+                n = gw.run_plain(self._step, self.live,
                                  prologue=self._light if self.bdpt else None)
+                step = self.probe.queries.get("eye", {})
                 _bump(blocks=1, steps=n, iterations=n, flag_reads=n + 1,
-                      lane_steps=n * self.lanes)
+                      lane_steps=n * self.lanes,
+                      **{key: v * n for key, v in step.items()})
             else:
                 self._launch()
                 _bump(blocks=1, while_launches=1,
                       light_replays=int(self.bdpt))
             if self.bdpt:
-                _bump(**{key: self._queries[key] for key in _LIGHT_QUERIES})
+                _bump(**self.probe.queries["light"])
 
     def trace(self, px, py, sample0: int, seed: int, cam):
         """`block`, then the outputs of `path.trace_wavefront_queued`
@@ -733,8 +665,7 @@ class LaneGraph(_Runner):
     device (module doc): on a card one launch of a CUDA graph whose
     WHILE node runs one captured bounce while `path._lane_live` holds,
     so a call makes no sync and runs no bounce past the last live lane.
-    Built once per (device, lanes, `binned_mode`); on a card captured
-    here after warm-up runs on the frame's first `lanes` pixels, sample
+    Built once per (device, lanes); on a card captured here after warm-up runs on the frame's first `lanes` pixels, sample
     0, under `seed`.  On the CPU `trace` runs the same pieces eagerly,
     reading the end test before every bounce.  Its values are
     `render_lanes`'s bit for bit."""
@@ -745,7 +676,6 @@ class LaneGraph(_Runner):
         super().__init__(dev, "per-sample path")
         self.scene, self.meta, self.settings = scene, meta, settings
         self.lanes, self.sampler_mode = int(lanes), sampler_mode
-        self.mode = binned_mode(meta)
         self.su = tpath._setup(scene, meta, settings)
         self.cam = cam.to(dev, copy=True)
         r, k = self.lanes, max(0, int(settings.reverse))
@@ -766,9 +696,12 @@ class LaneGraph(_Runner):
                 self._build(lambda: self._warm(seed),
                             [("init", self._init), ("bounce", self._bounce),
                              ("finish", self._finish)], keep=True)
-                self._while_graph("lanes", "bounce", "init", "finish")
+                self._while_graph("bounce", "init", "finish",
+                                  per_body={"lane_bounces": 1})
+        self._register()
         out.log(3, f"per-sample path on {dev}: {r} lanes, depth "
-                   f"{self.su.depth}, reverse {k}, RGK_BINNED={self.mode}, "
+                   f"{self.su.depth}, reverse {k}, binned route "
+                   f"{self.su.binned}, "
                    + ("one CUDA graph with a WHILE node"
                       if dev.type == "cuda" else "eager"))
 

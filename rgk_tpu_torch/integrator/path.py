@@ -105,8 +105,9 @@ class _Setup(NamedTuple):
     clamp: float
     n_set: int
     tint: bool  # the tint-thinglass extension is on and the scene has glass
-    # A traced queued runner's phase stamps and device counts
-    # (`graph._Probe`), or None: the BDPT light phase adds its counts
+    binned: str  # the route of `intersect` (`ops/intersect.binned_mode`)
+    # A queued runner's phase stamps and device counts (`graph._Probe`),
+    # or None on the eager route: the BDPT light phase adds its counts
     # through it, and the queued step marks its connections.
     probe: Optional[object] = None
 
@@ -118,7 +119,8 @@ def _setup(scene, meta, settings) -> _Setup:
         intersect=isect.make_intersector(meta),
         depth=int(settings.recursion_max), russian=float(settings.russian),
         clamp=float(settings.clamp), n_set=max(1, int(settings.multisample)),
-        tint=bool(meta.has_thinglass and settings.tint_thinglass))
+        tint=bool(meta.has_thinglass and settings.tint_thinglass),
+        binned=isect.binned_mode(meta))
 
 
 def _shade_point(scene, meta, settings, hit, ro, rd, mat_pack) -> ShadePoint:

@@ -8,9 +8,12 @@ extension and shadow ray:
   tensor;
 * BVH scenes (`meta.has_bvh`): on a CUDA tensor the cluster kernel K2
   through its front end (`ops/cluster_intersect.py`), or the binned
-  pipeline K3 + K4 (`ops/binned_intersect.py`) as `RGK_BINNED` asks; on
-  a CPU tensor `intersect_bvh`, the reference's own non-TPU route,
-  whatever `RGK_BINNED` says.
+  pipeline K3 + K4 (`ops/binned_intersect.py`) as `RGK_BINNED` asks
+  (`binned_mode`, read once, when the routine is made: a routine keeps
+  its route, and so does a CUDA graph captured around it); on a CPU
+  tensor `intersect_bvh`, the reference's own non-TPU route, whatever
+  `RGK_BINNED` says.
+This module alone reads `RGK_BINNED`.
 Hit records are (t, tri, bary_b, bary_c); the barycentric weight of
 vertex A is 1 - b - c.
 
@@ -162,20 +165,26 @@ def intersect_bvh(scene, ro, rd, t_min, t_max, exclude=None,
                bary_c=out_c)
 
 
-def make_intersector(meta):
-    """The intersection routine for a committed scene (module doc).
-
-    `RGK_BINNED`, read at every call as the reference does: "any" sends
-    any-hit queries on a CUDA tensor through the binned pipeline and
+def binned_mode(meta) -> str:
+    """The route of a scene's queries on a CUDA tensor, from `RGK_BINNED`
+    now: "any" sends any-hit queries through the binned pipeline and
     closest-hit queries through K2; "all" sends both through the binned
-    pipeline; any other value (default "off") is K2 only."""
+    pipeline; any other value (default "off") is K2 only.  A flat scene
+    has one route: "off"."""
+    return os.environ.get("RGK_BINNED", "off") if meta.has_bvh else "off"
+
+
+def make_intersector(meta):
+    """The intersection routine for a committed scene (module doc), its
+    route (`binned_mode`) read now."""
     if meta.has_bvh:
+        mode = binned_mode(meta)
+
         def tree(scene, ro, rd, t_min, t_max, exclude=None,
                  any_hit: bool = False) -> Hit:
             if ro.device.type == "cpu":
                 return intersect_bvh(scene, ro, rd, t_min, t_max,
                                      exclude=exclude, any_hit=any_hit)
-            mode = os.environ.get("RGK_BINNED", "off")
             binned = mode == "all" or (mode == "any" and any_hit)
             fn = intersect_clusters_binned if binned else intersect_clusters
             r, dev = ro.shape[0], ro.device

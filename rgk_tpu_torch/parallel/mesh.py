@@ -8,10 +8,11 @@ device by its own host thread (on the CPU the loops read their end
 test on the host, so one thread would run the devices one after
 another).
 The queued tracers run each shard through its own
-`integrator.graph.QueuedGraph`, kept per (shard, `RGK_BINNED` mode), the
-per-sample path through a `LaneGraph`, each built on the calling thread
-before the shard threads start (a build sets the process-wide sync
-debug mode); on a card each shard's graphs run on its own device.
+`integrator.graph.QueuedGraph`, kept per shard, the per-sample path
+through a `LaneGraph`, kept per (shard, lanes), each built on the
+calling thread before the shard threads start (a build sets the
+process-wide sync debug mode); on a card each shard's graphs run on
+its own device.
 Only one card exists where the port was measured, so the path with
 n > 1 cards is unrun.
 Radiance comes back to the first device in shard order, ray counts add
@@ -33,7 +34,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..integrator.graph import LaneGraph, QueuedGraph, binned_mode
+from ..integrator.graph import LaneGraph, QueuedGraph
 from ..integrator.path import TraceResult
 
 
@@ -104,20 +105,18 @@ class MeshContext:
         """fn(scenes, cam, px, py, sample0, seed) -> each shard's outputs
         of `QueuedGraph.trace`, in shard order."""
         ms = max(1, int(settings.multisample))
-        runners = {}
+        runners = []  # by shard
 
         def run(scenes, cam, px, py, sample0, seed):
-            mode = binned_mode(meta)
-            for i, dev in enumerate(self.devices):
-                if (i, mode) not in runners:
-                    runners[i, mode] = QueuedGraph(
-                        scenes[i], meta, settings, cam.to(dev),
-                        px.shape[0] // self.n, ms, sampler_mode,
-                        seed=seed)
+            if not runners:
+                runners.extend(
+                    QueuedGraph(scenes[i], meta, settings, cam.to(dev),
+                                px.shape[0] // self.n, ms, sampler_mode,
+                                seed=seed)
+                    for i, dev in enumerate(self.devices))
 
             def shard(i, dev, spx, spy):
-                return runners[i, mode].trace(spx, spy, sample0, seed,
-                                              cam.to(dev))
+                return runners[i].trace(spx, spy, sample0, seed, cam.to(dev))
 
             return self._run(shard, px, py)
 
@@ -154,23 +153,23 @@ class MeshContext:
         """Sharded `render_lanes`: fn(scenes, cam, px, py, sample_idx,
         seed) -> a TraceResult on the first device.  Lane counts must
         divide into the mesh size.  Each shard runs through its own
-        `integrator.graph.LaneGraph`, kept per (shard, `RGK_BINNED`
-        mode, shard lanes) and built on the calling thread (as
-        `_queued_runners` builds theirs): on a card one launch of a
-        graph with a WHILE node, no sync."""
+        `integrator.graph.LaneGraph`, kept per (shard, shard lanes) and
+        built on the calling thread (as `_queued_runners` builds
+        theirs): on a card one launch of a graph with a WHILE node, no
+        sync."""
         runners = {}
 
         def run(scenes, cam, px, py, sample_idx, seed):
-            mode, lanes = binned_mode(meta), px.shape[0] // self.n
+            lanes = px.shape[0] // self.n
             for i, dev in enumerate(self.devices):
-                if (i, mode, lanes) not in runners:
-                    runners[i, mode, lanes] = LaneGraph(
+                if (i, lanes) not in runners:
+                    runners[i, lanes] = LaneGraph(
                         scenes[i], meta, settings, cam.to(dev), lanes,
                         sampler_mode, seed=seed)
 
             def shard(i, dev, spx, spy, ssi):
-                return runners[i, mode, lanes].trace(spx, spy, ssi, seed,
-                                                     cam.to(dev))
+                return runners[i, lanes].trace(spx, spy, ssi, seed,
+                                               cam.to(dev))
 
             out = self._run(shard, px, py, sample_idx)
             # cat and sum copy out of the runners' buffers, which their

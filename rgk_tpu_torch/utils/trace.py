@@ -17,12 +17,9 @@ rounds, blocks, accumulation, fetch, EXR write and checkpoint
 (`render.*`) and a gradient step (`grad.step`).  There are none per
 step: inside their captured bodies the runners time their phases on the
 device (`integrator/graph.py`, `ops/graph_while.stamp`), and
-`write_chrome` adds those counters (`graph.read_stats()`).
-
-`enable(False)` stops span recording, and the graph runners built after
-it capture no stamp or counter nodes.  A span still measures itself
-(`Span.seconds`), which `SceneBuilder.timings` reads.  Tracing is on by
-default.
+`write_chrome` adds those counters (`graph.read_stats()`).  A span
+also measures itself (`Span.seconds`), which `SceneBuilder.timings`
+reads.
 """
 
 from __future__ import annotations
@@ -42,12 +39,11 @@ RING = 65536  # spans kept
 _ring = collections.deque(maxlen=RING)
 _ids = itertools.count(1)
 _local = threading.local()
-_enabled = True
 
 
 class Span:
-    """One span: `name`, `attrs`, `id` and `parent` (0 when untraced or
-    outermost), `thread`, `start_ns` and `end_ns` (0 while open)."""
+    """One span: `name`, `attrs`, `id` and `parent` (0 when outermost),
+    `thread`, `start_ns` and `end_ns` (0 while open)."""
 
     __slots__ = ("name", "attrs", "id", "parent", "thread", "start_ns",
                  "end_ns")
@@ -62,16 +58,6 @@ class Span:
         return max(0, self.end_ns - self.start_ns) / 1e9
 
 
-def enable(on: bool = True) -> None:
-    """Tracing on or off (module doc); a runner reads it when built."""
-    global _enabled
-    _enabled = bool(on)
-
-
-def enabled() -> bool:
-    return _enabled
-
-
 def _profiling() -> bool:
     return torch._C._autograd._profiler_enabled()
 
@@ -81,13 +67,6 @@ def span(name: str, **attrs):
     """Times the `with` block as span `name` (module doc); yields the
     `Span`, whose `attrs` the block may extend."""
     sp = Span(name, attrs)
-    if not _enabled:
-        sp.start_ns = time.perf_counter_ns()
-        try:
-            yield sp
-        finally:
-            sp.end_ns = time.perf_counter_ns()
-        return
     stack = getattr(_local, "stack", None)
     if stack is None:
         stack = _local.stack = []

@@ -11,12 +11,17 @@ Contracts:
   `rgkbench.profiling.count_queries` counts on the same block; its
   `swept_rays` (K1's) equals `live_lanes` + `any_live_rays` on the flat
   scene and is 0 on the BVH scene;
-* with `trace.enable(False)` a runner holds no accumulator and its
-  block's radiance and rays are bit-equal to a traced runner's;
+* a runner's block (its probe stamping and counting) has the radiance
+  and rays of the unstamped eager route bit for bit, and the eager route
+  counts nothing;
+* a counter added at one call site reaches `read_stats()` under its
+  name, a name never counted reads 0, and a probe that runs out of
+  slots raises;
 * the gradient step counts its calls and stamps a forward and a
   backward time; the scene build's `timings` are its phase spans;
 * spans nest by parent id, the ring keeps the last `RING`, and
-  `write_chrome` writes JSON in the Chrome trace format;
+  `write_chrome` writes JSON in the Chrome trace format, with the
+  counters of `read_stats()`;
 * each reader of these counters and spans returns its value from a
   synthetic record and None when its keys are absent.
 """
@@ -31,6 +36,7 @@ import torch_port_scenes as scenes
 from rgk_tpu_torch.diff.graph import make_value_and_grad
 from rgk_tpu_torch.diff.params import extract_params
 from rgk_tpu_torch.integrator import graph
+from rgk_tpu_torch.integrator import path
 from rgk_tpu_torch.scene import config as tconfig
 from rgk_tpu_torch.utils import trace
 from rgkbench import harness, profiling
@@ -40,11 +46,8 @@ RES, MS = 16, 4
 
 @pytest.fixture
 def traced():
-    """Tracing on and the statistics zeroed; tracing on again after."""
-    trace.enable(True)
+    """The statistics zeroed."""
     graph.reset_stats()
-    yield
-    trace.enable(True)
 
 
 def _box(tmp_path, bvh):
@@ -89,19 +92,51 @@ def test_queued_counters_match_the_block(tmp_path, traced, bvh):
 
 @pytest.mark.timeout(300)
 def test_untraced_runner_is_bit_equal(tmp_path, traced):
+    """The probe changes no value: a runner's block equals the eager
+    route's, which carries no stamps, on the same pixels and seed."""
     arrays, meta, s, cam = _box(tmp_path, False)
     px, py = _block()
-    on = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], MS)
-    want = [t.clone() for t in on.trace(px, py, 0, 7, cam)]
-    trace.enable(False)
-    off = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], MS)
-    assert off.acc is None and on.acc is not None
+    runner = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], MS)
+    got = runner.trace(px, py, 0, 7, cam)
+    st = graph.read_stats()
+    assert st["live_lanes"] == int(got[1]) > 0 and st["intersect_ns"] > 0
+    assert st["lane_steps"] == px.shape[0] * st["iterations"] > 0
     graph.reset_stats()
-    got = off.trace(px, py, 0, 7, cam)
+    want = path.trace_wavefront_queued_eager(arrays, meta, s, cam, px, py,
+                                             0, MS, 7)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     st = graph.read_stats()
-    assert st["live_lanes"] == st["intersect_ns"] == 0
-    assert st["lane_steps"] == px.shape[0] * st["iterations"] > 0
+    assert st["live_lanes"] == st["intersect_ns"] == st["steps"] == 0
+
+
+@pytest.mark.timeout(300)
+def test_counter_named_at_its_call_site(tmp_path, traced, monkeypatch):
+    """A counter that one call site in the step adds reaches
+    `read_stats()` under its name, with no table edited; names never
+    counted read 0; a probe whose slots are all named raises on one
+    more."""
+    arrays, meta, s, cam = _box(tmp_path, False)
+    px, py = _block()
+    step = path._queued_step
+
+    def counted(scene, meta, settings, su, cam, inp, q, sampler_mode):
+        su.probe.add("lanes_stepped", torch.ones_like(inp.px).sum())
+        return step(scene, meta, settings, su, cam, inp, q, sampler_mode)
+
+    monkeypatch.setattr(path, "_queued_step", counted)
+    runner = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], MS)
+    runner.trace(px, py, 0, 7, cam)
+    st = graph.read_stats()
+    assert "lanes_stepped" in runner.probe.slots
+    assert st["lanes_stepped"] == st["lane_steps"] == (
+        px.shape[0] * st["iterations"]) > 0
+    assert st["never_counted"] == st["light_ns"] == st["grad_fwd_ns"] == 0
+    probe = graph._Probe("cpu")
+    for i in range(probe.SLOTS - 2):
+        probe.add(f"c{i}", torch.tensor(1))
+    assert probe.acc[2:].tolist() == [1] * (probe.SLOTS - 2)
+    with pytest.raises(RuntimeError, match="no slot left"):
+        probe.add("one_more", torch.tensor(1))
 
 
 @pytest.mark.timeout(300)
@@ -128,7 +163,6 @@ def test_gradient_step_stamps(tmp_path, traced):
 
 
 def test_spans_nest_and_the_ring_is_bounded(monkeypatch):
-    trace.enable(True)
     with trace.span("outer", k=1) as outer:
         with trace.span("inner") as inner:
             pass
@@ -146,19 +180,10 @@ def test_spans_nest_and_the_ring_is_bounded(monkeypatch):
             pass
     got = trace.spans("many")
     assert len(got) == trace.RING and got[0].attrs["i"] == 10
-    trace.enable(False)
-    try:
-        with trace.span("off") as off:
-            pass
-        assert off.seconds >= 0 and off.id == 0
-        assert trace.spans("off") == []
-    finally:
-        trace.enable(True)
     trace.clear()
 
 
 def test_write_chrome_gives_a_chrome_trace(tmp_path):
-    trace.enable(True)
     trace.clear()
     with trace.span("outer"):
         with trace.span("inner", built=True, nvcc_s=1.5):
@@ -171,7 +196,10 @@ def test_write_chrome_gives_a_chrome_trace(tmp_path):
     assert events["inner"]["args"]["parent"] == events["outer"]["args"]["id"]
     assert events["inner"]["args"]["nvcc_s"] == 1.5
     assert events["graph.read_stats"]["ph"] == "C"
-    assert "live_lanes" in got["otherData"]["read_stats"]
+    counters = json.loads(json.dumps(graph.read_stats(), default=str))
+    assert "sampler_launches" in counters and "step_ns" in counters
+    assert got["otherData"]["read_stats"] == counters
+    assert events["graph.read_stats"]["args"] == counters
     trace.clear()
 
 

@@ -12,9 +12,11 @@ Contracts:
   the step's live rays, connections included;
 * `step_ns` equals the sum of the step's four time slots, and the light
   phase's time is in none of them;
+* a BDPT block's radiance, splat image and rays equal the unstamped
+  eager route's bit for bit;
 * an NEE block's counts equal the parent tree's, case for case (the
-  numbers below were read from it on the same block and seed), its
-  accumulator keeps the parent's slots, and the BDPT slots stay 0;
+  numbers below were read from it on the same block and seed), and the
+  BDPT counters stay 0;
 * the benchmark's `bdpt.*` readers compute their value from a traced
   record's window counters and give None without them.
 """
@@ -25,7 +27,6 @@ import torch
 import torch_port_scenes as scenes
 from rgk_tpu_torch.integrator import graph
 from rgk_tpu_torch.integrator import path
-from rgk_tpu_torch.utils import trace
 from rgkbench import harness
 
 RES = 16
@@ -34,10 +35,7 @@ SEED = 1234567
 
 @pytest.fixture
 def traced():
-    trace.enable(True)
     graph.reset_stats()
-    yield
-    trace.enable(True)
 
 
 def _scene(tmp_path, bvh=False, **overrides):
@@ -86,7 +84,7 @@ def test_bdpt_counters_match_the_light_phase_and_lanes(tmp_path, traced,
     arrays, meta, s, cam = _scene(tmp_path, ms=ms, reverse=4)
     px, py = _block()
     runner = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], ms)
-    assert runner.kind == "bdpt"
+    assert runner.bdpt
     graph.reset_stats()
     got = _counting(monkeypatch)
     _, splat, rays = runner.trace(px, py, 2 * ms, SEED, cam)
@@ -119,15 +117,15 @@ def test_bdpt_counters_match_the_light_phase_and_lanes(tmp_path, traced,
 @pytest.mark.timeout(600)
 def test_bdpt_block_is_the_untraced_block(tmp_path, traced):
     """The probe changes no value: radiance, splat image and rays of a
-    traced BDPT block equal an untraced runner's bit for bit."""
+    runner's BDPT block equal the eager route's, which carries no
+    stamps, bit for bit."""
     arrays, meta, s, cam = _scene(tmp_path, ms=2, reverse=4)
     px, py = _block()
-    on = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], 2)
-    want = [t.clone() for t in on.trace(px, py, 0, SEED, cam)]
-    trace.enable(False)
-    off = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], 2)
-    assert off.probe is None and off.acc is None
-    got = off.trace(px, py, 0, SEED, cam)
+    runner = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], 2)
+    got = runner.trace(px, py, 0, SEED, cam)
+    want = path.trace_wavefront_queued_bdpt_eager(arrays, meta, s, cam, px,
+                                                  py, 0, 2, SEED)
+    assert len(got) == len(want) == 3
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -156,11 +154,7 @@ def test_nee_block_counts_are_the_parents(tmp_path, traced, case):
     arrays, meta, s, cam = _scene(tmp_path, bvh=case == "bvh", ms=4)
     px, py = _block()
     runner = graph.QueuedGraph(arrays, meta, s, cam, px.shape[0], 4)
-    assert runner.kind == "queued"
-    assert graph._SLOTS["queued"] == ("runs", "last", "other_ns",
-                                      "intersect_ns", "live_lanes",
-                                      "any_live_rays", "swept_rays")
-    assert runner.acc.shape[0] == len(graph._SLOTS["queued"])
+    assert not runner.bdpt
     graph.reset_stats()
     rad, rays = runner.trace(px, py, 8, SEED, cam)
     st = graph.read_stats()
