@@ -214,9 +214,14 @@ the first that fails:
    samples, the per-bounce seed, the BxDF and roulette samples) against
    the plain version on the card bit for bit, kernel and plain ms
    beside the bound by bytes, the plain version's ATen ops a call, and
-   the kernel's launches by entry over phases 1-23 (phase 20 prints each
-   queued body's nodes beside the same body captured with the plain
-   sampler).
+   the kernel's launches by entry over phases 1-23; then the BxDF kernel
+   (`ops/bxdf.py`, `csrc/bxdf.cu`) at the same lanes with the box's
+   lobes and with the colonnade's (LTC-GGX): eval and sample bit for bit
+   against the plain version on the card, each entry's kernel and plain
+   ms (the backward entries as autograd of a saved forward) beside the
+   bound by bytes, and its launches by entry over phases 1-23 (phase 20
+   prints each queued body's nodes beside the same body captured with
+   the plain BxDF, and checks that the kernel's is smaller).
 
 Every CLI render on the card runs the queued loop as one CUDA graph
 with a WHILE node a block (`rgk_tpu_torch/integrator/graph.py`): the
@@ -275,7 +280,6 @@ import argparse
 import collections
 import contextlib
 import copy
-import ctypes
 import io
 import json
 import os
@@ -314,6 +318,7 @@ from rgk_tpu_torch.ops import flat_intersect as fi  # noqa: E402
 from rgk_tpu_torch.ops import graph_while as gw  # noqa: E402
 from rgk_tpu_torch.ops import intersect as isect  # noqa: E402
 from rgk_tpu_torch.ops import sampler as smp  # noqa: E402
+from rgk_tpu_torch.ops import bxdf as bx  # noqa: E402
 from rgk_tpu_torch.ops import vecmath as vm  # noqa: E402
 from rgk_tpu_torch.parallel.mesh import MeshContext  # noqa: E402
 from rgk_tpu_torch.parity import image_parity  # noqa: E402
@@ -340,6 +345,9 @@ STAMP_RUNS = []   # the phase stamp's launches in phases 16, 17, 20, 21, 23
 SAMPLER_SOURCE = "rgk_tpu_torch/csrc/sampler.cu"
 SAMPLER_REPLACES = "none: rgk_tpu/ops/sampler.py, jnp that XLA fuses"
 SAMPLER_LANES = 262_144  # the box cell's block: 512 x 512 pixels
+BXDF_SOURCE = "rgk_tpu_torch/csrc/bxdf.cu"
+BXDF_REPLACES = "none: rgk_tpu/ops/bxdf.py, every lobe in jnp that XLA fuses"
+BXDF_RUNS = []  # the BxDF kernel's launches by entry, read with K5's
 SAMPLER_RUNS = []  # the sampler's launches by entry, read with K5's
 PROBE_SOURCE = "rgk_tpu_torch/csrc/probes.cu"
 P1_REPLACES = "tools/prof_smem_probe.py:23"
@@ -360,9 +368,6 @@ ROW_FLOPS = 31       # rd.n 5, ro.n + d 6, t 1, hit point 6, beta 6, gamma 6,
 SLAB_FLOPS = 22      # 6 subtractions, 6 multiplies, 10 min/max
 RAY_BYTES = 36       # ro, rd, t_min, t_max, exclude
 PARENT = None        # --parent: the earlier kernels' library, timed in turns
-PARENT_K1 = None     # --parent: the same library, K1 with its entry's
-#                      arguments before the live-ray list (no scratch, no
-#                      swept counter), through its own handle
 LIVE_SHARES = (0.27, 0.02)  # phase 5: K1 with the other rays' windows empty
 PROFILE = False      # --profile: one more round of phases 5 and 7, profiled
 TIMED_RUNS = 20
@@ -456,6 +461,7 @@ def reset_launches():
     p2.launches.update(sync=0, fetch=0)
     gw.launches.update(setter=0, stamp=0)
     smp.launches.update(hash_u32=0, sample_1d=0, sample_2d=0)
+    bx.launches.update(eval=0, sample=0, eval_bwd=0, sample_bwd=0)
     tgraph.reset_stats()
 
 
@@ -468,9 +474,11 @@ def launched(module):
 
 def render_k5():
     """K5's launches since the last reset_launches(), read just after a
-    render.  The sampler kernel's launches of the same run go to
-    SAMPLER_RUNS, so phase 24 counts the renders' launches alone."""
+    render.  The sampler and BxDF kernels' launches of the same run go
+    to SAMPLER_RUNS and BXDF_RUNS, so phase 24 counts the renders'
+    launches alone."""
     SAMPLER_RUNS.append(launched(smp))
+    BXDF_RUNS.append(launched(bx))
     return launched(vm)
 
 
@@ -744,18 +752,9 @@ def ab_ms(fn, runs=TIMED_RUNS, timer=median_ms, parent_fn=None):
 
 def parent_k1(args, any_hit):
     """The parent's K1 (--parent) on `args`, as `fi.intersect_flat` takes
-    them, through the entry's earlier arguments."""
-    pack, ro, rd, t_min, t_max, exclude = args
-    r = ro.shape[0]
-    out = [torch.empty(r, dtype=dt, device=ro.device) for dt in (
-        torch.float32, torch.int32, torch.float32, torch.float32)]
-    rc = PARENT_K1.rgk_flat_intersect(
-        pack.data_ptr(), pack.shape[0], ro.data_ptr(), rd.data_ptr(),
-        t_min.data_ptr(), t_max.data_ptr(), exclude.data_ptr(), r,
-        *(x.data_ptr() for x in out), int(any_hit),
-        torch.cuda.current_stream().cuda_stream)
-    check(rc == 0, f"the parent's K1 launch failed: cudaError {rc}")
-    return out
+    them (a parent with the live-ray list's entry, as this tree's)."""
+    with library(PARENT):
+        return fi.intersect_flat(*args, any_hit=any_hit)
 
 
 def k1_ab(args, any_hit):
@@ -911,7 +910,7 @@ def phase_build(parent_csrc=None):
     """Builds this tree's kernels and, with --parent, the earlier
     version's from `parent_csrc` (the same entry points), which the
     later phases time in turns with this tree's."""
-    global PARENT, PARENT_K1
+    global PARENT
     for who, csrc in (("", None), ("parent ", parent_csrc)):
         if who and csrc is None:
             continue
@@ -929,11 +928,6 @@ def phase_build(parent_csrc=None):
                 print(f"    {who}ptxas: {line.strip()}")
         if who:
             PARENT = lib
-            PARENT_K1 = ctypes.CDLL(info["path"])
-            p, i = ctypes.c_void_p, ctypes.c_int
-            PARENT_K1.rgk_flat_intersect.argtypes = [p, i, p, p, p, p, p, i,
-                                                     p, p, p, p, i, p]
-            PARENT_K1.rgk_flat_intersect.restype = i
 
 
 def random_soup(n_tris, seed, glass_every=97):
@@ -3147,43 +3141,45 @@ def graph_vs_eager(label, scene, names):
           f"allocated {build['peak_before'] / 2**30:.3f} -> "
           f"{build['peak_after'] / 2**30:.3f} GiB across the capture")
     body = gw.node_count(runner._graphs["step"][0], "step")
-    plain_body = plain_sampler_nodes(g)
+    plain_body = plain_bxdf_nodes(g)
+    check(body < plain_body, f"{label}: the body holds {body} nodes, the "
+          f"same body with the plain BxDF {plain_body}")
     print(f"      block 0 (graph, eager, eager, graph) graph "
           f"{mean_block['graph'] * 1e3:.3f} ms, eager "
           f"{mean_block['eager'] * 1e3:.3f} ms; profiled: graph "
           f"{fmt_prof(prof['graph'], mean_block['graph'], prof['eager'])} "
           f"(the block ran {iters} bodies of {body} nodes, {plain_body} "
-          f"with the plain sampler in the kernel's place); eager "
+          f"with the plain BxDF in the kernel's place); eager "
           f"{fmt_prof(prof['eager'], mean_block['eager'])}")
     out = {"times": times, "rays": rays, "syncs": syncs, "stats": gst,
            "build": build, "prof": prof, "block_s": mean_block,
-           "nodes": body, "plain_sampler_nodes": plain_body,
+           "nodes": body, "plain_bxdf_nodes": plain_body,
            "routes": end_test_routes(label, scene, g)}
     print(f"      ({time.perf_counter() - t_case:.1f} s)")
     return out
 
 
-SAMPLER_ENTRIES = ("hash_u32", "sample_1d", "sample_2d")
+BXDF_ENTRIES = ("eval_bxdf", "sample_bxdf")
 
 
 @contextlib.contextmanager
-def plain_sampler():
-    """The sampler's public functions replaced by its plain version (the
-    int64 ops the card ran before the sampler kernel)."""
-    saved = {name: getattr(smp, name) for name in SAMPLER_ENTRIES}
+def plain_bxdf():
+    """The BxDF's public functions replaced by its plain version (every
+    lobe in ATen ops, as the card ran them before the BxDF kernel)."""
+    saved = {name: getattr(bx, name) for name in BXDF_ENTRIES}
     try:
-        for name in SAMPLER_ENTRIES:
-            setattr(smp, name, getattr(smp, f"{name}_plain"))
+        for name in BXDF_ENTRIES:
+            setattr(bx, name, getattr(bx, f"{name}_plain"))
         yield
     finally:
         for name, fn in saved.items():
-            setattr(smp, name, fn)
+            setattr(bx, name, fn)
 
 
-def plain_sampler_nodes(drv):
+def plain_bxdf_nodes(drv):
     """Nodes of the queued step that `drv`'s runner captures, captured
-    once more with the plain sampler in the kernel's place."""
-    with plain_sampler():
+    once more with the plain BxDF in the kernel's place."""
+    with plain_bxdf():
         runner = tgraph.QueuedGraph(drv.scene, drv.meta, drv.settings,
                                     drv.camera, drv.block, drv.ms,
                                     drv.sampler_mode, seed=drv.seed)
@@ -4056,6 +4052,183 @@ def phase_sampler(launches):
     return entries
 
 
+def bxdf_entries(launches):
+    """Phase 24, its second half: the BxDF kernel at the box cell's
+    SAMPLER_LANES lanes (diffuse and mirror, no mix, no LTC) and at the
+    same lanes of the colonnade's lobes (diffuse, LTC-GGX and its diffuse
+    mix, the LTC rows read): eval and sample against the plain version
+    on the card, bit for bit; each entry's kernel and plain ms
+    (`queued_ms`; a backward as `torch.autograd.grad` of a saved forward
+    whose leaves are the material fields and the directions themselves),
+    the bound by bytes (the per-lane fields read once, the outputs
+    written once, the LTC rows once) and the plain version's ATen ops a
+    call.  The inputs, ~20 MB, stay in the card's 50 MB L2 between the
+    timed calls.  `launches`: the kernel's launches by entry in the
+    renders of phases 1-23.  -> the kernel entries; an entry's launches
+    are on its first row."""
+    import torch_port_scenes as tps
+    from rgk_tpu_torch.ops import ltc as ltc_ops
+
+    t_phase = time.perf_counter()
+    print(f"    BxDF kernel: launches in the renders of phases 1-23 "
+          f"{launches}")
+    launches = dict(launches)
+    rows = torch.from_numpy(np.array(ltc_ops.load_tables_np())).to(CUDA)
+    tables = ltc_ops.LTCTables(rows=rows)
+    entries = []
+    for scene, types, ltc in (("box", (0, 1), False),
+                              ("colonnade", (0, 5, 7), True)):
+        pack, mid, vi, vr, u2 = (t.to(CUDA) for t in tps.bxdf_lanes(
+            SAMPLER_LANES, 23, types=types))
+        p = bx.MatParams(None, None, mid, None,
+                         row=pack[mid.long()].contiguous(),
+                         has_textures=False)
+        fields = (p.diffuse, p.specular, p.roughness, p.ior, p.mix_amt,
+                  p.row[:, 12])
+        lut = nbytes(rows) if ltc else 0
+
+        def call(name, f, q=p, a=vi, b=vr):
+            if name == "eval":
+                return (f(None, None, mid, a, b, None, tables, False, ltc,
+                          False, p0=q),)
+            return f(None, None, mid, a, None, u2, tables, False, ltc, False,
+                     p0=q)
+
+        for name in ("eval", "sample"):
+            kern, plain = (getattr(bx, f"{name}_bxdf"),
+                           getattr(bx, f"{name}_bxdf_plain"))
+            got, want = call(name, kern), call(name, plain)
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       if a.dtype == torch.float32 else torch.equal(a, b)
+                       for a, b in zip(got, want))
+            check(same, f"the BxDF kernel's {name} at the {scene}'s lanes "
+                        f"differs from the plain version")
+            k_ms = queued_ms(lambda: call(name, kern))
+            p_ms = queued_ms(lambda: call(name, plain))
+            ops = aten_ops(lambda: call(name, plain))
+            b_ms, bound_by = bound(0, nbytes(*fields, vi, vr if name == "eval"
+                                             else u2, *got) + lut)
+            print(f"    {scene} {name}: {fmt_ab(None, k_ms, b_ms, 4)}; plain "
+                  f"{p_ms:.4f} ms in {ops} ATen ops; bit-equal")
+            e = kernel_entry(f"bxdf_{name}_{scene}", BXDF_SOURCE,
+                             BXDF_REPLACES, launches.pop(name, 0), 0.0, k_ms,
+                             p_ms, b_ms, bound_by)
+            e["plain_ops"] = ops
+            entries.append(e)
+        # The backward entries: the leaves are the material fields and
+        # the directions, so autograd runs the BxDF's backward alone.
+        gen = torch.Generator(device=CUDA).manual_seed(29)
+        g_out = [torch.randn(SAMPLER_LANES, 3, device=CUDA, generator=gen)
+                 for _ in range(2)]
+        for name in ("eval", "sample"):
+            times, grads = {}, {}
+            for which, fn, dtype in (
+                    ("bxdf", f"{name}_bxdf", torch.float32),
+                    ("bxdf_plain", f"{name}_bxdf_plain", torch.float32),
+                    ("float64", f"{name}_bxdf_plain", torch.float64)):
+                outs, wrt, gs = bxdf_graph(name, getattr(bx, fn), p, mid, vi,
+                                           vr, u2, tables, ltc, g_out, dtype)
+                grads[which] = torch.autograd.grad(
+                    outs, wrt, gs, retain_graph=True, allow_unused=True)
+                grads[which] = [torch.zeros_like(x) if g is None else g
+                                for x, g in zip(wrt, grads[which])]
+                if dtype == torch.float64:
+                    continue
+
+                def back(outs=outs, wrt=wrt, gs=gs):
+                    return torch.autograd.grad(outs, wrt, gs,
+                                               retain_graph=True,
+                                               allow_unused=True)
+
+                times[which] = queued_ms(back)
+            err, gaps = bxdf_grad_gap(*(grads[k] for k in (
+                "bxdf", "bxdf_plain", "float64")))
+            check(not gaps["bad"], f"the BxDF kernel's {name} backward at "
+                  f"the {scene}'s lanes departs from autograd of the plain "
+                  f"version: {gaps}")
+            n_leaves = 5 if name == "eval" else 4
+            by = (nbytes(*fields, vi, vr if name == "eval" else u2)
+                  + nbytes(g_out[0]) * (1 if name == "eval" else 2)
+                  + nbytes(*grads["bxdf"][:n_leaves]) + lut)
+            b_ms, bound_by = bound(0, by)
+            print(f"    {scene} {name}_bwd: "
+                  f"{fmt_ab(None, times['bxdf'], b_ms, 4)}; plain autograd "
+                  f"{times['bxdf_plain']:.4f} ms; against it max abs err "
+                  f"{err:.3e} (by leaf: plain non-finite, skipped; beyond "
+                  f"rtol 1e-5 of it; the plain version's beyond rtol 1e-5 "
+                  f"of float64; elements; the kernel's and the plain "
+                  f"version's distance from float64 there, relative) "
+                  f"{gaps['by_leaf']}")
+            entries.append(kernel_entry(
+                f"bxdf_{name}_bwd_{scene}", BXDF_SOURCE, BXDF_REPLACES,
+                launches.pop(f"{name}_bwd", 0), err, times["bxdf"],
+                times["bxdf_plain"], b_ms, bound_by))
+    print(f"    ({time.perf_counter() - t_phase:.1f} s)")
+    return entries
+
+
+def bxdf_graph(name, fn, p, mid, vi, vr, u2, tables, ltc, g_out, dtype):
+    """One BxDF call through `fn` in `dtype` whose leaves are fresh copies
+    of the lanes' diffuse, specular and roughness and of the directions.
+    -> (outputs, leaves, cotangents) for `torch.autograd.grad`: an eval's
+    f against g_out[0]; a sample's direction and throughput against
+    g_out[0] and g_out[1] (its leaves leave vr out)."""
+    from rgk_tpu_torch.ops import ltc as ltc_ops
+
+    q = bx.MatParams(None, None, mid, None, row=p.row.to(dtype),
+                     has_textures=False)
+    leaves = [t.to(dtype).clone().requires_grad_(True)
+              for t in (p.diffuse, p.specular, p.roughness, vi, vr)]
+    q.diffuse, q.specular, q.roughness = leaves[:3]
+    tb = ltc_ops.LTCTables(rows=tables.rows.to(dtype))
+    g_out = [g.to(dtype) for g in g_out]
+    if name == "eval":
+        f = fn(None, None, mid, leaves[3], leaves[4], None, tb, False, ltc,
+               False, p0=q)
+        return (f,), leaves, g_out[:1]
+    d, t, _ = fn(None, None, mid, leaves[3], None, u2.to(dtype), tb,
+                 False, ltc, False, p0=q)
+    return (d, t), leaves[:4], g_out
+
+
+def bxdf_grad_gap(got, want, ref):
+    """The BxDF backward's check, leaf by leaf, where the plain float32
+    gradient `want` is finite (the card test's criterion): at least 99%
+    of the elements of `got` (the kernel's) lie within rtol 1e-5 of it,
+    none departs by more than 5% (+ 1e-3 x the leaf's largest), and over
+    the elements beyond rtol 1e-5 the kernel lies no farther from the
+    float64 gradient `ref` than twice the plain float32 gradient does,
+    plus rtol 1e-5 (sums of the distances).  On the colonnade's LTC lanes
+    the plain float32 gradient itself lies beyond rtol 1e-5 of float64 on
+    more than 1% of some leaves' elements, so a float64-exact backward
+    would fail the 99%: there the kernel may have up to twice as many
+    elements beyond rtol 1e-5 as the plain gradient has from float64.
+    -> (max abs err over the finite elements, {"bad": the leaves that
+    fail, "by_leaf": the counts})."""
+    names = ("diffuse", "specular", "roughness", "vi", "vr")
+    worst, bad, by_leaf = 0.0, [], {}
+    for key, a, b, r in zip(names, got, want, ref):
+        fin = torch.isfinite(b)
+        diff = (a - b).abs()
+        far = fin & (diff > 1e-5 * b.abs())
+        plain_far = int((fin & ((b.double() - r).abs()
+                                > 1e-5 * r.abs())).sum())
+        scale = float(b[fin].abs().max()) if fin.any() else 0.0
+        wild = far & (diff > 0.05 * b.abs() + 1e-3 * scale)
+        err_k = float((a[far].double() - r[far]).abs().sum())
+        err_p = float((b[far].double() - r[far]).abs().sum())
+        size = float(r[far].abs().sum())
+        if fin.any():
+            worst = max(worst, float(diff[fin].max()))
+        by_leaf[key] = (int((~fin).sum()), int(far.sum()), plain_far,
+                        b.numel(), f"{err_k / max(size, 1e-300):.2e}",
+                        f"{err_p / max(size, 1e-300):.2e}")
+        if (int(far.sum()) > max(0.01 * b.numel(), 2 * plain_far)
+                or bool(wild.any()) or err_k > 2 * err_p + 1e-5 * size):
+            bad.append(key)
+    return worst, {"bad": bad, "by_leaf": by_leaf}
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", metavar="CSRC", help="an earlier version's "
@@ -4111,6 +4284,10 @@ def main(argv=None):
                                          "sample_2d")),
           f"the renders did not go through the sampler kernel: {launches}")
     sampler = phase_sampler(launches)
+    bx_launches = add_counts(*BXDF_RUNS)
+    check(all(bx_launches[e] > 0 for e in bx_launches),
+          f"the renders did not go through every BxDF entry: {bx_launches}")
+    sampler += bxdf_entries(bx_launches)
     k5 = add_counts(k5_flat, k5_col, *k5_binned.values(), glass["K5"],
                     k5_bdpt1, k5_bdpt2, k5_grad1, k5_grad2, k5_debug,
                     k5_dist, lanes["K5"], k5_bdpt_grad)

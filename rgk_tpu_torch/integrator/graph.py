@@ -102,6 +102,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import binned_intersect as bi
+from ..ops import bxdf as bx
 from ..ops import cluster_intersect as ci
 from ..ops import flat_intersect as fi
 from ..ops import graph_while as gw
@@ -114,7 +115,7 @@ from . import path as tpath
 
 WARMUP_STEPS = 2  # eager runs of a captured body, on a side stream
 _COUNTERS = (fi.launches, ci.launches, bi.launches, vm.launches,
-             gw.launches, smp.launches)
+             gw.launches, smp.launches, bx.launches)
 
 # The counters of every runner of the process by name (`_Probe` lists
 # them); `reset_stats` zeroes them.
@@ -328,16 +329,18 @@ def read_stats() -> dict:
     """`stats` after `settle` (`_Probe` lists them; a name never counted
     reads 0), `overshoot`, the steps run past the end, `step_ns`, the
     queued steps' device time (the "eye" and "connect" phases' slots),
-    and the sampler kernel's launches since the process started
-    (`ops/sampler.py` `launches`, replays and WHILE bodies included):
-    `sampler_<entry>` by entry and `sampler_launches` in all."""
+    and the sampler and BxDF kernels' launches since the process started
+    (`ops/sampler.py` and `ops/bxdf.py` `launches`, replays and WHILE
+    bodies included): `sampler_<entry>` and `bxdf_<entry>` by entry,
+    `sampler_launches` and `bxdf_launches` in all."""
     settle()
     with _lock:
         got = collections.Counter(stats)
-        sampled = dict(smp.launches)
-    for key, v in sampled.items():
-        got[f"sampler_{key}"] = v
-    got["sampler_launches"] = sum(sampled.values())
+        counted = {"sampler": dict(smp.launches), "bxdf": dict(bx.launches)}
+    for name, launched in counted.items():
+        for key, v in launched.items():
+            got[f"{name}_{key}"] = v
+        got[f"{name}_launches"] = sum(launched.values())
     got["overshoot"] = got["steps"] - got["iterations"]
     got["step_ns"] = sum(got[_PHASES[p].outside] + got[_PHASES[p].inside]
                          for p in ("eye", "connect"))

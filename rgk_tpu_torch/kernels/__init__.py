@@ -146,60 +146,54 @@ def _load() -> ctypes.CDLL:
         return _open(got["path"])
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# Each entry point's (argument types, result type).  A library built from
+# an earlier tree (chip_smoke.py --parent) lacks the newer entries.
+_SIGNATURES = {
+    "rgk_flat_intersect": ([_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                            _I, _P, _P, _P], _I),
+    "rgk_cluster_intersect": ([_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
+                               _P, _P, _P, _I, _P, _P, _P, _P, _I, _P], _I),
+    "rgk_binned_walk": ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _P, _P, _P, _P, _P], _I),
+    "rgk_binned_sweep": ([_P, _P, _LL, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _P], _I),
+    "rgk_take_rows": ([_P, _I, _I, _P, _I, _P, _P], _I),
+    "rgk_take_rows_partials": ([_I], _I),
+    "rgk_take_rows_backward_smem": ([_I, _I], _LL),
+    "rgk_take_rows_backward": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
+    "rgk_sampler_hash": ([_P, _I, _LL, _P, _P], _I),
+    "rgk_sampler_sample": ([_P, _LL, _P, _P], _I),
+    "rgk_bxdf_eval": ([_P, _P], _I),
+    "rgk_bxdf_sample": ([_P, _P], _I),
+    "rgk_bxdf_eval_bwd": ([_P, _P], _I),
+    "rgk_bxdf_sample_bwd": ([_P, _P], _I),
+    "rgk_while_graph_error": ([], ctypes.c_char_p),
+    "rgk_cuda_driver_version": ([_P], _I),
+    "rgk_graph_check": ([_P, ctypes.c_char_p, _P], _I),
+    "rgk_while_graph_create": ([_P, _P, _P, _P, _I, _P, _P, _P], _I),
+    "rgk_while_graph_launch": ([_P, _P], _I),
+    "rgk_while_graph_destroy": ([_P], _I),
+    "rgk_stamp": ([_P, _I, _I, _P], _I),
+    "rgk_cuda_error_string": ([_I], ctypes.c_char_p),
+    "rgk_device_smem_optin": ([_I], _I),
+    "rgk_probe_smem": ([_P, _P, _I, _P], _I),
+    "rgk_probe_unpack": ([_P, _P, _P, _P], _I),
+    "rgk_probe_row_copy": ([_P, _I, _I, _P, _P], _I),
+    "rgk_probe_sync": ([_I, _P, _P, _I, ctypes.c_float, _P, _P, _P], _I),
+    "rgk_probe_fetch": ([_P, _I, _I, _I, ctypes.c_float, _P, _P], _I),
+}
+
+
 def _open(path):
-    """The library at `path`, with the argument types of its entry
-    points."""
+    """The library at `path`, with the argument types of each entry point
+    it exports."""
     lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rgk_flat_intersect.argtypes = [p, i, p, p, p, p, p, i, p, p, p, p,
-                                       i, p, p, p]
-    lib.rgk_flat_intersect.restype = i
-    lib.rgk_cluster_intersect.argtypes = [p, p, p, i, i, p, i, p, p, p, p,
-                                          p, p, p, i, p, p, p, p, i, p]
-    lib.rgk_cluster_intersect.restype = i
-    lib.rgk_binned_walk.argtypes = [p, p, p, i, i, p, p, p, p, p, p, i, i,
-                                    p, p, p, p, p]
-    lib.rgk_binned_walk.restype = i
-    lib.rgk_binned_sweep.argtypes = [p, p, ctypes.c_longlong, i, p, i, i, p,
-                                     p, p, p, p, p, p, p]
-    lib.rgk_binned_sweep.restype = i
-    lib.rgk_take_rows.argtypes = [p, i, i, p, i, p, p]
-    lib.rgk_take_rows.restype = i
-    lib.rgk_take_rows_partials.argtypes = [i]
-    lib.rgk_take_rows_partials.restype = i
-    lib.rgk_take_rows_backward_smem.argtypes = [i, i]
-    lib.rgk_take_rows_backward_smem.restype = ctypes.c_longlong
-    lib.rgk_take_rows_backward.argtypes = [p, p, i, i, i, p, p, p]
-    lib.rgk_take_rows_backward.restype = i
-    if hasattr(lib, "rgk_sampler_hash"):  # an older library has none
-        lib.rgk_sampler_hash.argtypes = [p, i, ctypes.c_longlong, p, p]
-        lib.rgk_sampler_hash.restype = i
-        lib.rgk_sampler_sample.argtypes = [p, ctypes.c_longlong, p, p]
-        lib.rgk_sampler_sample.restype = i
-    lib.rgk_while_graph_error.argtypes = []
-    lib.rgk_while_graph_error.restype = ctypes.c_char_p
-    lib.rgk_cuda_driver_version.argtypes = [p]
-    lib.rgk_graph_check.argtypes = [p, ctypes.c_char_p, p]
-    lib.rgk_while_graph_create.argtypes = [p, p, p, p, i, p, p, p]
-    lib.rgk_while_graph_launch.argtypes = [p, p]
-    lib.rgk_while_graph_destroy.argtypes = [p]
-    lib.rgk_stamp.argtypes = [p, i, i, p]
-    for fn in (lib.rgk_cuda_driver_version, lib.rgk_graph_check,
-               lib.rgk_while_graph_create, lib.rgk_while_graph_launch,
-               lib.rgk_while_graph_destroy, lib.rgk_stamp):
-        fn.restype = i
-    lib.rgk_cuda_error_string.argtypes = [i]
-    lib.rgk_cuda_error_string.restype = ctypes.c_char_p
-    lib.rgk_device_smem_optin.argtypes = [i]
-    lib.rgk_probe_smem.argtypes = [p, p, i, p]
-    lib.rgk_probe_unpack.argtypes = [p, p, p, p]
-    lib.rgk_probe_row_copy.argtypes = [p, i, i, p, p]
-    lib.rgk_probe_sync.argtypes = [i, p, p, i, ctypes.c_float, p, p, p]
-    lib.rgk_probe_fetch.argtypes = [p, i, i, i, ctypes.c_float, p, p]
-    for fn in (lib.rgk_device_smem_optin, lib.rgk_probe_smem,
-               lib.rgk_probe_unpack, lib.rgk_probe_row_copy,
-               lib.rgk_probe_sync, lib.rgk_probe_fetch):
-        fn.restype = i
+    for name, (args, res) in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
     return lib
 
 

@@ -1,17 +1,37 @@
-"""Branchless BxDF dispatch: eval and sample for whole wavefronts
-(port of rgk_tpu/ops/bxdf.py).
+"""BxDF dispatch: eval and sample for whole wavefronts (port of
+rgk_tpu/ops/bxdf.py).
 
-Every lane computes all lobes and selects by the material's
-`bxdf_type`.  Conventions are the reference's: vectors in the local
-shading frame (+Z = shading normal); `eval(Vi, Vr)` returns the BRDF
-value; `sample(Vi, u2)` returns (direction, throughput, may_leak);
-delta lobes eval to their albedo only within the reference's cosine
-tolerance of the delta direction.  One mix level is supported.
+Conventions are the reference's: vectors in the local shading frame
+(+Z = shading normal); `eval(Vi, Vr)` returns the BRDF value;
+`sample(Vi, u2)` returns (direction, throughput, may_leak); delta lobes
+eval to their albedo only within the reference's cosine tolerance of the
+delta direction.  One mix level is supported.
+
+The plain version (`eval_bxdf_plain`, `sample_bxdf_plain`) is the
+reference's branchless form: every lane computes all lobes and selects
+by the material's `bxdf_type`.  The public functions take it on a CPU
+tensor.  On a CUDA tensor each call of `eval_bxdf` or `sample_bxdf` is
+one launch of the BxDF kernel (`csrc/bxdf.cu`, built at first use by
+`rgk_tpu_torch.kernels`), which computes each lane's own lobe alone, bit
+for bit the plain version run on the card; another device raises.
+`MatParams` (the pack's row, textures resolved) stays in PyTorch and the
+kernel reads its per-lane fields in place.  Under autograd a call is a
+`torch.autograd.Function` whose backward is one launch more
+(`eval_bwd` / `sample_bwd`), recomputing the lobe from the saved inputs:
+it returns the gradients of diffuse, specular, roughness and the local
+directions; ior and the mix amount, no parameter of `diff/params.py`,
+get none.  `launches` counts the kernel's launches by entry; nothing
+else adds to it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+from functools import cached_property
+
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..scene.arrays import (
     BSDF_DIELECTRIC,
@@ -30,6 +50,8 @@ from . import vecmath as vm
 from . import warps
 
 PI = 3.14159265358979
+
+launches = {"eval": 0, "sample": 0, "eval_bwd": 0, "sample_bwd": 0}
 
 
 def _fresnel_dielectric(eta, cos_theta):
@@ -69,14 +91,16 @@ def build_mat_pack(materials) -> torch.Tensor:
 
 class MatParams:
     """Per-lane material parameters from one row of the pack; pass a
-    prefetched `row` to reuse it."""
+    prefetched `row` to reuse it.  The integer fields and the LTC kind
+    are computed when first read (the kernel reads the type column of
+    `row` itself)."""
 
     def __init__(self, scene, mat_pack, mat_id, uv, row=None,
                  has_textures=True):
         if row is None:
             row = vm.take_rows(mat_pack, mat_id)
+        self.row = row
         self.emission = row[..., 0:3]
-        self.bxdf_type = row[..., 12].to(torch.int32)
         self.diffuse = self._resolve(scene, row[..., 15], row[..., 3:6], uv,
                                      has_textures)
         self.specular = self._resolve(scene, row[..., 16], row[..., 6:9], uv,
@@ -84,10 +108,23 @@ class MatParams:
         self.roughness = row[..., 9]
         self.ior = row[..., 10]
         self.mix_amt = row[..., 11]
-        self.mix_m1 = row[..., 13].to(torch.int32)
-        self.mix_m2 = row[..., 14].to(torch.int32)
-        # LTC table kind: GGX for the GGX types, else Beckmann.
-        self.ltc_kind = torch.where(
+
+    @cached_property
+    def bxdf_type(self):
+        return self.row[..., 12].to(torch.int32)
+
+    @cached_property
+    def mix_m1(self):
+        return self.row[..., 13].to(torch.int32)
+
+    @cached_property
+    def mix_m2(self):
+        return self.row[..., 14].to(torch.int32)
+
+    @cached_property
+    def ltc_kind(self):
+        """LTC table kind: GGX for the GGX types, else Beckmann."""
+        return torch.where(
             (self.bxdf_type == BSDF_LTC_GGX)
             | (self.bxdf_type == BSDF_LTC_GGX_DIFFUSE),
             ltc_ops.KIND_GGX, ltc_ops.KIND_BECKMANN)
@@ -151,11 +188,9 @@ def _eval_base(tables, p: MatParams, vi, vr, has_ltc=True):
     return out
 
 
-def eval_bxdf(scene, mat_pack, mat_id, vi, vr, uv, tables,
-              has_mix=True, has_ltc=True, has_textures=True, p0=None):
-    """BRDF value f(Vi, Vr) for lanes; handles one-level mixes.  The
-    has_* flags are static scene facts (SceneMeta) that skip lobes the
-    scene cannot reach; `p0` reuses prefetched MatParams."""
+def eval_bxdf_plain(scene, mat_pack, mat_id, vi, vr, uv, tables,
+                    has_mix=True, has_ltc=True, has_textures=True, p0=None):
+    """`eval_bxdf` in plain PyTorch, every lobe for every lane."""
     p = p0 if p0 is not None else MatParams(scene, mat_pack, mat_id, uv,
                                             has_textures=has_textures)
     base = _eval_base(tables, p, vi, vr, has_ltc)
@@ -247,10 +282,10 @@ def _sample_base(tables, p: MatParams, vi, u2, has_ltc=True):
     return vm.safe_normalize(d), thr, leak
 
 
-def sample_bxdf(scene, mat_pack, mat_id, vi, uv, u2, tables,
-                has_mix=True, has_ltc=True, has_textures=True, p0=None):
-    """Sample an outgoing direction.  Returns (dir, throughput, leak);
-    mix lanes pick a leaf with the reference's sample-reuse split."""
+def sample_bxdf_plain(scene, mat_pack, mat_id, vi, uv, u2, tables,
+                      has_mix=True, has_ltc=True, has_textures=True,
+                      p0=None):
+    """`sample_bxdf` in plain PyTorch, every lobe for every lane."""
     if p0 is None:
         p0 = MatParams(scene, mat_pack, mat_id, uv, has_textures=has_textures)
     if not has_mix:
@@ -264,3 +299,277 @@ def sample_bxdf(scene, mat_pack, mat_id, vi, uv, u2, tables,
                          mat_id.to(torch.int32))
     p = MatParams(scene, mat_pack, sub_id, uv, has_textures=has_textures)
     return _sample_base(tables, p, vi, u2_eff, has_ltc)
+
+
+def eval_bxdf(scene, mat_pack, mat_id, vi, vr, uv, tables,
+              has_mix=True, has_ltc=True, has_textures=True, p0=None):
+    """BRDF value f(Vi, Vr) for lanes; handles one-level mixes.  The
+    has_* flags are static scene facts (SceneMeta) that skip lobes the
+    scene cannot reach; `p0` reuses prefetched MatParams.  The plain
+    version on a CPU tensor, one kernel launch on a CUDA tensor."""
+    if _device(vi).type == "cpu":
+        return eval_bxdf_plain(scene, mat_pack, mat_id, vi, vr, uv, tables,
+                               has_mix, has_ltc, has_textures, p0)
+    p = p0 if p0 is not None else MatParams(scene, mat_pack, mat_id, uv,
+                                            has_textures=has_textures)
+    mats = _slots(scene, mat_pack, p, uv, has_mix, has_textures)
+    return _call(_EvalFn, _Static(mats, tables, has_mix, has_ltc), vi, vr)
+
+
+def sample_bxdf(scene, mat_pack, mat_id, vi, uv, u2, tables,
+                has_mix=True, has_ltc=True, has_textures=True, p0=None):
+    """Sample an outgoing direction.  Returns (dir, throughput, leak);
+    mix lanes pick a leaf with the reference's sample-reuse split.  The
+    plain version on a CPU tensor, one kernel launch on a CUDA tensor."""
+    if _device(vi).type == "cpu":
+        return sample_bxdf_plain(scene, mat_pack, mat_id, vi, uv, u2, tables,
+                                 has_mix, has_ltc, has_textures, p0)
+    if p0 is None:
+        p0 = MatParams(scene, mat_pack, mat_id, uv, has_textures=has_textures)
+    mats = _slots(scene, mat_pack, p0, uv, has_mix, has_textures)
+    return _call(_SampleFn, _Static(mats, tables, has_mix, has_ltc), vi, u2)
+
+
+def _device(vi):
+    if vi.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no BxDF kernel for device {vi.device}")
+    return vi.device
+
+
+def _slots(scene, mat_pack, p, uv, has_mix, has_textures):
+    """The kernel's material slots: the lane's, and on a scene with mixes
+    its two sub-materials' (gathered as the plain eval gathers them)."""
+    if not has_mix:
+        return (p,)
+    return (p,) + tuple(MatParams(scene, mat_pack, m, uv,
+                                  has_textures=has_textures)
+                        for m in (p.mix_m1, p.mix_m2))
+
+
+class _Static:
+    """A call's inputs that take no gradient: each slot's ior, mix amount
+    (slot 0) and type column, the LTC rows and the scene's flags."""
+
+    def __init__(self, mats, tables, has_mix, has_ltc):
+        self.fixed = tuple((m.ior.detach(), m.mix_amt.detach() if k == 0
+                            else None, m.row[..., 12].detach())
+                           for k, m in enumerate(mats))
+        self.diff = tuple(t for m in mats
+                          for t in (m.diffuse, m.specular, m.roughness))
+        self.rows = tables.rows if has_ltc else None
+        self.has_mix, self.has_ltc = has_mix, has_ltc
+
+
+def _call(fn, st, vi, second):
+    """`fn`'s forward, through autograd when a floating input needs a
+    gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (vi, second) + st.diff):
+        return fn.apply(st, vi, second, *st.diff)
+    return fn.launch(st, vi, second, st.diff)
+
+
+class _EvalFn(torch.autograd.Function):
+    """eval under autograd: saves its inputs, recomputes in backward."""
+
+    @staticmethod
+    def launch(st, vi, vr, diff):
+        lead = vi.shape[:-1]
+        n = math.prod(lead)
+        a, keep = _args(st, lead, n, diff, vi=vi, vr=vr)
+        f = torch.empty((n, 3), dtype=torch.float32, device=vi.device)
+        a.f = f.data_ptr()
+        _launch("eval", a, n, vi.device, keep)
+        return f.reshape(*lead, 3)
+
+    @staticmethod
+    def forward(ctx, st, vi, vr, *diff):
+        ctx.st = st
+        ctx.save_for_backward(vi, vr, *diff)
+        ctx.set_materialize_grads(False)
+        return _EvalFn.launch(st, vi, vr, diff)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_f):
+        vi, vr, *diff = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        if g_f is None or not any(need):
+            return (None,) * (1 + len(need))
+        lead = vi.shape[:-1]
+        n = math.prod(lead)
+        a, keep = _args(ctx.st, lead, n, diff, vi=vi, vr=vr)
+        g_f = g_f.reshape(n, 3).contiguous()
+        a.g_f = g_f.data_ptr()
+        keep.append(g_f)
+        grads = _grad_outputs(a, need, lead, n, vi.device, ("vi", "vr"))
+        _launch("eval_bwd", a, n, vi.device, keep)
+        return (None,) + grads
+
+
+class _SampleFn(torch.autograd.Function):
+    """sample under autograd: saves its inputs, recomputes in backward;
+    `leak` takes no gradient."""
+
+    @staticmethod
+    def launch(st, vi, u2, diff):
+        lead = vi.shape[:-1]
+        n = math.prod(lead)
+        a, keep = _args(st, lead, n, diff, vi=vi, u2=u2)
+        dev = vi.device
+        d = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        thr = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        leak = torch.empty((n,), dtype=torch.bool, device=dev)
+        a.dir, a.thr, a.leak = d.data_ptr(), thr.data_ptr(), leak.data_ptr()
+        _launch("sample", a, n, dev, keep)
+        return d.reshape(*lead, 3), thr.reshape(*lead, 3), leak.reshape(lead)
+
+    @staticmethod
+    def forward(ctx, st, vi, u2, *diff):
+        ctx.st = st
+        ctx.save_for_backward(vi, u2, *diff)
+        ctx.set_materialize_grads(False)
+        out = _SampleFn.launch(st, vi, u2, diff)
+        ctx.mark_non_differentiable(out[2])
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_dir, g_thr, _g_leak):
+        vi, u2, *diff = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        if (g_dir is None and g_thr is None) or not any(need):
+            return (None,) * (1 + len(need))
+        lead = vi.shape[:-1]
+        n = math.prod(lead)
+        a, keep = _args(ctx.st, lead, n, diff, vi=vi, u2=u2)
+        for name, g in (("g_dir", g_dir), ("g_thr", g_thr)):
+            if g is not None:
+                g = g.reshape(n, 3).contiguous()
+                setattr(a, name, g.data_ptr())
+                keep.append(g)
+        grads = _grad_outputs(a, need, lead, n, vi.device, ("vi", None))
+        _launch("sample_bwd", a, n, vi.device, keep)
+        return (None,) + grads
+
+
+# The kernel's argument struct (csrc/bxdf.cu RgkBxdfArgs).
+class _Field(ctypes.Structure):
+    _fields_ = [("ptr", ctypes.c_void_p), ("stride", ctypes.c_longlong)]
+
+
+class _Mat(ctypes.Structure):
+    _fields_ = [(name, _Field) for name in (
+        "diffuse", "specular", "rough", "ior", "mix", "type")]
+
+
+class _Args(ctypes.Structure):
+    _fields_ = [("mat", _Mat * 3), ("vi", _Field), ("vr", _Field),
+                ("u2", _Field), ("ltc_rows", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("has_mix", ctypes.c_int),
+                ("has_ltc", ctypes.c_int), ("f", ctypes.c_void_p),
+                ("dir", ctypes.c_void_p), ("thr", ctypes.c_void_p),
+                ("leak", ctypes.c_void_p), ("g_f", ctypes.c_void_p),
+                ("g_dir", ctypes.c_void_p), ("g_thr", ctypes.c_void_p),
+                ("g_diffuse", ctypes.c_void_p * 3),
+                ("g_specular", ctypes.c_void_p * 3),
+                ("g_rough", ctypes.c_void_p * 3), ("g_vi", ctypes.c_void_p),
+                ("g_vr", ctypes.c_void_p)]
+
+
+def _field(t, lead, n, comps, dev, keep):
+    """A per-lane field of `lead` lanes and `comps` components (0: none)
+    as the kernel reads it: float32 on `dev`, lanes at a stride, a lane's
+    components adjacent.  A view that cannot be read so is copied."""
+    if t.dtype != torch.float32 or t.device != dev:
+        raise TypeError(f"BxDF kernel fields are float32 on {dev}, got "
+                        f"{t.dtype} on {t.device}")
+    tail = (comps,) if comps else ()
+    if t.shape != lead + tail:
+        t = t.expand(lead + tail)
+    t = t.reshape((n,) + tail)
+    if (comps and t.stride(1) != 1) or (n > 1 and t.stride(0) == 0):
+        t = t.contiguous()
+    keep.append(t)
+    return _Field(t.data_ptr(), t.stride(0))
+
+
+def _args(st, lead, n, diff, vi, vr=None, u2=None):
+    """-> (the `_Args` of a call, the tensors it points into, which the
+    caller holds until its launch is queued)."""
+    dev = vi.device
+    keep = []
+    a = _Args(n=n, has_mix=int(st.has_mix), has_ltc=int(st.has_ltc))
+    for k, (ior, mix, typ) in enumerate(st.fixed):
+        d, s, r = diff[3 * k:3 * k + 3]
+        m = a.mat[k]
+        m.diffuse = _field(d, lead, n, 3, dev, keep)
+        m.specular = _field(s, lead, n, 3, dev, keep)
+        m.rough = _field(r, lead, n, 0, dev, keep)
+        m.ior = _field(ior, lead, n, 0, dev, keep)
+        if mix is not None:
+            m.mix = _field(mix, lead, n, 0, dev, keep)
+        m.type = _field(typ, lead, n, 0, dev, keep)
+    a.vi = _field(vi, lead, n, 3, dev, keep)
+    if vr is not None:
+        a.vr = _field(vr, lead, n, 3, dev, keep)
+    if u2 is not None:
+        a.u2 = _field(u2, lead, n, 2, dev, keep)
+    if st.rows is not None:
+        rows = st.rows
+        if rows.shape != (2 * 64 * 64, 10) or rows.dtype != torch.float32 \
+                or rows.device != dev or not rows.is_contiguous():
+            raise ValueError("the LTC rows must be a contiguous float32 "
+                             f"[8192, 10] table on {dev}")
+        a.ltc_rows = rows.data_ptr()
+        keep.append(rows)
+    return a, keep
+
+
+def _grad_outputs(a, need, lead, n, dev, dirs):
+    """Allocates the gradients that `need` (needs_input_grad after the
+    static argument: the two directions, then diffuse, specular and
+    roughness a slot) asks for and points `a` at them.  -> the gradients
+    in the inputs' shapes, None where not needed."""
+    out = []
+    for name, want in zip(dirs, need[:2]):
+        if name is None or not want:
+            out.append(None)
+            continue
+        g = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        setattr(a, f"g_{name}", g.data_ptr())
+        out.append(g.reshape(*lead, 3))
+    for k in range(len(need[2:]) // 3):
+        for j, (name, comps) in enumerate((("g_diffuse", 3),
+                                           ("g_specular", 3),
+                                           ("g_rough", 0))):
+            if not need[2 + 3 * k + j]:
+                out.append(None)
+                continue
+            shape = (n, comps) if comps else (n,)
+            g = torch.empty(shape, dtype=torch.float32, device=dev)
+            getattr(a, name)[k] = g.data_ptr()
+            out.append(g.reshape(*lead, comps) if comps else g.reshape(lead))
+    return tuple(out)
+
+
+def _on_card(dev, entry, *args):
+    """Calls the library's `entry` with `args` and the current stream of
+    the card `dev`, and raises unless it launched."""
+    from .. import kernels
+
+    with torch.cuda.device(dev):
+        rc = entry(*args, torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(rc, "BxDF")
+
+
+def _launch(entry, a, n, dev, keep):
+    """One launch of the kernel's `entry` over `n` lanes (none with no
+    lane)."""
+    from .. import kernels
+
+    if n == 0:
+        return
+    _on_card(dev, getattr(kernels.load(), f"rgk_bxdf_{entry}"),
+             ctypes.addressof(a))
+    launches[entry] += 1

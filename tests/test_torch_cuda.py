@@ -1229,8 +1229,8 @@ def test_stamp_kernel_times_a_stretch(cuda_device):
 
 # The queued step's captured body on the 512x512 box with a 3,900-triangle
 # sphere (K1), its stamp and counter nodes included: a change to the
-# step's ops or to what it counts changes it.
-STAMPED_BODY_NODES = 686
+# step's ops or to what it counts changes it (686 before the BxDF kernel).
+STAMPED_BODY_NODES = 384
 
 
 def test_queued_graph_stamps_match_events(cuda_device, tmp_path):
@@ -1871,6 +1871,258 @@ def test_render_paths_equal_the_plain_sampler(cuda_device, tmp_path,
     _plain_sampler(monkeypatch)
     want, plain_launches, _ = run()
     assert plain_launches == 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if case == "bdpt" and i == 1:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(a, b), f"{case}: output {i}"
+
+
+# ---- the BxDF kernel (csrc/bxdf.cu, ops/bxdf.py)
+
+
+def _bxdf_lanes(n, seed, mix, dev):
+    from rgk_tpu_torch.ops import ltc as ltc_ops
+
+    pack, mid, vi, vr, u2 = scenes.bxdf_lanes(
+        n, seed, types=scenes.BXDF_TYPES if mix else scenes.BXDF_TYPES[:-1])
+    rows = torch.from_numpy(np.array(ltc_ops.load_tables_np())).to(dev)
+    return (pack.to(dev), mid.to(dev), vi.to(dev), vr.to(dev), u2.to(dev),
+            ltc_ops.LTCTables(rows=rows))
+
+
+def _lane_bits(t):
+    b = t.view(torch.int32) if t.dtype == torch.float32 else t
+    return b if b.dim() == 1 else b.reshape(b.shape[0], -1)
+
+
+@pytest.mark.parametrize("n", [1, 7, (1 << 18) + 3])
+@pytest.mark.parametrize("mix,ltc", [(False, False), (False, True),
+                                     (True, False), (True, True)])
+def test_bxdf_kernel_equals_plain(cuda_device, n, mix, ltc):
+    """eval_bxdf and sample_bxdf through the kernel against the plain
+    version on the card, bit for bit on every lane: each type, the mix
+    (and a mix over a mix), grazing and below-horizon directions, TIR,
+    the mirror and refraction tolerances' edges, roughness 0 and 1.  One
+    launch a call, none through the plain version."""
+    from rgk_tpu_torch.ops import bxdf
+
+    pack, mid, vi, vr, u2, tb = _bxdf_lanes(n, 11 + n, mix, cuda_device)
+    before = dict(bxdf.launches)
+    got = (bxdf.eval_bxdf(None, pack, mid, vi, vr, None, tb, mix, ltc,
+                          False),) + bxdf.sample_bxdf(
+        None, pack, mid, vi, None, u2, tb, mix, ltc, False)
+    assert bxdf.launches["eval"] == before["eval"] + 1
+    assert bxdf.launches["sample"] == before["sample"] + 1
+    want = (bxdf.eval_bxdf_plain(None, pack, mid, vi, vr, None, tb, mix,
+                                 ltc, False),) + bxdf.sample_bxdf_plain(
+        None, pack, mid, vi, None, u2, tb, mix, ltc, False)
+    assert bxdf.launches["eval"] == before["eval"] + 1
+    typ = pack[mid.long(), 12].long()
+    for name, a, b in zip(("f", "dir", "thr", "leak"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        off = (_lane_bits(a) != _lane_bits(b))
+        off = off.any(-1) if off.dim() > 1 else off
+        assert not off.any(), (name, torch.bincount(
+            typ[off], minlength=9).tolist())
+
+
+def _bxdf_grads(which, lanes, mix, ltc, g_out, dtype=torch.float32,
+                dev=None):
+    """Gradients of sum(g_out[0] * f) for an eval, and of sum(g_out[0] *
+    dir + g_out[1] * thr) for a sample, by the leaves diffuse, specular,
+    roughness (of the pack) and the directions."""
+    from rgk_tpu_torch.ops import bxdf
+    from rgk_tpu_torch.ops import ltc as ltc_ops
+
+    pack0, mid, vi0, vr0, u2, tb = lanes
+    dev = dev or pack0.device
+    pack0, vi0, vr0, u2 = (t.to(dev, dtype) for t in (pack0, vi0, vr0, u2))
+    tb = ltc_ops.LTCTables(rows=tb.rows.to(dev, dtype))
+    mid = mid.to(dev)
+    g_out = [g.to(dev, dtype) for g in g_out]
+    out = []
+    for entry in ("eval", "sample"):
+        d = pack0[:, 3:6].clone().requires_grad_(True)
+        s = pack0[:, 6:9].clone().requires_grad_(True)
+        r = pack0[:, 9].clone().requires_grad_(True)
+        vi = vi0.clone().requires_grad_(True)
+        vr = vr0.clone().requires_grad_(True)
+        pack = torch.cat([pack0[:, 0:3], d, s, r[:, None], pack0[:, 10:]], 1)
+        if entry == "eval":
+            fn = bxdf.eval_bxdf if which == "kernel" else bxdf.eval_bxdf_plain
+            f = fn(None, pack, mid, vi, vr, None, tb, mix, ltc, False)
+            loss, leaves = (f * g_out[0]).sum(), [d, s, r, vi, vr]
+        else:
+            fn = (bxdf.sample_bxdf if which == "kernel"
+                  else bxdf.sample_bxdf_plain)
+            dd, tt, _ = fn(None, pack, mid, vi, None, u2, tb, mix, ltc,
+                           False)
+            loss = (dd * g_out[0]).sum() + (tt * g_out[1]).sum()
+            leaves = [d, s, r, vi]
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out.append([torch.zeros_like(x) if g is None else g
+                    for x, g in zip(leaves, got)])
+    return out
+
+
+@pytest.mark.parametrize("mix,ltc", [(False, False), (False, True),
+                                     (True, False), (True, True)])
+def test_bxdf_kernel_backward_matches_autograd(cuda_device, mix, ltc):
+    """The kernel's backward (one launch an entry) against autograd of
+    the plain version on the card, for the pack's diffuse, specular and
+    roughness and for vi and vr, where the plain gradient is finite (the
+    elements skipped are counted).  At least 99% of each direction's
+    gradient elements lie within rtol 1e-5 of the plain version's (the
+    pack's rows sum every lane's).  The rest are lanes where the two
+    float32 backwards round apart (an LTC lobe's table slope and the
+    Fresnel derivative cancel): over them the kernel lies no farther from
+    autograd of the plain version in float64 than twice the plain float32
+    gradient does, plus rtol 1e-5 (sums of the distances), and no element
+    departs from the plain version by more than 5% (+ 1e-3 x the
+    largest)."""
+    from rgk_tpu_torch.ops import bxdf
+
+    n = (1 << 16) + 5
+    lanes = _bxdf_lanes(n, 5, mix, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    g_out = [torch.randn(n, 3, device=cuda_device, generator=gen)
+             for _ in range(2)]
+    before = dict(bxdf.launches)
+    got = _bxdf_grads("kernel", lanes, mix, ltc, g_out)
+    assert bxdf.launches["eval_bwd"] == before["eval_bwd"] + 1
+    assert bxdf.launches["sample_bwd"] == before["sample_bwd"] + 1
+    want = _bxdf_grads("plain", lanes, mix, ltc, g_out)
+    ref = _bxdf_grads("plain", lanes, mix, ltc, g_out, torch.float64,
+                      torch.device("cpu"))
+    stats, bad = {}, []
+    for entry, gs, ws, rs in zip(("eval", "sample"), got, want, ref):
+        for name, a, b, r in zip(("diffuse", "specular", "roughness", "vi",
+                                  "vr"), gs, ws, rs):
+            key = f"{entry}.{name}"
+            r = r.to(cuda_device)
+            fin = torch.isfinite(b)
+            far = fin & ((a - b).abs() > 1e-5 * b.abs())
+            scale = float(b[fin].abs().max()) if fin.any() else 0.0
+            wild = far & ((a - b).abs() > 0.05 * b.abs() + 1e-3 * scale)
+            err_k = float((a[far].double() - r[far]).abs().sum())
+            err_p = float((b[far].double() - r[far]).abs().sum())
+            size = float(r[far].abs().sum())
+            stats[key] = (int((~fin).sum()), int(far.sum()),
+                          int((a == b).sum()), b.numel(),
+                          f"{err_k / max(size, 1e-300):.2e}",
+                          f"{err_p / max(size, 1e-300):.2e}")
+            lanes_far = name in ("vi", "vr") and int(far.sum()) > 0.01 * \
+                b.numel()
+            if lanes_far or wild.any() or err_k > 2 * err_p + 1e-5 * size:
+                bad.append(key)
+    print(f"mix {mix} ltc {ltc}: (plain non-finite, skipped; beyond rtol "
+          f"1e-5 of the plain float32 gradient; bit-equal; elements; there "
+          f"the kernel's and the plain version's distance from float64, "
+          f"relative) {stats}")
+    assert not bad, bad
+
+
+def _plain_bxdf(monkeypatch):
+    """eval_bxdf and sample_bxdf replaced by their plain version, as the
+    port ran them on the card before the kernel."""
+    from rgk_tpu_torch.ops import bxdf
+
+    for name in ("eval_bxdf", "sample_bxdf"):
+        monkeypatch.setattr(bxdf, name, getattr(bxdf, f"{name}_plain"))
+
+
+@pytest.mark.parametrize("case", ["nee", "colonnade", "bdpt", "lanes",
+                                  "grad"])
+def test_render_paths_equal_the_plain_bxdf(cuda_device, tmp_path,
+                                           monkeypatch, case):
+    """A queued NEE block of the box and of the colonnade-class scene
+    (LTC-GGX, a texture), a queued BDPT block (the light phase too), a
+    LaneGraph round, and three SGD steps of the box's gradient step,
+    through the BxDF kernel against the same runs with the plain BxDF in
+    its place: outputs bit-equal (the BDPT splat image within rtol 1e-5:
+    atomics).  A queued NEE step launches one eval and one sample; the
+    plain runs launch none."""
+    from rgk_tpu_torch.diff.graph import make_value_and_grad
+    from rgk_tpu_torch.diff.params import extract_params
+    from rgk_tpu_torch.integrator import graph
+    from rgk_tpu_torch.ops import bxdf
+
+    if case == "grad":
+        path = scenes.write_config(tmp_path, scenes.box_config(
+            res=16, ms=4, reverse=0), "grad.json")
+        from rgk_tpu_torch.scene import config as tconfig
+
+        cfg = tconfig.load_config(path)
+        arrays, meta, _ = tconfig.build_scene(cfg, cuda_device)
+        pix = torch.arange(256)
+        args = (arrays, meta, cfg.settings, cfg.get_camera(),
+                (pix % 16).to(torch.int32).repeat(4),
+                (pix // 16).to(torch.int32).repeat(4),
+                torch.arange(4).repeat_interleave(256), 3,
+                torch.zeros(1024, 3))
+    elif case == "colonnade":
+        smoke = _module("_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+        path, _ = smoke.write_colonnade(
+            str(tmp_path / "scene"), 20000,
+            **{"output-width": 64, "output-height": 16, "multisample": 4})
+        arrays, meta, c = scenes.port_build(path, "cuda")
+        assert meta.has_ltc and meta.has_textures
+        s, cam = c.settings, c.get_camera().to("cuda")
+    else:
+        arrays, meta, s, cam = _graph_scene(
+            tmp_path, "bdpt" if case == "bdpt" else "flat")
+
+    def run(kernel=True):
+        """-> (outputs, BxDF launches a body, bodies run)."""
+        if case == "grad":
+            fn = make_value_and_grad(*args)
+            params = extract_params(arrays)
+            n0 = sum(bxdf.launches.values())
+            out = []
+            for _ in range(3):
+                loss, grads = fn(params)
+                out += [loss.clone()] + [g.clone() for g in grads.values()
+                                         if g is not None]
+                params = {k: (v - 0.05 * grads[k]).detach().requires_grad_()
+                          if grads[k] is not None else v
+                          for k, v in params.items()}
+            torch.cuda.synchronize()
+            return out + list(params.values()), \
+                sum(bxdf.launches.values()) - n0, 3
+        if case == "lanes":
+            runner = graph.LaneGraph(arrays, meta, s, cam, 2048)
+            px, py, si = _lanes_on_card()
+            graph.settle()
+            n0 = sum(bxdf.launches.values())
+            graph.reset_stats()
+            out = [t.clone() for t in runner.trace(px, py, si, 42, cam)]
+            st = graph.read_stats()
+            return out, sum(bxdf.launches.values()) - n0, st["lane_bounces"]
+        runner = graph.QueuedGraph(arrays, meta, s, cam, 1024, 4)
+        px, py = _graph_block()
+        graph.settle()
+        n0 = sum(bxdf.launches.values())
+        graph.reset_stats()
+        out = [t.clone() for t in runner.trace(px, py, 0, 42, cam)]
+        st = graph.read_stats()
+        at = [c is bxdf.launches for c in graph._COUNTERS].index(True)
+        body = runner._graphs["step"][1][at]
+        launched = sum(bxdf.launches.values()) - n0
+        assert launched - sum(body.values()) * st["iterations"] == (
+            sum(runner._graphs["light"][1][at].values())
+            if case == "bdpt" else 0)
+        if case in ("nee", "colonnade") and kernel:
+            assert body == {"eval": 1, "sample": 1, "eval_bwd": 0,
+                            "sample_bwd": 0}, body
+        return out, sum(body.values()), st["iterations"]
+
+    got, per_body, bodies = run()
+    assert bodies > 0 and per_body > 0
+    _plain_bxdf(monkeypatch)
+    want, plain_launches, _ = run(kernel=False)
+    assert plain_launches == 0
+    assert len(got) == len(want)
     for i, (a, b) in enumerate(zip(got, want)):
         if case == "bdpt" and i == 1:
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -331,3 +331,87 @@ def assert_binned_contract(pack, rays, binned, k2, never_later=True):
     if never_later:
         assert int(later.sum()) == 0, f"binned later on {int(later.sum())}"
     return n, int(earlier.sum()), int(later.sum())
+
+
+# The BxDF kernel's lanes: every material type (scene/arrays.py BSDF_*),
+# mixes (one of them over a mix, which the one-level mix evaluates as
+# zero), roughness 0 and 1, ior 1 and the edges of the delta lobes.
+BXDF_TYPES = tuple(range(9))
+
+
+def bxdf_lanes(n, seed, types=BXDF_TYPES):
+    """-> (pack [NM, 20], mat_id int32 [n], vi [n, 3], vr [n, 3], u2
+    [n, 2]), float32 on the CPU, each lane's material drawn from those of
+    `types`.  vr is the mirror of vi on a sixth of the lanes, the
+    refraction of the lane's dielectric (ior as the plain eval reads it)
+    on a sixth, 1e-4 / 1e-3 either side of those tolerances on a twelfth
+    each; vi grazes (z 0, +-1e-7, +-1e-4) on a twelfth; u2 holds 0 and
+    1 - 1e-7 on some lanes."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for t in range(8):
+        for k in range(4):
+            row = np.zeros(20, np.float32)
+            row[3:6] = rng.uniform(0.0, 0.9, 3)
+            row[6:9] = rng.uniform(0.0, 0.9, 3)
+            row[9] = (0.0, 1.0, 0.05, rng.uniform(0.01, 0.9))[k]
+            row[10] = (1.0, 1.5, 2.4, rng.uniform(1.1, 1.9))[k]
+            row[11] = rng.uniform()
+            row[12] = t
+            row[15:18] = -1.0
+            rows.append(row)
+    n_leaf = len(rows)
+    for k in range(7):
+        row = np.zeros(20, np.float32)
+        row[3:12] = rng.uniform(0.0, 0.9, 9)
+        row[11] = (0.0, 1.0, 0.5, rng.uniform(), rng.uniform(),
+                   rng.uniform(), 0.3)[k]
+        row[12] = 8
+        row[13:15] = rng.integers(0, n_leaf, 2)
+        if k == 6:
+            row[13] = n_leaf  # a mix over a mix
+        row[15:18] = -1.0
+        rows.append(row)
+    pack = np.stack(rows)
+    ok = np.flatnonzero(np.isin(pack[:, 12].astype(int), types))
+    mat_id = rng.choice(ok, n).astype(np.int32)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    vi = unit(rng.normal(size=(n, 3)))
+    vr = unit(rng.normal(size=(n, 3)))
+    part = rng.integers(0, 12, n)
+    mirror = vi * np.array([-1.0, -1.0, 1.0])
+    vr = np.where((part < 2)[:, None], mirror, vr)
+    # The refraction of the lane's own ior, as the plain eval builds it.
+    ior = pack[mat_id, 10].astype(np.float64)
+    viz = vi[:, 2]
+    eta = np.where(viz < 0.0, ior, 1.0 / ior)
+    e2 = np.where(viz < 0.0, 1.0 / eta, eta)
+    st2 = e2 * e2 * (1.0 - viz * viz)
+    ct = np.sqrt(np.clip(1.0 - st2, 1e-12, None)) * (st2 <= 1.0)
+    refr = np.stack([-vi[:, 0] * eta, -vi[:, 1] * eta,
+                     np.where(viz > 0.0, -ct, ct)], -1)
+    vr = np.where(((part >= 2) & (part < 4))[:, None], refr, vr)
+    # Either side of the mirror (1e-4) and refraction (1e-3) tolerances:
+    # 1 - cos(angle) = tol (1 -+ 5%).
+    side = np.where(rng.uniform(size=n) < 0.5, 0.95, 1.05)
+    for lo, base, tol in ((4, mirror, 1e-4), (5, unit(refr + 1e-12), 1e-3)):
+        perp = unit(np.cross(base, rng.normal(size=(n, 3))))
+        ang = np.arccos(1.0 - tol * side)[:, None]
+        edge = base * np.cos(ang) + perp * np.sin(ang)
+        vr = np.where((part == lo)[:, None], edge, vr)
+    graze = np.array([0.0, 1e-7, -1e-7, 1e-4, -1e-4])[rng.integers(0, 5, n)]
+    flat = unit(vi[:, :2]) * np.sqrt(1.0 - graze * graze)[:, None]
+    vi = np.where((part == 6)[:, None],
+                  np.concatenate([flat, graze[:, None]], -1), vi)
+    u2 = rng.uniform(size=(n, 2))
+    u2[part == 7, 0] = 0.0
+    u2[part == 8, 0] = 1.0 - 1e-7
+    u2[part == 9, 1] = 0.0
+
+    def f32(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+    return (f32(pack), torch.from_numpy(mat_id), f32(vi), f32(vr), f32(u2))
