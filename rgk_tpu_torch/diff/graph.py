@@ -24,7 +24,12 @@ card.  On the CPU a call is plain autograd on the same leaves.
 The step stamps its phases into the runner's probe (`tgraph._Probe`):
 a mark at its start, `grad_fwd_ns` after the loss, `grad_bwd_ns` after
 `torch.autograd.grad`; `tgraph.read_stats()` sums them with
-`grad_steps`, the calls since the capture.
+`grad_steps`, the calls since the capture.  While the step runs (and is
+captured) the probe is `graph_while.grad_probe`: the texel gathers'
+backward and the BxDF kernel's backward launches stamp themselves into
+`tex_bwd_ns` and `bxdf_bwd_ns`, parts of the backward that `read_stats`
+adds back into `grad_bwd_ns`, and the forward counts its textured
+lookups into `tex_fetches`.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from ..integrator import graph as tgraph
+from ..ops import graph_while as gw
 from ..utils import trace
 from .params import extract_params, make_loss_fn
 
@@ -55,12 +61,16 @@ class ValueAndGrad(tgraph._Runner):
         self._register()
 
     def _step(self) -> None:
-        self.probe.stamp()
-        loss = self.loss_fn(self.leaves)
-        self.probe.stamp("grad_fwd_ns")
-        grads = torch.autograd.grad(loss, list(self.leaves.values()),
-                                    allow_unused=True)
-        self.probe.stamp("grad_bwd_ns")
+        gw.grad_probe = self.probe
+        try:
+            self.probe.stamp()
+            loss = self.loss_fn(self.leaves)
+            self.probe.stamp("grad_fwd_ns")
+            grads = torch.autograd.grad(loss, list(self.leaves.values()),
+                                        allow_unused=True)
+            self.probe.stamp("grad_bwd_ns")
+        finally:
+            gw.grad_probe = None
         self.out = (loss.detach(), dict(zip(self.leaves, grads)))
 
     def _warm(self) -> None:

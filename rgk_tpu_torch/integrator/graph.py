@@ -144,6 +144,8 @@ _PHASES = {
     "light": _Phase("light_ns", "light_intersect_ns", ("light_live_rays",),
                     ("light_live_rays", "light_any_rays"), False,
                     "light_closest_queries", "light_any_queries")}
+# The gradient step's backward phases stamped apart from `grad_bwd_ns`.
+_GRAD_BWD = ("tex_bwd_ns", "bxdf_bwd_ns")
 # Every runner's probe, read by `settle`.
 _probes = []
 _lock = threading.Lock()
@@ -186,7 +188,16 @@ class _Probe:
     in view into `splats`.  `_PHASES` says where each phase's stamps and
     live rays go.  The gradient step (`diff/graph.py`) marks at its
     start and stamps `grad_fwd_ns` after the loss and `grad_bwd_ns`
-    after `torch.autograd.grad`.
+    after `torch.autograd.grad`.  Inside the backward, phases of their
+    own (`nested`, through `gw.grad_phase`) first stamp what ran of the
+    backward before them into `grad_bwd_ns`: `tex_bwd_ns`, the texel
+    gathers' backward (`ops/textures.py`, the accumulate into the texel
+    gradient table), and `bxdf_bwd_ns`, the BxDF kernel's backward
+    launches (`ops/bxdf.py`); `read_stats` reports `grad_bwd_ns` as the
+    sum of the backward's parts (`_GRAD_BWD`), the whole backward.  The
+    step's forward adds its textured lookups (the lanes of each colour
+    lookup with a texture, `textures.resolve_color`) into
+    `tex_fetches`.
 
     Counted on the host, once per captured body as the launches are:
     `closest_queries`, `any_queries` and `connect_queries` a step,
@@ -237,6 +248,14 @@ class _Probe:
     def add(self, name: str, value) -> None:
         """`value`, an int64 [] on the device, into slot `name`."""
         self.acc[self.slot(name)].add_(value)
+
+    @contextlib.contextmanager
+    def nested(self, name: str):
+        """Phase `name` inside the gradient step's backward: the time
+        before it into `grad_bwd_ns`, its own into `name`."""
+        self.stamp("grad_bwd_ns")
+        yield
+        self.stamp(name)
 
     def start(self, name: str) -> None:
         """A step's ("eye") or the light phase's ("light") start: a mark,
@@ -329,6 +348,7 @@ def read_stats() -> dict:
     """`stats` after `settle` (`_Probe` lists them; a name never counted
     reads 0), `overshoot`, the steps run past the end, `step_ns`, the
     queued steps' device time (the "eye" and "connect" phases' slots),
+    `grad_bwd_ns` with the backward's nested phases added (`_GRAD_BWD`),
     and the sampler and BxDF kernels' launches since the process started
     (`ops/sampler.py` and `ops/bxdf.py` `launches`, replays and WHILE
     bodies included): `sampler_<entry>` and `bxdf_<entry>` by entry,
@@ -344,6 +364,7 @@ def read_stats() -> dict:
     got["overshoot"] = got["steps"] - got["iterations"]
     got["step_ns"] = sum(got[_PHASES[p].outside] + got[_PHASES[p].inside]
                          for p in ("eye", "connect"))
+    got["grad_bwd_ns"] += sum(got[name] for name in _GRAD_BWD)
     return got
 
 

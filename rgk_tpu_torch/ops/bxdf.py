@@ -20,8 +20,9 @@ kernel reads its per-lane fields in place.  Under autograd a call is a
 (`eval_bwd` / `sample_bwd`), recomputing the lobe from the saved inputs:
 it returns the gradients of diffuse, specular, roughness and the local
 directions; ior and the mix amount, no parameter of `diff/params.py`,
-get none.  `launches` counts the kernel's launches by entry; nothing
-else adds to it.
+get none.  Inside the gradient step the backward launches are stamped
+as its `bxdf_bwd_ns` phase (`graph_while.grad_phase`).  `launches`
+counts the kernel's launches by entry; nothing else adds to it.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from ..scene.arrays import (
     BSDF_MIX,
     BSDF_TRANSPARENT,
 )
+from . import graph_while as gw
 from . import ltc as ltc_ops
 from . import textures as tex_ops
 from . import vecmath as vm
@@ -403,7 +405,8 @@ class _EvalFn(torch.autograd.Function):
         a.g_f = g_f.data_ptr()
         keep.append(g_f)
         grads = _grad_outputs(a, need, lead, n, vi.device, ("vi", "vr"))
-        _launch("eval_bwd", a, n, vi.device, keep)
+        with gw.grad_phase("bxdf_bwd_ns"):
+            _launch("eval_bwd", a, n, vi.device, keep)
         return (None,) + grads
 
 
@@ -449,7 +452,8 @@ class _SampleFn(torch.autograd.Function):
                 setattr(a, name, g.data_ptr())
                 keep.append(g)
         grads = _grad_outputs(a, need, lead, n, vi.device, ("vi", None))
-        _launch("sample_bwd", a, n, vi.device, keep)
+        with gw.grad_phase("bxdf_bwd_ns"):
+            _launch("sample_bwd", a, n, vi.device, keep)
         return (None,) + grads
 
 

@@ -27,7 +27,9 @@ body call: the setter's plain version, for CPU tensors.
 time since the accumulator's last stamp added into one slot, on the
 device's clock and with no read on the host, so that a captured body
 times its own phases (`integrator/graph.py`).  On a CPU tensor it does
-the same with `time.perf_counter_ns()`.
+the same with `time.perf_counter_ns()`.  `grad_phase(name)` stamps an
+op's backward as its own phase of the gradient step being run
+(`grad_probe`, set by `diff/graph.py`), and does nothing outside one.
 
 `launches["setter"]` counts the setter's runs, added from the device
 counters when `integrator.graph.read_stats` reads them;
@@ -41,6 +43,7 @@ generator's state alone).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import time
 
@@ -50,6 +53,11 @@ from .. import kernels
 
 launches = {"setter": 0, "stamp": 0}
 LAST = 1  # the slot of a stamp accumulator that holds its latest stamp
+# The probe (`integrator.graph._Probe`) of the gradient step being run or
+# captured, set by `diff/graph.py` around the step; None outside one.  Ops
+# whose backward is a phase of its own stamp it (`_Probe.nested`), and the
+# texture lookups add their textured lanes to it.
+grad_probe = None
 
 
 def _raise(lib, rc: int, what: str):
@@ -160,6 +168,13 @@ def stamp(acc, slot: int = -1) -> None:
         rc = lib.rgk_stamp(acc.data_ptr(), LAST, slot, stream)
     kernels.check_launch(rc, "stamp")
     launches["stamp"] += 1
+
+
+def grad_phase(name: str):
+    """A context around an op's backward: phase `name` of the gradient
+    step being run (`grad_probe.nested`), or nothing outside one."""
+    probe = grad_probe
+    return contextlib.nullcontext() if probe is None else probe.nested(name)
 
 
 def run_plain(body, flag, prologue=None, epilogue=None) -> int:

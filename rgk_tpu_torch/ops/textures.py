@@ -1,6 +1,13 @@
 """Texture sampling over the flat atlas (port of rgk_tpu/ops/textures.py):
 bilinear with repeat-wrap and half-texel offset, bump-map slopes, and
 the lat-long sky lookup.  Each lane may address a different texture.
+
+A texel fetch is `_Gather`: plain indexing, whose backward adds into a
+zero table what plain indexing's backward adds, stamped as the step's
+`tex_bwd_ns` (`graph_while.grad_phase`).  Where no input takes a
+gradient (a render) autograd records nothing, so the ops are plain
+indexing's.  In a gradient step a colour lookup adds its textured lanes
+to the step's `tex_fetches`.
 """
 
 from __future__ import annotations
@@ -8,16 +15,54 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from . import graph_while as gw
 
 
 def _wrap01(x):
     return x - torch.floor(x)
 
 
+class _Gather(torch.autograd.Function):
+    """`texels[idx]` whose backward adds each lane's gradient into its
+    texel of a zero table, in lane order, as plain indexing's backward
+    does (its `_index_put_impl_` with `unsafe`, which reads nothing back
+    on the host: `index_put_`'s range check would sync), inside the
+    gradient step's `tex_bwd_ns` phase.
+
+    A lane whose gradient is 0 (an untextured lane, whose lookup
+    `torch.where` discards; a lane that missed or ended) adds its row to
+    a spare row of its own past the table, which is dropped: the sums
+    are plain indexing's bit for bit (adding +-0.0 to a sum that starts
+    at +0.0 leaves it alone), and those lanes, which all fetch the same
+    few texels, no longer pile onto them in one serial run of the
+    sort-based accumulate."""
+
+    @staticmethod
+    def forward(ctx, texels, idx):
+        ctx.save_for_backward(idx)
+        ctx.table = texels.shape
+        return texels[idx]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        n = ctx.table[0]
+        with gw.grad_phase("tex_bwd_ns"):
+            spare = n + torch.arange(idx.numel(), device=idx.device)
+            rows = torch.where((g != 0).any(dim=-1), idx,
+                               spare.reshape(idx.shape))
+            table = g.new_zeros((n + idx.numel(), *ctx.table[1:]))
+            torch.ops.aten._index_put_impl_(table, (rows,), g, True, True)
+        return table[:n], None
+
+
 def _fetch(texels, offset, w, h, ix, iy):
     ix = torch.minimum(torch.clamp(ix, min=0), w - 1)
     iy = torch.minimum(torch.clamp(iy, min=0), h - 1)
-    return texels[(offset + iy * w + ix).long()]
+    return _Gather.apply(texels, (offset + iy * w + ix).long())
 
 
 def _desc(atlas, tex_id):
@@ -52,8 +97,11 @@ def sample_bilinear(atlas, tex_id, uv):
 
 def resolve_color(atlas, tex_id, solid_color, uv):
     """Texture when tex_id >= 0, else the solid color."""
+    textured = tex_id >= 0
+    if gw.grad_probe is not None and atlas.texels.requires_grad:
+        gw.grad_probe.add("tex_fetches", textured.sum())
     tex = sample_bilinear(atlas, tex_id, uv)
-    return torch.where((tex_id >= 0)[..., None], tex, solid_color)
+    return torch.where(textured[..., None], tex, solid_color)
 
 
 def bump_slopes(atlas, tex_id, uv):

@@ -2032,6 +2032,85 @@ def _plain_bxdf(monkeypatch):
         monkeypatch.setattr(bxdf, name, getattr(bxdf, f"{name}_plain"))
 
 
+def test_texel_gather_backward_on_the_card(cuda_device):
+    """The texel gather's backward at the colonnade's sizes (a 512x512
+    texture, 1,036,800 lanes, 60% of them untextured, all on texel 0)
+    against plain indexing's, bit for bit: those lanes' gradient is 0,
+    and their rows go past the table instead of into one serial run."""
+    from rgk_tpu_torch.ops import textures
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n, lanes = 512 * 512, 1_036_800
+    texels = torch.rand(n, 3, device="cuda", generator=g)
+    idx = torch.randint(0, n, (lanes,), device="cuda", generator=g)
+    live = torch.rand(lanes, device="cuda", generator=g) < 0.4
+    idx = torch.where(live, idx, 0)
+    up = torch.where(live[:, None], torch.randn(lanes, 3, device="cuda",
+                                                generator=g), 0.0)
+    a = texels.clone().requires_grad_(True)
+    b = texels.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(a[idx], a, up)
+    (got,) = torch.autograd.grad(textures._Gather.apply(b, idx), b, up)
+    assert float(want.abs().sum()) > 0 and torch.equal(got, want)
+
+
+def test_textured_ltc_value_and_grad_graph_equals_eager(cuda_device,
+                                                        tmp_path):
+    """The gradient step on the 33,960-triangle colonnade (K2, the stone
+    texture, LTC-GGX lobes, sun, sky, emissive panels; 64x16 x 2 spp,
+    roulette off) as one graph against the eager step, two parameter
+    values through one runner, with no sync in the replay: the loss and
+    each leaf's gradient within `test_value_and_grad_graph_equals_eager`'s
+    bounds.  The replays stamp the texel backward (`tex_bwd_ns`) and the
+    BxDF kernel's backward (`bxdf_bwd_ns`), both inside `grad_bwd_ns`,
+    and count the textured lookups (`tex_fetches`)."""
+    from rgk_tpu_torch.diff.graph import make_value_and_grad
+    from rgk_tpu_torch.diff.params import extract_params, make_loss_fn
+    from rgk_tpu_torch.integrator import graph
+
+    smoke = _module("_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    path, _ = smoke.write_colonnade(
+        str(tmp_path / "scene"), 20000,
+        **{"output-width": 64, "output-height": 16, "multisample": 2,
+           "russian": -1.0})
+    arrays, meta, c = scenes.port_build(path, "cuda")
+    assert meta.has_ltc and meta.has_textures and meta.has_bvh
+    pix = torch.arange(64 * 16)
+    args = (arrays, meta, c.settings, c.get_camera(),
+            (pix % 64).to(torch.int32).repeat(2),
+            (pix // 64).to(torch.int32).repeat(2),
+            torch.arange(2).repeat_interleave(64 * 16), 5,
+            torch.zeros(2 * 64 * 16, 3))
+    fn, loss_fn = make_value_and_grad(*args), make_loss_fn(*args)
+    params = extract_params(arrays)
+    graph.reset_stats()
+    for f in (1.0, 0.8):
+        p = {k: (v.detach() * f).requires_grad_(True)
+             for k, v in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, grads = fn(p)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want_l = loss_fn(p)
+        want = torch.autograd.grad(want_l, list(p.values()),
+                                   allow_unused=True)
+        torch.testing.assert_close(loss, want_l.detach(), rtol=1e-5, atol=0)
+        for k, w in zip(p, want):
+            assert (grads[k] is None) == (w is None), k
+            if w is not None:
+                assert bool(torch.isfinite(grads[k]).all()), k
+                tol = 1e-5 * float(w.abs().max()) + 1e-9
+                assert float((grads[k] - w).abs().max()) <= tol, k
+        assert float(grads["texels"].abs().max()) > 0
+    st = graph.read_stats()
+    assert st["grad_steps"] == 2
+    assert st["tex_bwd_ns"] > 0 and st["bxdf_bwd_ns"] > 0
+    assert st["tex_fetches"] > 0
+    assert st["grad_bwd_ns"] >= st["tex_bwd_ns"] + st["bxdf_bwd_ns"]
+
+
 @pytest.mark.parametrize("case", ["nee", "colonnade", "bdpt", "lanes",
                                   "grad"])
 def test_render_paths_equal_the_plain_bxdf(cuda_device, tmp_path,

@@ -5,7 +5,9 @@ the same scene and parameters, on the CPU.
 The scenes are tests/test_grad.py's, inline, plus its mesh-BVH case
 with a tools/make_bigscene.py sphere committed with bvh_threshold=8, so
 every hit comes from the tree walk (the reference's fixture skips
-without its corpus).  With a fixed seed and roulette off no sampling
+without its corpus), and the benchmark's colonnade_grad configuration
+shrunk to 6,000 triangles at 16x16 (a stone texture, LTC-GGX and
+LTC-GGX-diffuse lobes, emissive panels, a sun and a sky, on the BVH).  With a fixed seed and roulette off no sampling
 decision depends on a parameter, so the loss is piecewise smooth and
 finite differences converge to the analytic gradient.
 
@@ -16,6 +18,7 @@ within rtol 1e-4, and every leaf's gradient within 2e-3 * max|g_jax| +
 another order).
 """
 
+import copy
 import json
 import os
 
@@ -92,6 +95,13 @@ MESH_SCENE = {
 
 def _write(tmp_path_factory, name, cfg_d):
     d = tmp_path_factory.mktemp(name)
+    if name == "colonnade":
+        from rgkbench import harness
+
+        wl = copy.deepcopy(harness.workload("colonnade.grad"))
+        wl["scene"].update({"output-width": 16, "output-height": 16})
+        cfg = dict(harness.config("colonnade_grad"), budget=6000)
+        return harness.scene_file("colonnade.grad", wl, str(d), cfg)
     if name == "texel":
         from rgk_tpu_torch.io.texture_io import write_png
 
@@ -107,11 +117,12 @@ def _write(tmp_path_factory, name, cfg_d):
     return str(p)
 
 
-def _lanes():
-    i = np.arange(N_LANES)
-    return (torch.from_numpy((i % 8).astype(np.int32)),
-            torch.from_numpy(((i // 8) % 8).astype(np.int32)),
-            torch.zeros(N_LANES, dtype=torch.int64))
+def _lanes(cam):
+    """One lane a pixel at sample 0: N_LANES on an 8x8 image."""
+    i = np.arange(cam.xres * cam.yres)
+    return (torch.from_numpy((i % cam.xres).astype(np.int32)),
+            torch.from_numpy((i // cam.xres).astype(np.int32)),
+            torch.zeros(i.size, dtype=torch.int64))
 
 
 class Setup:
@@ -126,10 +137,10 @@ class Setup:
         self.arrays, self.meta, _ = build_scene(self.cfg, "cpu", **kw)
         assert self.meta.has_bvh == bvh
         self.cam = self.cfg.get_camera()
-        self.lanes = _lanes()
+        self.lanes = _lanes(self.cam)
         self.loss_fn = make_loss_fn(
             self.arrays, self.meta, self.cfg.settings, self.cam,
-            *self.lanes, SEED, torch.zeros(N_LANES, 3))
+            *self.lanes, SEED, torch.zeros(self.lanes[0].shape[0], 3))
         self.params = extract_params(self.arrays)
         self.loss = self.loss_fn(self.params)
         self.grad = dict(zip(self.params, torch.autograd.grad(
@@ -161,7 +172,8 @@ class Setup:
 
 
 _SCENES = {"grad": (scenes.GRAD_SCENE, False), "nee": (NEE_SCENE, False),
-           "texel": (TEXEL_SCENE, False), "mesh": (MESH_SCENE, True)}
+           "texel": (TEXEL_SCENE, False), "mesh": (MESH_SCENE, True),
+           "colonnade": (None, True)}
 
 
 @pytest.fixture(scope="module")
@@ -289,7 +301,7 @@ def test_grad_matches_reference(setups, scene):
     loss_fn = jparams.make_loss_fn(
         arrays, meta, cfg.settings, cfg.get_camera(), px, py,
         si.astype(jnp.uint32), jnp.uint32(SEED),
-        jnp.zeros((N_LANES, 3), jnp.float32))
+        jnp.zeros((px.shape[0], 3), jnp.float32))
     jp = jparams.extract_params(arrays)
     jl, jg = jax.value_and_grad(loss_fn)(jp)
 
@@ -299,6 +311,8 @@ def test_grad_matches_reference(setups, scene):
                                           allow_unused=True)))
     jl = float(jl)
     assert jl > 0.0
+    if scene == "colonnade":   # texels, LTC lobes, panels, sun and sky
+        assert all(np.abs(np.asarray(jg[k])).max() > 0 for k in PARAM_KEYS)
     assert abs(float(tl.detach()) - jl) <= 1e-4 * abs(jl), (float(tl), jl)
     for k in PARAM_KEYS:
         want = np.asarray(jg[k], np.float64)

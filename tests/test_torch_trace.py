@@ -18,7 +18,8 @@ Contracts:
   name, a name never counted reads 0, and a probe that runs out of
   slots raises;
 * the gradient step counts its calls and stamps a forward and a
-  backward time; the scene build's `timings` are its phase spans;
+  backward time, the backward's nested phases added back into
+  `grad_bwd_ns`; the scene build's `timings` are its phase spans;
 * spans nest by parent id, the ring keeps the last `RING`, and
   `write_chrome` writes JSON in the Chrome trace format, with the
   counters of `read_stats()`;
@@ -27,6 +28,7 @@ Contracts:
 """
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -162,6 +164,26 @@ def test_gradient_step_stamps(tmp_path, traced):
     assert len(trace.spans("grad.step")) >= 2
 
 
+def test_nested_backward_phases_are_parts_of_grad_bwd_ns():
+    """`_Probe.nested` stamps the backward before it into `grad_bwd_ns`
+    and its own time into its name; `read_stats` reports `grad_bwd_ns`
+    as the sum of the parts."""
+    probe = graph._Probe("cpu")
+    probe.stamp()
+    time.sleep(0.002)
+    with probe.nested("tex_bwd_ns"):
+        time.sleep(0.002)
+    probe.stamp("grad_bwd_ns")
+    got = {k: int(probe.acc[at]) for k, at in probe.slots.items()}
+    assert got["grad_bwd_ns"] >= 2_000_000 and got["tex_bwd_ns"] >= 2_000_000
+    graph.reset_stats()
+    graph._bump(grad_bwd_ns=5, tex_bwd_ns=2, bxdf_bwd_ns=3)
+    st = graph.read_stats()
+    assert (st["grad_bwd_ns"], st["tex_bwd_ns"], st["bxdf_bwd_ns"]) == (
+        10, 2, 3)
+    graph.reset_stats()
+
+
 def test_spans_nest_and_the_ring_is_bounded(monkeypatch):
     with trace.span("outer", k=1) as outer:
         with trace.span("inner") as inner:
@@ -207,9 +229,14 @@ _STATS = {"iterations": 10, "intersect_ns": 20_000_000,
           "step_ns": 50_000_000, "live_lanes": 300, "lane_steps": 1000,
           "closest_queries": 10, "any_queries": 20, "any_live_rays": 400,
           "grad_steps": 4, "grad_fwd_ns": 360_000_000,
-          "grad_bwd_ns": 80_000_000}
+          "grad_bwd_ns": 80_000_000, "tex_bwd_ns": 8_000_000,
+          "bxdf_bwd_ns": 12_000_000, "tex_fetches": 1_000_000}
 _TRIANGLES = 1000
+_TEXELS = 2000
 _BYTES = (300 * (32 + 16) + 400 * (32 + 4) + 30 * _TRIANGLES * 36)
+# The texel backward's least bytes over the 4 steps: each textured
+# lookup's colour gradient and uv read, the texel table written a step.
+_TEX_BYTES = 1_000_000 * (12 + 8) + 4 * _TEXELS * 12
 
 
 @pytest.mark.parametrize("name,want,needs", [
@@ -220,10 +247,14 @@ _BYTES = (300 * (32 + 16) + 400 * (32 + 4) + 30 * _TRIANGLES * 36)
     ("loop.live_lane_share", 0.3, "lane_steps"),
     ("grad.graph_fwd_ms", 90.0, "grad_fwd_ns"),
     ("grad.graph_bwd_ms", 20.0, "grad_steps"),
+    ("grad.tex_bwd_ms", 2.0, "tex_bwd_ns"),
+    ("grad.bxdf_bwd_ms", 3.0, "bxdf_bwd_ns"),
+    ("grad.tex_bwd_roofline", 100 * _TEX_BYTES / 3.35e12 / 0.008,
+     "tex_fetches"),
 ])
 def test_counter_readers(monkeypatch, name, want, needs):
     read = harness.load_module("metrics", name).read
-    rec = {"busy_s": 1.0, "triangles": _TRIANGLES}
+    rec = {"busy_s": 1.0, "triangles": _TRIANGLES, "texels": _TEXELS}
     monkeypatch.setattr(graph, "read_stats", lambda: dict(_STATS))
     assert read(rec) == pytest.approx(want, rel=1e-12)
     assert read({}) is None
